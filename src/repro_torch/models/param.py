@@ -1,0 +1,145 @@
+"""Parameter builder (port of :mod:`repro.models.param`).
+
+One code path yields concrete parameters, abstract ones (``meta`` tensors, no
+memory), and a parallel tree of logical-axis names per leaf, e.g.
+``("layers", "embed", "mlp")``.  The axis tree is kept for the sharding slice
+of the port.  Leaves keep the JAX layouts: ``wq`` is (d, H, hd), stacked
+blocks are (L, ...).
+
+Initializers draw from one seeded ``torch.Generator`` on the target device,
+leaf after leaf in creation order.  They never reproduce ``jax.random``'s
+numbers: tests carry JAX weights across with :func:`repro_torch.interop.params_from_jax`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+PyTree = Any
+Init = Callable[[Optional[torch.Generator], Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (generator, shape, dtype, device) -> tensor
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen, shape, dtype, device, std: float) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(std).to(dtype)
+
+
+def normal_init(stddev: float = 0.02) -> Init:
+    def init(gen, shape, dtype, device):
+        return _normal(gen, shape, dtype, device, stddev)
+
+    return init
+
+
+def scaled_init(fan_in_axis: int = -2) -> Init:
+    """LeCun-style 1/sqrt(fan_in) initializer (fan-in read from shape)."""
+
+    def init(gen, shape, dtype, device):
+        fan_in = shape[fan_in_axis] if len(shape) >= 2 else shape[-1]
+        return _normal(gen, shape, dtype, device, 1.0 / math.sqrt(max(1, fan_in)))
+
+    return init
+
+
+def ones_init() -> Init:
+    def init(gen, shape, dtype, device):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    return init
+
+
+# ---------------------------------------------------------------------------
+# Builder
+# ---------------------------------------------------------------------------
+
+
+class ParamBuilder:
+    """Collects parameters into a nested-dict tree with logical axis metadata.
+
+    ``abstract=True`` makes ``meta`` tensors: shapes and dtypes only.
+    """
+
+    def __init__(self, generator: Optional[torch.Generator], abstract: bool,
+                 dtype: torch.dtype, device: torch.device):
+        self.generator = generator
+        self.abstract = abstract
+        self.dtype = dtype
+        self.device = device
+        self.params: Dict[str, Any] = {}
+        self.axes: Dict[str, Any] = {}
+
+    def scope(self, name: str) -> "ParamBuilder":
+        child = ParamBuilder(self.generator, self.abstract, self.dtype, self.device)
+        self.params[name] = child.params
+        self.axes[name] = child.axes
+        return child
+
+    def param(
+        self,
+        name: str,
+        shape: Sequence[int],
+        axes: Tuple[Optional[str], ...],
+        init: Optional[Init] = None,
+        dtype: Optional[torch.dtype] = None,
+    ) -> torch.Tensor:
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: shape {tuple(shape)} vs axes {axes}")
+        dtype = dtype or self.dtype
+        shape = tuple(int(s) for s in shape)
+        if self.abstract:
+            leaf = torch.empty(shape, dtype=dtype, device="meta")
+        else:
+            leaf = (init or normal_init())(self.generator, shape, dtype, self.device)
+        self.params[name] = leaf
+        self.axes[name] = tuple(axes)
+        return leaf
+
+
+class StackedBuilder:
+    """View over a ParamBuilder that prepends a stacked-layer dim to every param
+    (shape ``(L, ...)``, logical axes ``("layers", ...)``)."""
+
+    def __init__(self, inner, n: int):
+        self._inner = inner
+        self._n = n
+
+    def scope(self, name: str) -> "StackedBuilder":
+        return StackedBuilder(self._inner.scope(name), self._n)
+
+    def param(self, name, shape, axes, init=None, dtype=None):
+        return self._inner.param(
+            name, (self._n, *shape), ("layers", *axes), init=init, dtype=dtype
+        )
+
+
+def stacked(b, n: int) -> StackedBuilder:
+    return StackedBuilder(b, n)
+
+
+def build(
+    fn: Callable[[ParamBuilder], None],
+    *,
+    seed: Optional[int] = None,
+    abstract: bool = False,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device = torch.device("cpu"),
+) -> Tuple[PyTree, PyTree]:
+    """Run ``fn(builder)`` and return ``(params, logical_axes)`` trees.
+
+    Concrete leaves are drawn from ``torch.Generator(device).manual_seed(seed)``.
+    """
+    gen = None
+    if not abstract:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0 if seed is None else int(seed))
+    b = ParamBuilder(gen, abstract, dtype, torch.device(device))
+    fn(b)
+    return b.params, b.axes
+
