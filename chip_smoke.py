@@ -19,7 +19,29 @@ Phases (any failure raises and the script exits non-zero):
      512, 64 new tokens, native and int8 KV cache, with the launch counters
      showing that every attention call went through the kernels.
 
-The last two lines are ``{"kernels": [...]}`` and
+Training (``repro_torch.launch.train``'s session: the demo fleet of 1 host
++ 2 CSD-class workers, tuned to 60 rows of which 24 are valid, AdamW, the
+goyal schedule):
+  6. the training path's kernels (flash attention, row quantizer, int8-K/V
+     flash attention) at the full-width training shapes (Q/K/V (60, 256, 32,
+     128) bf16) against their plain versions: the quantizer bit for bit at
+     noise 0.5, at random noise and at a ragged row count; times and bounds
+     as in phase 3;
+  7. the smoke config in float32: ``Session.run`` for 6 steps on the CPU
+     (plain versions) and on the card (kernels) from the same weights, in
+     ``f32`` and ``int8-fused``; per-step losses must agree;
+  8. deepseek-7b at full width, depth cut 30 -> 8 layers (AdamW state of 30
+     layers does not fit 80 GB), seq 256: ``Session.run`` for 5 steps in
+     ``f32`` and in ``int8-fused``, with ms/step (the step alone, and the
+     whole loop with the data plane's batch assembly), valid tokens/s, peak
+     memory, finite losses and grad norms, and launch counters;
+  9. profiles, after every timed run: one training step per precision and
+     the decode step of phase 5 (``torch.profiler``, device time by kind).
+
+Each record of the kernels line carries the main path (``serving`` or
+``training``) whose shapes it was timed at and whose launches it counts;
+flash attention has one record per path.  The last two lines are
+``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port's
 sources beside this file, it exits non-zero and prints no result.
 """
@@ -117,7 +139,7 @@ def kernel_checks(torch, ops, R, F, dev):
             nbytes = 4 * q.numel() * q.element_size()
             b_ms, b_by = bound(nbytes, flops, "bfloat16")
             records.append(dict(
-                name="flash_attention", route="cuda",
+                name="flash_attention", path="serving", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:133",
                 launches=0, max_abs_err=err,
@@ -141,7 +163,7 @@ def kernel_checks(torch, ops, R, F, dev):
             nbytes = 2 * rows * H * D * esz + 2 * q.numel() * esz + valid.numel() * 4
             b_ms, b_by = bound(nbytes, 4 * D * H * rows, "bfloat16")
             records.append(dict(
-                name="decode_attention", route="cuda",
+                name="decode_attention", path="serving", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:327",
                 launches=0, max_abs_err=err,
@@ -164,7 +186,7 @@ def kernel_checks(torch, ops, R, F, dev):
             nbytes = 2 * rows * H * (D + 4) + 2 * q.numel() * q.element_size() + valid.numel() * 4
             b_ms, b_by = bound(nbytes, 4 * D * H * rows, "bfloat16")
             records.append(dict(
-                name="decode_attention_int8", route="cuda",
+                name="decode_attention_int8", path="serving", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:378",
                 launches=0, max_abs_err=err,
@@ -246,19 +268,30 @@ def full_width(torch, ops, get_model, get_config, ServeSession, dev):
             raise AssertionError(f"{kv}: attention did not run through the kernels: {counts}")
         for name, c in counts.items():
             totals[name] += c
-        results[kv] = (model, out.ms_per_step, toks.cpu())
-    # profiled last: a timed generate that ran after the profiler measured
-    # slower decode steps, so no timed run follows it
-    for kv, (model, ms_per_step, _) in results.items():
+        results[kv] = (out.ms_per_step, toks.cpu())
+    agree = (results["native"][1] == results["int8"][1]).float().mean().item()
+    print(f"[full] native vs int8 KV: {agree:.3f} of generated tokens agree")
+    return totals, {kv: r[0] for kv, r in results.items()}
+
+
+def profile_serving(torch, get_model, get_config, dev, ms_per_step):
+    """Phase 9, serving: the decode step of phase 5, profiled after every
+    timed run (a timed generate that ran after the profiler measured slower
+    decode steps)."""
+    B, P, N = 8, 512, 64
+    cfg = get_config("deepseek-7b")
+    params, _ = get_model(cfg).init_params(seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    for kv, step_ms in ms_per_step.items():
+        model = get_model(cfg.with_(kv_cache_dtype=kv))
         logits, cache = model.prefill(params, prompt, P + N + 1)
         busy = profile_decode(torch, model, params, cache, logits, P)
         del logits, cache
         if busy is not None:
-            print(f"[profile] {kv}: device busy {busy:.3f} ms of {ms_per_step:.3f} ms "
-                  f"per decode step: idle share {1 - busy / ms_per_step:.3f}")
-    agree = (results["native"][2] == results["int8"][2]).float().mean().item()
-    print(f"[full] native vs int8 KV: {agree:.3f} of generated tokens agree")
-    return totals
+            print(f"[profile] {kv}: device busy {busy:.3f} ms of {step_ms:.3f} ms "
+                  f"per decode step: idle share {1 - busy / step_ms:.3f}")
 
 
 def profile_decode(torch, model, params, cache, logits, pos0, steps=6):
@@ -282,6 +315,12 @@ def profile_decode(torch, model, params, cache, logits, pos0, steps=6):
         for t in range(2, 2 + steps):
             tok = step(t, tok)
         torch.cuda.synchronize()
+    return device_time_by_kind(torch, prof, steps, "decode step")
+
+
+def device_time_by_kind(torch, prof, steps, what):
+    """Print device ms per step by kind of kernel; return device-busy ms per
+    step (union of device spans), or None when the profiler saw none."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
@@ -290,8 +329,9 @@ def profile_decode(torch, model, params, cache, logits, pos0, steps=6):
     kinds = {}
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
-        kind = ("flash_attention" if "flash_fwd_kernel" in name else
+        kind = ("flash_attention" if "flash_fwd" in name else
                 "decode_attention" if "decode_kernel" in name else
+                "quantize" if "quantize_rows_kernel" in name else
                 "matmul" if any(w in name.lower() for w in ("gemm", "cutlass", "xmma", "nvjet"))
                 else "other")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start)
@@ -302,9 +342,243 @@ def profile_decode(torch, model, params, cache, logits, pos0, steps=6):
             cur_e = max(cur_e, end)
     busy += cur_e - cur_s
     per_step = {k: round(v / steps / 1e3, 4) for k, v in sorted(kinds.items())}
-    print(f"[profile] device ms per decode step by kind: {per_step}; "
-          f"{len(spans) / steps:.0f} device activities per step")
+    print(f"[profile] device ms per {what} by kind: {per_step}; "
+          f"{len(spans) / steps:.0f} device activities per {what}")
     return busy / steps / 1e3
+
+
+def train_kernel_checks(torch, ops, R, F, dev):
+    """Phase 6: the training path's kernels at the full-width training shapes."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
+    from repro_torch.kernels.quantize import quantize_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    B, S, H, D = 60, 256, 32, 128                  # the tuned demo batch at seq 256
+    bf16 = torch.bfloat16
+    k, v, q = (torch.randn(B, S, H, D, generator=gen, device=dev).to(bf16) for _ in range(3))
+    rows = k.view(-1, D)
+    records = []
+    tol = 2e-2                                      # bf16 output rounding
+    flops = 4 * D * B * H * S * (S + 1) // 2        # causal pairs only
+
+    # -- flash attention (the f32 / bf16 precisions' kernel), causal, MHA ------
+    err = (flash_attention_fwd(q, k, v, causal=True).float()
+           - R.flash_attention_ref(q, k, v, causal=True).float()).abs().max().item()
+    torch.cuda.synchronize()
+    ok = math.isfinite(err) and err <= tol
+    print(f"[check] flash_attention bfloat16 {(B, S, H, D)}: max_abs_err={err:.3e} "
+          f"tol={tol:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b_ms, b_by = bound(4 * q.numel() * q.element_size(), flops, "bfloat16")
+    records.append(dict(
+        name="flash_attention", path="training", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:133",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(lambda: flash_attention_fwd(q, k, v, causal=True), flush),
+        plain_ms=timed_ms(lambda: R.flash_attention_ref(q, k, v, causal=True), flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush),
+    ))
+    del qt, kt, vt
+
+    # -- row quantizer: bit-equal to its plain version ------------------------
+    cases = [("noise 0.5", rows, 0.5),
+             ("random noise", rows, torch.rand(rows.shape, generator=gen, device=dev)),
+             ("ragged R=1001", rows[:1001], 0.5)]
+    for label, x, noise in cases:
+        got, want = quantize_rows(x, noise), R.quantize_int8_ref(x, noise)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"[check] quantize_int8 {label}, {tuple(x.shape)} bf16: "
+              f"{'bit-equal' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"quantize_int8 ({label}) differs from its plain version")
+    del cases
+    R_, N = rows.shape
+    nbytes = R_ * N * rows.element_size() + R_ * N + R_ * 4     # x in, q and scales out
+    b_ms, b_by = bound(nbytes, 0.0, "bfloat16")
+    records.append(dict(
+        name="quantize_int8", path="training", route="cuda",
+        source="src/repro_torch/kernels/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:38",
+        launches=0, max_abs_err=0.0,
+        ms=timed_ms(lambda: quantize_rows(rows, 0.5), flush),
+        plain_ms=timed_ms(lambda: R.quantize_int8_ref(rows, 0.5), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+
+    # -- int8-K/V flash attention, causal, at the main path's noise 0.5 --------
+    kq, ks = (t.view(B, S, H, -1) for t in quantize_rows(rows, 0.5))
+    vq, vs = (t.view(B, S, H, -1) for t in quantize_rows(v.view(-1, D), 0.5))
+    del k, v, rows
+
+    def kernel():
+        return flash_attention_int8_fwd(q, kq, ks, vq, vs, causal=True)
+
+    def plain():
+        return R.flash_attention_ref(q, R.dequantize_int8_ref(kq, ks),
+                                     R.dequantize_int8_ref(vq, vs), causal=True)
+
+    err = (kernel().float() - plain().float()).abs().max().item()
+    torch.cuda.synchronize()
+    ok = math.isfinite(err) and err <= tol
+    print(f"[check] flash_attention_q8 bfloat16: max_abs_err={err:.3e} tol={tol:.0e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention_q8 disagrees with its plain version: {err}")
+    # the op on float K/V against flash_attention_q8_ref (quantize + dequantize + attend)
+    kf, vf = R.dequantize_int8_ref(kq, ks, bf16), R.dequantize_int8_ref(vq, vs, bf16)
+    op_err = (ops.flash_attention_q8(q, kf, vf, causal=True).float()
+              - R.flash_attention_q8_ref(q, kf, vf, causal=True).float()).abs().max().item()
+    print(f"[check] ops.flash_attention_q8 vs flash_attention_q8_ref: "
+          f"max_abs_err={op_err:.3e} tol={tol:.0e} {'ok' if op_err <= tol else 'FAIL'}")
+    if not (math.isfinite(op_err) and op_err <= tol):
+        raise AssertionError(f"ops.flash_attention_q8 disagrees with its plain version: {op_err}")
+    del kf, vf
+    nbytes = (2 * q.numel() * q.element_size()             # q in, out
+              + kq.numel() + vq.numel() + ks.numel() * 4 + vs.numel() * 4)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    records.append(dict(
+        name="flash_attention_q8", path="training", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:200",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(kernel, flush), plain_ms=timed_ms(plain, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    del q, kq, ks, vq, vs, scratch
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
+def cross_device_train(torch, ops, train_session_factory, dev):
+    """Phase 7: smoke config in f32, Session.run on the CPU (plain versions)
+    vs on the card (kernels), from the same weights."""
+    import copy
+
+    rtol = {"f32": 1e-4, "int8-fused": 1e-2}   # f32 reassociation; int8 rounding flips
+    steps = 6
+    for prec in ("f32", "int8-fused"):
+        kw = dict(steps=steps, seq=32, precision=prec)
+        cpu = train_session_factory(device="cpu", **kw)
+        params, _ = cpu.init_state()
+        gpu_params = _to(copy.deepcopy(params), dev)
+        want = [h["loss"] for h in cpu.run(params).history]
+        gpu = train_session_factory(device=dev, **kw)
+        ops.reset_launches()
+        report = gpu.run(gpu_params)
+        counts = dict(ops.LAUNCHES)
+        got = [h["loss"] for h in report.history]
+        print(f"[cross-device] train {prec}: cpu={[round(x, 6) for x in want]} "
+              f"gpu={[round(x, 6) for x in got]} launches={counts}")
+        if not np.allclose(got, want, rtol=rtol[prec], atol=0.0):
+            raise AssertionError(f"{prec}: per-step losses differ between CPU and card")
+        calls = steps * gpu.model.cfg.n_layers * 2        # forward + remat recompute
+        expect = ({"flash_attention": calls} if prec == "f32" else
+                  {"flash_attention_q8": calls, "quantize_int8": 2 * calls})
+        if any(counts[k] != n for k, n in expect.items()):
+            raise AssertionError(f"{prec}: attention did not run through the kernels: {counts}")
+
+
+def full_width_train(torch, ops, train_session_factory, dev):
+    """Phase 8: deepseek-7b, full width, 8 layers, through Session.run."""
+    steps, seq, layers = 5, 256, 8
+    totals = {name: 0 for name in ops.LAUNCHES}
+    step_ms = {}
+    for prec in ("f32", "int8-fused"):
+        session = train_session_factory(device=dev, full_config=True, n_layers=layers,
+                                        seq=seq, steps=steps, precision=prec)
+        cfg = session.model.cfg
+        sched = session.tune().schedule
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        report = session.run()
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        hist = report.history
+        ms = statistics.median(h["step_time"] for h in hist[1:]) * 1e3    # steps 2-5
+        data_ms = statistics.median(h["data_time"] for h in hist[1:]) * 1e3
+        valid_tok_s = sched.valid_rows * seq / (ms / 1e3)
+        loop_ms = report.wall_time / steps * 1e3          # all steps, data plane included
+        print(f"[train] {cfg.name} {prec}: {cfg.n_layers} of 30 layers, d_model "
+              f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params ({str(cfg.dtype)}), "
+              f"rows {sched.global_rows} ({sched.valid_rows} valid) x seq {seq}")
+        print(f"[train] {prec}: {ms:.3f} ms/step (median of steps 2-{steps}), "
+              f"{valid_tok_s:.1f} valid tok/s, first step {hist[0]['step_time'] * 1e3:.1f} ms, "
+              f"peak memory {peak / 2**30:.3f} GiB, launches {counts}")
+        print(f"[train] {prec}: whole loop {report.wall_time * 1e3:.1f} ms for {steps} steps "
+              f"({loop_ms:.3f} ms/step, {sched.valid_rows * seq / (loop_ms / 1e3):.1f} valid "
+              f"tok/s), of which batch assembly {data_ms:.3f} ms/step (median of steps 2-{steps})")
+        print(f"[train] {prec}: losses {[round(h['loss'], 4) for h in hist]} grad_norm "
+              f"{[round(h['grad_norm'], 3) for h in hist]}")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+            raise AssertionError(f"{prec}: non-finite loss or grad norm")
+        calls = steps * layers * 2                          # forward + remat recompute
+        expect = ({"flash_attention": calls} if prec == "f32" else
+                  {"flash_attention_q8": calls, "quantize_int8": 2 * calls})
+        if any(counts[k] != n for k, n in expect.items()):
+            raise AssertionError(f"{prec}: attention did not run through the kernels: {counts}")
+        for name, c in counts.items():
+            totals[name] += c
+        step_ms[prec] = ms
+        del session, report, hist
+        torch.cuda.empty_cache()
+    return totals, step_ms
+
+
+def profile_train(torch, train_session_factory, dev, step_ms):
+    """Phase 9, training: one profiled step per precision at the phase-8
+    shapes, after a warm step, on fresh weights; then one more step split
+    into its parts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.steps import loss_fn, value_and_grad
+
+    for prec, ms in step_ms.items():
+        session = train_session_factory(device=dev, full_config=True, n_layers=8, seq=256,
+                                        steps=2, precision=prec)
+        step = session.compile().step_fn
+        params, opt_state = session.init_state()
+        batch = session.dataset.next_device_batch(dev)
+        params, opt_state, _ = step(params, opt_state, batch)        # warm
+        torch.cuda.synchronize()
+        batch = session.dataset.next_device_batch(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            params, opt_state, metrics = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+        busy = device_time_by_kind(torch, prof, 1, f"{prec} train step")
+        if busy is not None:
+            print(f"[profile] {prec}: device busy {busy:.3f} ms of {ms:.3f} ms per train "
+                  f"step: idle share {1 - busy / ms:.3f}")
+        # the parts of make_train_step's step, one after another, on CUDA events
+        batch = session.dataset.next_device_batch(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        with torch.no_grad():
+            loss_fn(session.model, params, batch)
+        ev[1].record()
+        _, grads = value_and_grad(session.model, params, batch)
+        ev[2].record()
+        opt_state, params = session.optimizer.update(grads, opt_state, params, metrics["lr"])
+        ev[3].record()
+        torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+        ev[4].record()
+        torch.cuda.synchronize()
+        part = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+        print(f"[profile] {prec}: one step in parts (CUDA events): forward+backward "
+              f"{part[1]:.3f} ms (a forward alone {part[0]:.3f} ms), AdamW update "
+              f"{part[2]:.3f} ms, grad norm {part[3]:.3f} ms")
+        del session, step, params, opt_state, batch, prof, grads
+        torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -331,6 +605,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import ref as R
+    from repro_torch.launch.train import train_session_factory
     from repro_torch.models.api import get_model
 
     t_start = time.perf_counter()
@@ -346,12 +621,20 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     records = kernel_checks(torch, ops, R, F, dev)
+    records += train_kernel_checks(torch, ops, R, F, dev)
     cross_device(torch, ops, get_model, smoke_config, ServeSession, dev)
-    totals = full_width(torch, ops, get_model, get_config, ServeSession, dev)
+    cross_device_train(torch, ops, train_session_factory, dev)
+    # the main paths: counts are reset before and read after each run
+    serve_totals, decode_ms = full_width(torch, ops, get_model, get_config, ServeSession, dev)
+    train_totals, train_ms = full_width_train(torch, ops, train_session_factory, dev)
+    profile_train(torch, train_session_factory, dev, train_ms)
+    profile_serving(torch, get_model, get_config, dev, decode_ms)
+    totals = {"serving": serve_totals, "training": train_totals}
     for rec in records:
-        rec["launches"] = totals[rec["name"]]
+        rec["launches"] = totals[rec["path"]][rec["name"]]
+        print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}")
         if rec["launches"] == 0:
-            raise AssertionError(f"{rec['name']} never launched on the main path")
+            raise AssertionError(f"{rec['name']} never launched on the {rec['path']} path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -27,11 +27,14 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (source stem, argtypes); every entry returns a cudaError_t.
 SIGNATURES = {
     "repro_flash_attention_fwd": (
         "flash_attention", [P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
+    "repro_flash_attention_int8_fwd": (
+        "flash_attention", [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
+    "repro_quantize_rows": ("quantize", [P, P, F, P, P, I, I, I, P]),
     "repro_decode_attention": (
         "decode_attention", [P, P, P, P, P, I, I, I, I, I, I, I, P]),
     "repro_decode_attention_int8": (

@@ -1,9 +1,11 @@
-"""Launch wrapper of the CUDA flash attention kernel (``csrc/flash_attention.cu``).
+"""Launch wrappers of the CUDA flash attention kernels
+(``csrc/flash_attention.cu``): float K/V and int8 K/V with row scales.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.  The
-wrapper checks its inputs, allocates the output and launches on the current
-stream; it never falls back.  Callers go through
-:func:`repro_torch.kernels.ops.flash_attention`.
+Replace ``repro/kernels/flash_attention.py::flash_attention_fwd`` and
+``::flash_attention_int8_fwd``.  Each wrapper checks its inputs, allocates
+the output and launches on the current stream; it never falls back.
+Callers go through :func:`repro_torch.kernels.ops.flash_attention` and
+:func:`repro_torch.kernels.ops.flash_attention_q8`.
 """
 from __future__ import annotations
 
@@ -31,6 +33,17 @@ def check_attention_inputs(q: torch.Tensor, tensors, what: str) -> None:
             f"{what}: head dim {q.shape[-1]} not implemented (have {HEAD_DIMS})")
 
 
+def _check_qkv(q, k, v, window, what):
+    B, Sq, H, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"{what}: H={H} not a multiple of Hkv={k.shape[2]}")
+    if window is not None and window <= 0:
+        raise ValueError(f"{what}: window must be positive")
+
+
 def flash_attention_fwd(
     q: torch.Tensor,        # (B, Sq, H, D)
     k: torch.Tensor,        # (B, Skv, Hkv, D)
@@ -40,22 +53,48 @@ def flash_attention_fwd(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     check_attention_inputs(q, (("q", q), ("k", k), ("v", v)), "flash_attention")
-    B, Sq, H, D = q.shape
-    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    Skv, Hkv = k.shape[1], k.shape[2]
-    if H % Hkv:
-        raise ValueError(f"flash_attention: H={H} not a multiple of Hkv={Hkv}")
+    _check_qkv(q, k, v, window, "flash_attention")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share one dtype")
-    if window is not None and window <= 0:
-        raise ValueError("flash_attention: window must be positive")
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.call(
         "repro_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, Sq, Skv, H, Hkv, D, int(causal), int(window or 0),
         DTYPES[q.dtype], stream,
+    )
+    return out
+
+
+def flash_attention_int8_fwd(
+    q: torch.Tensor,          # (B, Sq, H, D) float32 / bfloat16
+    k: torch.Tensor,          # (B, Skv, Hkv, D) int8
+    k_scale: torch.Tensor,    # (B, Skv, Hkv, 1) float32 row scales
+    v: torch.Tensor,          # (B, Skv, Hkv, D) int8
+    v_scale: torch.Tensor,    # (B, Skv, Hkv, 1) float32
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash attention over int8 K/V, dequantized tile by tile on chip."""
+    what = "flash_attention_int8"
+    check_attention_inputs(
+        q, (("q", q), ("k", k), ("k_scale", k_scale), ("v", v), ("v_scale", v_scale)), what)
+    _check_qkv(q, k, v, window, what)
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"{what}: k and v must be int8")
+    sshape = tuple(k.shape[:3]) + (1,)
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(s.shape) != sshape or s.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be {sshape} float32")
+    B, Sq, H, D = q.shape
+    out = torch.empty_like(q)
+    _build.call(
+        "repro_flash_attention_int8_fwd", q.data_ptr(), k.data_ptr(), k_scale.data_ptr(),
+        v.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, Sq, k.shape[1], H,
+        k.shape[2], D, int(causal), int(window or 0), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out

@@ -9,7 +9,7 @@ the card.  Masks and the 0-for-a-fully-masked-row rule follow
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -90,19 +90,30 @@ def decode_attention_int8_ref(
 
 
 def quantize_int8_ref(
-    x: torch.Tensor,                        # (..., N) float
-    noise: Optional[torch.Tensor] = None,   # same shape, U[0,1) stochastic rounding
+    x: torch.Tensor,                                  # (..., N) float
+    noise: Union[torch.Tensor, float, None] = None,   # same shape (or one value), in [0, 1)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: scale = max(absmax/127, 1e-12).
 
-    ``noise=None`` rounds half to even (``torch.round``, as ``jnp.round``);
-    otherwise ``floor(x/scale + noise)``.  Returns (q int8, scale f32 (..., 1)).
+    ``noise=None`` rounds half to even (``torch.round``, as ``jnp.round``;
+    the serve cache's quantizer); otherwise ``floor(x/scale + noise)`` —
+    stochastic rounding with U[0,1) noise, round half up at a constant 0.5
+    (the training quantizer, ``repro/kernels/quantize.py::_quantize_rows``).
+    Returns (q int8, scale f32 (..., 1)).
     """
     xf = x.float()
     absmax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(absmax / 127.0, min=1e-12)
-    y = xf / scale
-    q = torch.round(y) if noise is None else torch.floor(y + noise.float())
+    if noise is None:
+        # as the JAX oracle computes it op by op: a true division by 127
+        scale = torch.clamp(absmax / 127.0, min=1e-12)
+        q = torch.round(xf / scale)
+    else:
+        # as the JAX kernel computes it: XLA folds the constant divisor into a
+        # multiply by its float32 reciprocal (1 ulp off the division on some
+        # rows); the division by the scale stays a true division
+        scale = torch.clamp(absmax * (1.0 / 127.0), min=1e-12)
+        q = torch.floor(xf / scale + torch.as_tensor(noise, dtype=torch.float32,
+                                                      device=x.device))
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
@@ -110,3 +121,19 @@ def dequantize_int8_ref(
     q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
+
+
+def flash_attention_q8_ref(
+    q: torch.Tensor,               # (B, Sq, H, D)
+    k: torch.Tensor,               # (B, Skv, Hkv, D) float
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash attention with K/V squeezed through per-row int8, round half up
+    (constant noise 0.5): the int8-fused training attention."""
+    kq, ks = quantize_int8_ref(k, 0.5)
+    vq, vs = quantize_int8_ref(v, 0.5)
+    return flash_attention_ref(q, dequantize_int8_ref(kq, ks), dequantize_int8_ref(vq, vs),
+                               causal=causal, window=window)

@@ -7,7 +7,7 @@ family module.  Families the port does not run yet raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -33,6 +33,11 @@ class Model:
                     dtype: Optional[torch.dtype] = None, device: DeviceLike = "cuda"):
         return self.mod.init_params(self.cfg, seed=seed, abstract=abstract,
                                     dtype=dtype, device=device)
+
+    def forward(self, params, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward -> (logits, aux loss); aux is 0 for the dense family."""
+        logits = self.mod.forward(params, self.cfg, tokens)
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     def prefill(self, params, tokens, cache_len: int):
         return self.mod.prefill(params, self.cfg, tokens, cache_len)

@@ -1,19 +1,19 @@
-"""Dense llama-style decoder LM, serving path (port of the serving half of
-:mod:`repro.models.dense`).
+"""Dense llama-style decoder LM (GQA + RoPE + SwiGLU), port of
+:mod:`repro.models.dense`.
 
 Entry points:
   * ``init_params(cfg, seed=..., device=...)``        -> (params, logical_axes)
+  * ``forward(params, cfg, tokens)``                   -> logits (train)
   * ``init_cache(cfg, batch, cache_len, device=...)``  -> zeroed KV cache
   * ``prefill(params, cfg, tokens, cache_len)``        -> (last logits, cache)
   * ``decode_step(params, cfg, token, cache, pos)``    -> (logits, cache)
-
-``forward`` and training come with the training slice of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -66,6 +66,41 @@ def _final(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.logit_softcap:
         y = torch.tanh(y / cfg.logit_softcap) * cfg.logit_softcap
     return y
+
+
+def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(lp["ln1"], x)
+    h = L.attention_train(
+        lp["attn"], h, positions=positions, causal=True, window=cfg.window,
+        rope_theta=cfg.rope_theta, precision=cfg.train_precision,
+    )
+    x = x + h
+    h = L.rms_norm(lp["ln2"], x)
+    return x + L.mlp_apply(lp["mlp"], h, cfg.mlp)
+
+
+def _scan_blocks(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
+                 body: Callable[[PyTree, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """Run the stacked layers in order.  Each layer's leaves are views of the
+    stacked (L, ...) leaves, so gradients land on the stacked leaf; with
+    ``cfg.remat`` each layer keeps only its input and recomputes its forward
+    in the backward (the reference's ``jax.checkpoint`` per layer)."""
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"], i)
+        if cfg.remat:
+            x = checkpoint(body, lp, x, use_reentrant=False)
+        else:
+            x = body(lp, x)
+    return x
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Training forward. tokens: (B, S) int -> logits (B, S, V)."""
+    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _scan_blocks(params, x, cfg, lambda lp, h: _block_train(lp, h, cfg, positions))
+    return _final(params, x, cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,

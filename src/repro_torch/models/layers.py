@@ -1,6 +1,7 @@
-"""Transformer layers of the dense serving path (port of a subset of
-:mod:`repro.models.layers`): RMSNorm, RoPE, GQA attention for prefill and
-KV-cache decode (native and int8 cache), SwiGLU, embedding and logits.
+"""Transformer layers of the dense path (port of a subset of
+:mod:`repro.models.layers`): RMSNorm, RoPE, GQA attention for training,
+prefill and KV-cache decode (native and int8 cache), SwiGLU, embedding and
+logits.
 
 Plain functions on tensors over the nested-dict parameter tree of
 :mod:`repro_torch.models.param`, in the JAX layouts.  The JAX package's
@@ -84,6 +85,32 @@ def qkv_project(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, t
 
 def out_project(p: Dict, o: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+
+
+def attention_train(
+    p: Dict,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    rope_theta: float = 10000.0,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """Full-sequence attention of training (``layers.py:365-411``).
+
+    ``precision`` is ``ModelConfig.train_precision``: ``"bf16"`` casts the
+    attention operands before the kernel; ``"int8-fused"`` routes to the
+    int8-K/V op, whose backward saves int8 residuals.
+    """
+    q, k, v = qkv_project(p, x)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if precision == "bf16":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    attend = kops.flash_attention_q8 if precision == "int8-fused" else kops.flash_attention
+    o = attend(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window)
+    return out_project(p, o.to(x.dtype))
 
 
 def attention_prefill(

@@ -9,9 +9,11 @@ from pathlib import Path
 import pytest
 
 from repro_torch.api.serving import ServeSession
+from repro_torch.api.session import Session
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.launch import serve as serve_driver
+from repro_torch.launch import train as train_driver
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -53,3 +55,7 @@ def test_every_public_op_has_a_ref_and_a_parity_test():
 def test_entry_points_default_to_cuda():
     assert serve_driver.build_parser().parse_args([]).device == "cuda"
     assert inspect.signature(ServeSession).parameters["device"].default == "cuda"
+    assert train_driver.build_parser().parse_args([]).device == "cuda"
+    assert inspect.signature(Session).parameters["device"].default == "cuda"
+    assert inspect.signature(train_driver.train_session_factory).parameters[
+        "device"].default == "cuda"
