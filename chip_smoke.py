@@ -34,14 +34,32 @@ goyal schedule):
      layers does not fit 80 GB), seq 256: ``Session.run`` for 5 steps in
      ``f32`` and in ``int8-fused``, with ms/step (the step alone, and the
      whole loop with the data plane's batch assembly), valid tokens/s, peak
-     memory, finite losses and grad norms, and launch counters;
-  9. profiles, after every timed run: one training step per precision and
-     the decode step of phase 5 (``torch.profiler``, device time by kind).
+     memory, finite losses and grad norms, and launch counters.
 
-Each record of the kernels line carries the main path (``serving`` or
-``training``) whose shapes it was timed at and whose launches it counts;
-flash attention has one record per path.  The last two lines are
-``{"kernels": [...]}`` and
+MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
+  9. the MoE kernels at the path's shapes against their plain versions, with
+     slot tables from ``moe_routing`` of random activations through a random
+     router: the expert GEMM and the combine at the prefill shape (T 4096,
+     C 384) and the decode shape (T 8, C 8), plus a capacity-overflow case
+     (C 128), and the flash and decode kernels (native and int8) at qwen3's
+     GQA-8 shapes (32 query heads over 4 kv heads); times and bounds as in
+     phase 3, the combine's yardstick ``index_add_`` over the kept rows;
+ 10. both MoE smoke configs (qwen3-moe-30b-a3b, dbrx-132b) in float32: greedy
+     tokens from the plain path on the CPU and the kernels on the card must be
+     identical, native and int8 cache, every MoE layer through both kernels;
+ 11. qwen3-moe-30b-a3b at its published size (48 layers, not cut, bf16,
+     random weights from seed 0): ``ServeSession.generate`` greedy at batch 8,
+     prompt 512, 64 new tokens, native and int8 KV cache;
+ 12. profiles, after every timed run (a generate timed after the profiler ran
+     measured slower decode steps): one training step per precision, the
+     decode step of phase 5 and the MoE decode step of phase 11
+     (``torch.profiler``, device time by kind, busy ms, idle share; the MoE
+     step split into matmul, attention, fused_moe, routing and other).
+
+Each record of the kernels line carries the main path (``serving``,
+``training`` or ``moe_serving``) whose shapes it was timed at and whose
+launches it counts, and a ``shape`` where one path times a kernel at two.
+The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port's
 sources beside this file, it exits non-zero and prints no result.
 """
@@ -61,6 +79,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12                      # H100 SXM device memory rate
 PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor-core bf16; f32 FMA
 N_TIMED = 25
+MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel", "moe_invert_kernel",
+               "moe_combine_kernel")
+# the MoE routing's top-k, stable sort, slot scatters, count scan and softmax
+# (its elementwise ops fall in "other")
+ROUTING_KERNELS = ("sort", "topk", "scan", "scatter", "softmax")
 
 
 def fail(msg: str) -> int:
@@ -275,9 +298,7 @@ def full_width(torch, ops, get_model, get_config, ServeSession, dev):
 
 
 def profile_serving(torch, get_model, get_config, dev, ms_per_step):
-    """Phase 9, serving: the decode step of phase 5, profiled after every
-    timed run (a timed generate that ran after the profiler measured slower
-    decode steps)."""
+    """Phase 12, serving: the decode step of phase 5."""
     B, P, N = 8, 512, 64
     cfg = get_config("deepseek-7b")
     params, _ = get_model(cfg).init_params(seed=0, device=dev)
@@ -294,7 +315,7 @@ def profile_serving(torch, get_model, get_config, dev, ms_per_step):
                   f"per decode step: idle share {1 - busy / step_ms:.3f}")
 
 
-def profile_decode(torch, model, params, cache, logits, pos0, steps=6):
+def profile_decode(torch, model, params, cache, logits, pos0, steps=6, moe=False):
     """Device time of one decode step by kind of kernel, from torch.profiler
     over ``steps`` steps (after 2 unprofiled ones).  Returns the device-busy
     ms per step, or None when the profiler saw no device activity."""
@@ -315,12 +336,13 @@ def profile_decode(torch, model, params, cache, logits, pos0, steps=6):
         for t in range(2, 2 + steps):
             tok = step(t, tok)
         torch.cuda.synchronize()
-    return device_time_by_kind(torch, prof, steps, "decode step")
+    return device_time_by_kind(torch, prof, steps, "decode step", moe)
 
 
-def device_time_by_kind(torch, prof, steps, what):
+def device_time_by_kind(torch, prof, steps, what, moe=False):
     """Print device ms per step by kind of kernel; return device-busy ms per
-    step (union of device spans), or None when the profiler saw none."""
+    step (union of device spans), or None when the profiler saw none.  A MoE
+    step also splits out its routing kernels."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
@@ -329,11 +351,14 @@ def device_time_by_kind(torch, prof, steps, what):
     kinds = {}
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
+        low = name.lower()
         kind = ("flash_attention" if "flash_fwd" in name else
                 "decode_attention" if "decode_kernel" in name else
                 "quantize" if "quantize_rows_kernel" in name else
-                "matmul" if any(w in name.lower() for w in ("gemm", "cutlass", "xmma", "nvjet"))
-                else "other")
+                "fused_moe" if any(w in name for w in MOE_KERNELS) else
+                "matmul" if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")) else
+                "routing" if moe and any(w in low for w in ROUTING_KERNELS) else
+                "other")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start)
         if start > cur_e:
             busy += cur_e - cur_s
@@ -535,7 +560,7 @@ def full_width_train(torch, ops, train_session_factory, dev):
 
 
 def profile_train(torch, train_session_factory, dev, step_ms):
-    """Phase 9, training: one profiled step per precision at the phase-8
+    """Phase 12, training: one profiled step per precision at the phase-8
     shapes, after a warm step, on fresh weights; then one more step split
     into its parts."""
     from torch.profiler import ProfilerActivity, profile
@@ -579,6 +604,274 @@ def profile_train(torch, train_session_factory, dev, step_ms):
               f"{part[2]:.3f} ms, grad norm {part[3]:.3f} ms")
         del session, step, params, opt_state, batch, prof, grads
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# MoE serving (qwen3-moe-30b-a3b)
+# ---------------------------------------------------------------------------
+
+
+def moe_kernel_checks(torch, R, F, dev):
+    """Phase 9: the MoE path's kernels at its shapes against their plain
+    versions on the card, slot tables from ``moe_routing``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_moe as FM
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models.moe import expert_capacity
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.experts_per_token
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    records = []
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf16)
+
+    # one layer's experts and router, at the model's init scales
+    wg, wu = rand(E, d, f, std=d ** -0.5), rand(E, d, f, std=d ** -0.5)
+    wo = rand(E, f, d, std=f ** -0.5)
+    router = torch.randn(d, E, generator=gen, device=dev) * d ** -0.5
+    w_bytes = 3 * d * f * wg.element_size()                 # one expert's weights
+
+    for label, T, C in (("prefill", 4096, expert_capacity(4096, E, k, cfg.capacity_factor)),
+                        ("decode", 8, expert_capacity(8, E, k, cfg.capacity_factor)),
+                        ("overflow", 4096, 128)):
+        x = rand(T, d)
+        slot_tok, slot_gate, _, _, keep, _ = FM.moe_routing(x, router, k, C)
+        live = slot_tok[:, 0] < T
+        n_live = int(live.sum())
+        n_exp = int(live.view(E, C).any(dim=1).sum())     # experts holding a token
+        y = FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
+        want = R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate)
+        torch.cuda.synchronize()
+        err = (y.float() - want.float()).abs().max().item()
+        # one bf16 ulp of the largest output: both compute the same f32 value
+        # up to summation order, then round once to bf16
+        tol = want.float().abs().max().item() * 2.0 ** -7
+        ok = math.isfinite(err) and err <= tol
+        print(f"[check] fused_moe_gemm {label} T={T} C={C}: {n_live} of {E * C} slots live "
+              f"({n_exp} experts), {int((~keep).sum())} copies dropped; max_abs_err="
+              f"{err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_moe_gemm ({label}) disagrees with its plain version")
+        out = FM.fused_moe_combine(y, slot_tok, T)
+        same = torch.equal(out, R.fused_moe_combine_ref(y, slot_tok, T))
+        print(f"[check] fused_moe_combine {label}: {'bit-equal' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"fused_moe_combine ({label}) differs from its plain version")
+        if label == "overflow":
+            continue
+        esz = x.element_size()
+        nbytes = n_exp * w_bytes + x.numel() * esz + y.numel() * esz + slot_tok.numel() * 8
+        b_ms, b_by = bound(nbytes, 6.0 * n_live * d * f, "bfloat16")
+        records.append(dict(
+            name="fused_moe_gemm", path="moe_serving", shape=label, route="cuda",
+            source="src/repro_torch/kernels/csrc/fused_moe.cu",
+            replaces="src/repro/kernels/fused_moe.py:140",
+            launches=0, max_abs_err=err,
+            ms=timed_ms(lambda: FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate), flush),
+            plain_ms=timed_ms(lambda: R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate),
+                              flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ))
+        kept = live.nonzero()[:, 0]
+        tok_kept, y_kept = slot_tok[kept, 0].long(), y[kept]
+        nbytes = n_live * d * esz + T * d * esz + slot_tok.numel() * 4
+        b_ms, b_by = bound(nbytes, float(n_live * d), "float32")
+        records.append(dict(
+            name="fused_moe_combine", path="moe_serving", shape=label, route="cuda",
+            source="src/repro_torch/kernels/csrc/fused_moe.cu",
+            replaces="src/repro/kernels/fused_moe.py:200",
+            launches=0, max_abs_err=0.0,
+            ms=timed_ms(lambda: FM.fused_moe_combine(y, slot_tok, T), flush),
+            plain_ms=timed_ms(lambda: R.fused_moe_combine_ref(y, slot_tok, T), flush),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timed_ms(lambda: torch.zeros(T, d, dtype=bf16, device=dev).index_add_(
+                0, tok_kept, y_kept), flush),
+        ))
+        del x, slot_tok, slot_gate, keep, live, y, want, out, kept, tok_kept, y_kept
+    del wg, wu, wo, router
+
+    # -- attention at qwen3's GQA-8 shapes: 32 query heads over 4 kv heads -----
+    B, S, H, Hkv, D, CACHE = 8, 512, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(), 577
+    tol = 2e-2                                          # bf16 output rounding
+    q, kk, vv = rand(B, S, H, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+
+    def check(name, got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        ok = math.isfinite(err) and err <= tol
+        print(f"[check] {name} GQA-8 bf16: max_abs_err={err:.3e} tol={tol:.0e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} (GQA-8) disagrees with its plain version: {err}")
+        return err
+
+    err = check("flash_attention", flash_attention_fwd(q, kk, vv, causal=True),
+                R.flash_attention_ref(q, kk, vv, causal=True))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
+    b_ms, b_by = bound(2 * (q.numel() + kk.numel()) * 2, 4 * D * B * H * S * (S + 1) // 2,
+                       "bfloat16")
+    records.append(dict(
+        name="flash_attention", path="moe_serving", shape="prefill GQA-8", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:133",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(lambda: flash_attention_fwd(q, kk, vv, causal=True), flush),
+        plain_ms=timed_ms(lambda: R.flash_attention_ref(q, kk, vv, causal=True), flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+    ))
+    del q, kk, vv, qt, kt, vt
+
+    valid = torch.tensor([576, 1, 300, 513, 576, 0, 450, 520], dtype=torch.int32, device=dev)
+    rows = int(valid.sum())
+    q = rand(B, 1, H, D)
+    kc, vc = rand(B, CACHE, Hkv, D), rand(B, CACHE, Hkv, D)
+    err = check("decode_attention", decode_attention(q, kc, vc, valid),
+                R.decode_attention_ref(q, kc, vc, valid))
+    mask = (torch.arange(CACHE, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    b_ms, b_by = bound(2 * rows * Hkv * D * 2 + 2 * q.numel() * 2 + B * 4,
+                       4 * D * H * rows, "bfloat16")
+    records.append(dict(
+        name="decode_attention", path="moe_serving", shape="decode GQA-8", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:327",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(lambda: decode_attention(q, kc, vc, valid), flush),
+        plain_ms=timed_ms(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
+        bound_ms=b_ms, bound_by=b_by,
+        # valid_len 0 rows give NaN here (all masked); timing only
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
+    ))
+    kq, ks = R.quantize_int8_ref(kc)
+    vq, vs = R.quantize_int8_ref(vc)
+    err = check("decode_attention_int8", decode_attention_int8(q, kq, ks, vq, vs, valid),
+                R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid))
+    b_ms, b_by = bound(2 * rows * Hkv * (D + 4) + 2 * q.numel() * 2 + B * 4,
+                       4 * D * H * rows, "bfloat16")
+    records.append(dict(
+        name="decode_attention_int8", path="moe_serving", shape="decode GQA-8", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:378",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(lambda: decode_attention_int8(q, kq, ks, vq, vs, valid), flush),
+        plain_ms=timed_ms(lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid),
+                          flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    del q, kc, vc, qt, kt, vt, kq, ks, vq, vs, scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
+def cross_device_moe(torch, ops, get_model, smoke_config, ServeSession, dev):
+    """Phase 10: both MoE smoke configs in f32, plain path on the CPU vs
+    kernels on the card, from the same weights."""
+    N = 6
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 13)))
+    for arch in ("qwen3-moe-30b-a3b", "dbrx-132b"):
+        base = smoke_config(arch)
+        for kv in ("native", "int8"):
+            model = get_model(base.with_(kv_cache_dtype=kv))
+            cpu_params, _ = model.init_params(seed=0, device="cpu")
+            gpu_params = _to(cpu_params, dev)
+            want = ServeSession(model=model, params=cpu_params, device="cpu").generate(
+                prompt, max_new_tokens=N).tokens
+            ops.reset_launches()
+            got = ServeSession(model=model, params=gpu_params, device=dev).generate(
+                prompt, max_new_tokens=N).tokens.cpu()
+            counts = dict(ops.LAUNCHES)
+            print(f"[cross-device] {arch} {kv}: cpu={want.tolist()} gpu={got.tolist()} "
+                  f"launches={counts}")
+            if not torch.equal(want, got):
+                raise AssertionError(f"{arch} {kv}: greedy tokens differ between CPU and card")
+            calls = (N + 1) * base.n_layers                  # prefill + N decode steps
+            if counts["fused_moe_gemm"] != calls or counts["fused_moe_combine"] != calls:
+                raise AssertionError(f"{arch} {kv}: MoE layers did not run through the "
+                                     f"kernels: {counts}")
+
+
+def full_width_moe(torch, ops, get_model, get_config, ServeSession, dev):
+    """Phase 11: qwen3-moe-30b-a3b at its published size through
+    ServeSession.generate."""
+    B, P, N = 8, 512, 64
+    cfg = get_config("qwen3-moe-30b-a3b")
+    t0 = time.perf_counter()
+    params, _ = get_model(cfg).init_params(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_experts} "
+          f"experts top-{cfg.experts_per_token}, {n_params / 1e9:.3f} B params "
+          f"({str(cfg.dtype)}), init {time.perf_counter() - t0:.1f} s, allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    totals = {name: 0 for name in ops.LAUNCHES}
+    results = {}
+    for kv in ("native", "int8"):
+        model = get_model(cfg.with_(kv_cache_dtype=kv))
+        serve = ServeSession(model=model, params=params, device=dev)
+        logits, cache = model.prefill(params, prompt, P + N + 1)    # warm-up + check
+        torch.cuda.synchronize()
+        if tuple(logits.shape) != (B, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{kv}: prefill logits {tuple(logits.shape)} not finite")
+        del logits, cache
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        out = serve.generate(prompt, max_new_tokens=N)
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        toks = out.tokens
+        decode_op = "decode_attention_int8" if kv == "int8" else "decode_attention"
+        print(f"[moe] {kv}: prefill {out.prefill_time * 1e3:.3f} ms, decode "
+              f"{out.decode_tok_s:.3f} tok/s ({out.ms_per_step:.3f} ms/step), peak memory "
+              f"{peak / 2**30:.3f} GiB, launches {counts}")
+        if tuple(toks.shape) != (B, N + 1) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+            raise AssertionError(f"{kv}: tokens {tuple(toks.shape)} out of range")
+        calls = (N + 1) * cfg.n_layers
+        if (counts["fused_moe_gemm"] != calls or counts["fused_moe_combine"] != calls
+                or counts["flash_attention"] != cfg.n_layers
+                or counts[decode_op] != cfg.n_layers * N):
+            raise AssertionError(f"{kv}: the MoE path did not run through the kernels: {counts}")
+        for name, c in counts.items():
+            totals[name] += c
+        results[kv] = (out.ms_per_step, toks.cpu())
+    agree = (results["native"][1] == results["int8"][1]).float().mean().item()
+    print(f"[moe] native vs int8 KV: {agree:.3f} of generated tokens agree")
+    del params
+    torch.cuda.empty_cache()
+    return totals, {kv: r[0] for kv, r in results.items()}
+
+
+def profile_moe_serving(torch, get_model, get_config, dev, ms_per_step):
+    """Phase 12, MoE serving: the decode step of phase 11."""
+    B, P, N = 8, 512, 64
+    cfg = get_config("qwen3-moe-30b-a3b")
+    params, _ = get_model(cfg).init_params(seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    for kv, step_ms in ms_per_step.items():
+        model = get_model(cfg.with_(kv_cache_dtype=kv))
+        logits, cache = model.prefill(params, prompt, P + N + 1)
+        busy = profile_decode(torch, model, params, cache, logits, P, moe=True)
+        del logits, cache
+        if busy is not None:
+            print(f"[profile] moe {kv}: device busy {busy:.3f} ms of {step_ms:.3f} ms "
+                  f"per decode step: idle share {1 - busy / step_ms:.3f}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -627,15 +920,27 @@ def main() -> int:
     # the main paths: counts are reset before and read after each run
     serve_totals, decode_ms = full_width(torch, ops, get_model, get_config, ServeSession, dev)
     train_totals, train_ms = full_width_train(torch, ops, train_session_factory, dev)
+    # MoE serving: the dense model's state is gone with its phases' locals
+    torch.cuda.empty_cache()
+    print(f"[moe] before the MoE phases: {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB "
+          f"allocated")
+    records += moe_kernel_checks(torch, R, F, dev)
+    cross_device_moe(torch, ops, get_model, smoke_config, ServeSession, dev)
+    moe_totals, moe_ms = full_width_moe(torch, ops, get_model, get_config, ServeSession, dev)
+    # profiles after every timed run: a generate timed after the profiler ran
+    # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)
     profile_serving(torch, get_model, get_config, dev, decode_ms)
-    totals = {"serving": serve_totals, "training": train_totals}
+    profile_moe_serving(torch, get_model, get_config, dev, moe_ms)
+    totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
-        print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}")
+        print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"
+              + (f" (timed at the {rec['shape']} shape)" if "shape" in rec else ""))
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} never launched on the {rec['path']} path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(card_line())                    # again, beside the numbers at the end
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,12 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS: List[str] = ["deepseek-7b"]
+ARCHS: List[str] = ["deepseek-7b", "qwen3-moe-30b-a3b", "dbrx-132b"]
 
 _MODULES: Dict[str, str] = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
 

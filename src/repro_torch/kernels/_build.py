@@ -39,6 +39,8 @@ SIGNATURES = {
         "decode_attention", [P, P, P, P, P, I, I, I, I, I, I, I, P]),
     "repro_decode_attention_int8": (
         "decode_attention", [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]),
+    "repro_fused_moe_gemm": ("fused_moe", [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]),
+    "repro_fused_moe_combine": ("fused_moe", [P, P, P, P, P, I, I, I, I, P]),
 }
 
 

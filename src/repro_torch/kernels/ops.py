@@ -9,10 +9,10 @@ Each op picks its path from where its tensors lie:
 The training ops are ``torch.autograd.Function``s with the reference's
 ``custom_vjp`` semantics: the forward runs the kernel (or, on the CPU, its
 plain version) and saves only its inputs — int8 K/V and their scales for the
-int8-fused op — and the backward recomputes through the plain attention
-math (``repro/kernels/ops.py:60-69, 142-153``).  That recompute is the
-reference's backward, not a fallback: the JAX package has no backward
-kernel either.
+int8-fused op — and the backward recomputes through the plain attention or
+MoE math (``repro/kernels/ops.py:60-69, 142-153, 271-289``).  That
+recompute is the reference's backward, not a fallback: the JAX package has
+no backward kernel either.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, CUDA path
 only), so a run can show that it went through the kernels.
@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import fused_moe as FM
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
 from repro_torch.kernels.quantize import quantize_rows
@@ -34,6 +35,13 @@ LAUNCHES: Dict[str, int] = {
     "quantize_int8": 0,
     "decode_attention": 0,
     "decode_attention_int8": 0,
+    "fused_moe_gemm": 0,
+    "fused_moe_combine": 0,
+}
+
+# public ops made only of counted ops: no kernel, so no counter of their own
+COMPOSITE_OPS: Dict[str, Tuple[str, ...]] = {
+    "fused_moe_mlp": ("fused_moe_gemm", "fused_moe_combine"),
 }
 
 # no kernel: an elementwise product the reference also leaves to the compiler
@@ -182,3 +190,67 @@ def decode_attention_int8(
     out = DA.decode_attention_int8(q, k, k_scale, v, v_scale, valid_len, window=window)
     LAUNCHES["decode_attention_int8"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# fused MoE (differentiable)
+# ---------------------------------------------------------------------------
+
+
+def fused_moe_gemm(
+    x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor,
+    slot_tok: torch.Tensor, slot_gate: torch.Tensor,
+) -> torch.Tensor:
+    """Dispatch gather + expert SwiGLU in float32 + gate per capacity slot.
+    x (T, d), wg/wu (E, d, f), wo (E, f, d), slot_tok (E·C, 1) int32 (``T``
+    for an empty slot), slot_gate (E·C, 1) f32 -> (E·C, d) in x.dtype."""
+    if not x.is_cuda:
+        return R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate)
+    out = FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
+    LAUNCHES["fused_moe_gemm"] += 1
+    return out
+
+
+def fused_moe_combine(y: torch.Tensor, slot_tok: torch.Tensor, T: int) -> torch.Tensor:
+    """``out[t] = Σ y[s]`` over the slots of token t, in float32, in
+    ascending slot order, cast once.  y (E·C, d) -> (T, d)."""
+    if not y.is_cuda:
+        return R.fused_moe_combine_ref(y, slot_tok, T)
+    out = FM.fused_moe_combine(y, slot_tok, T)
+    LAUNCHES["fused_moe_combine"] += 1
+    return out
+
+
+class _FusedMoE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, router, wg, wu, wo, k, capacity):
+        ctx.save_for_backward(x, router, wg, wu, wo)
+        ctx.k, ctx.capacity = k, capacity
+        slot_tok, slot_gate, _, _, _, aux = FM.moe_routing(x, router, k, capacity)
+        y = fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
+        return fused_moe_combine(y, slot_tok, x.shape[0]), aux
+
+    @staticmethod
+    def backward(ctx, g_out, g_aux):
+        # recompute through the oracle: routing, dispatch and the expert
+        # intermediates, rather than saving E·C·f floats (as the reference)
+        with torch.enable_grad():
+            args = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out, aux = R.fused_moe_mlp_ref(*args, ctx.k, ctx.capacity)
+            grads = torch.autograd.grad((out, aux), args, (g_out, g_aux), allow_unused=True)
+        return (*grads, None, None)
+
+
+def fused_moe_mlp(
+    x: torch.Tensor,               # (T, d) tokens
+    router: torch.Tensor,          # (d, E)
+    wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor,   # expert SwiGLU weights
+    *,
+    k: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE layer: routing in plain PyTorch, then the expert GEMM and
+    the combine (kernels on the card, their plain versions on the CPU).
+    -> (out (T, d), aux loss f32); the backward recomputes through
+    :func:`~repro_torch.kernels.ref.fused_moe_mlp_ref`."""
+    return _FusedMoE.apply(x, router, wg, wu, wo, k, capacity)

@@ -137,3 +137,117 @@ def flash_attention_q8_ref(
     vq, vs = quantize_int8_ref(v, 0.5)
     return flash_attention_ref(q, dequantize_int8_ref(kq, ks), dequantize_int8_ref(vq, vs),
                                causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts
+# ---------------------------------------------------------------------------
+
+
+def fused_moe_gemm_ref(
+    x: torch.Tensor,               # (T, d) tokens
+    wg: torch.Tensor,              # (E, d, f) gate proj
+    wu: torch.Tensor,              # (E, d, f) up proj
+    wo: torch.Tensor,              # (E, f, d) down proj
+    slot_tok: torch.Tensor,        # (E*C, 1) int32, T for an empty slot
+    slot_gate: torch.Tensor,       # (E*C, 1) f32, 0 for an empty slot
+) -> torch.Tensor:
+    """Gated expert SwiGLU per capacity slot, in float32 from the operands'
+    dtype, cast once: ``y[s] = (silu(x[t_s] wg[e]) * (x[t_s] wu[e])) wo[e] *
+    gate[s]`` with ``e = s // C``; an empty slot reads a zero row and gives
+    exactly 0.  -> (E*C, d) in ``x.dtype``."""
+    T, d = x.shape
+    E = wg.shape[0]
+    S = slot_tok.shape[0]
+    tok = slot_tok.reshape(-1).long()
+    live = tok < T
+    xs = torch.where(live[:, None], x[tok.clamp(max=T - 1)].float(), 0.0)
+    xs = xs.reshape(E, S // E, d)
+    g = torch.bmm(xs, wg.float())
+    u = torch.bmm(xs, wu.float())
+    y = torch.bmm(torch.nn.functional.silu(g) * u, wo.float()).reshape(S, d)
+    y = torch.where(live[:, None], y * slot_gate.float(), 0.0)
+    return y.to(x.dtype)
+
+
+def fused_moe_combine_ref(
+    y: torch.Tensor,               # (E*C, d) gated slot rows
+    slot_tok: torch.Tensor,        # (E*C, 1) int32, T for an empty slot
+    T: int,
+) -> torch.Tensor:
+    """``out[t] = sum of y[s] over the slots s with slot_tok[s] == t``, in
+    float32, added one row at a time in ascending slot order and cast once
+    (the CUDA kernel's order, so the two agree bit for bit).  -> (T, d)."""
+    S, d = y.shape
+    tok = slot_tok.reshape(-1).long()
+    # each token's slots in ascending order: a stable sort by token keeps the
+    # slot order within a token, and a slot's rank is its place in that list;
+    # empty slots (token T) sort last and are never added
+    order = torch.argsort(tok, stable=True)
+    st = tok[order]
+    rank = torch.arange(S, device=y.device) - torch.searchsorted(st, st)
+    n_add = int((rank * (st < T)).max()) + 1 if S else 0
+    out = torch.zeros((T, d), dtype=torch.float32, device=y.device)
+    yf = y.float()
+    for r in range(n_add):
+        sel = order[(rank == r) & (st < T)]
+        out.index_add_(0, tok[sel], yf[sel])        # at most one row per token
+    return out.to(y.dtype)
+
+
+def route_top_k(x, router, k, capacity):
+    """Top-k routing with renormalized gates, the Switch aux loss, and
+    first-come capacity slots (``repro/kernels/fused_moe.py:54-106``).
+    Returns ``(st, sg, slot, keep, aux)`` in dispatch order."""
+    T = x.shape[0]
+    E = router.shape[1]
+    C = capacity
+    logits = x.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)                       # (T, E)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)        # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    tok_frac = torch.nn.functional.one_hot(expert_ids, E).float().sum(dim=1).mean(dim=0)
+    aux = E * torch.sum(tok_frac * probs.mean(dim=0))
+
+    flat_expert = expert_ids.reshape(-1)                        # (T*k,)
+    flat_token = torch.arange(T, device=x.device).repeat_interleave(k)
+    order = torch.argsort(flat_expert, stable=True)
+    se, st, sg = flat_expert[order], flat_token[order], gate_vals.reshape(-1)[order]
+    # per-expert counts without a host sync (bincount syncs on the card)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device=x.device) - offsets[se]
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, E * C)
+    return st, sg, slot, keep, aux
+
+
+def fused_moe_mlp_ref(
+    x: torch.Tensor,               # (T, d) tokens
+    router: torch.Tensor,          # (d, E)
+    wg: torch.Tensor,              # (E, d, f)
+    wu: torch.Tensor,              # (E, d, f)
+    wo: torch.Tensor,              # (E, f, d)
+    k: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-layout top-k MoE with SwiGLU experts, the oracle of
+    ``repro/kernels/ref.py:141-190``: routing, a (E*C, d) dispatch buffer,
+    per-expert SwiGLU in the operands' dtype, and a scatter-add combine of
+    the gated slot rows.  -> (out (T, d), aux f32)."""
+    T, d = x.shape
+    E = router.shape[1]
+    C = capacity
+    st, sg, slot, keep, aux = route_top_k(x, router, k, C)
+    gathered = x[st] * keep[:, None].to(x.dtype)
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_copy(0, slot, gathered)[: E * C].reshape(E, C, d)
+    g = torch.einsum("ecd,edf->ecf", buf, wg)
+    u = torch.einsum("ecd,edf->ecf", buf, wu)
+    y = torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(g) * u, wo).reshape(E * C, d)
+    safe_slot = slot.clamp(max=E * C - 1)
+    gate_w = (sg * keep).to(y.dtype)
+    out = torch.zeros((T, d), dtype=y.dtype, device=x.device).index_add(
+        0, st, y[safe_slot] * gate_w[:, None])
+    return out, aux

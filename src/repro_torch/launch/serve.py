@@ -1,12 +1,15 @@
 """Serving driver of the port: one-shot generate on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full-config
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu
 
-``--full-config`` runs the published deepseek-7b dims (random weights from
-``--seed``); without it the smoke config runs.  ``--device`` defaults to
-``cuda`` and the driver raises when no card is found.  The engine and load
-generator modes come with the engine slice.
+``--arch`` takes any arch of ``repro_torch.configs.ARCHS`` (deepseek-7b,
+qwen3-moe-30b-a3b, dbrx-132b); ``--full-config`` runs its published dims
+(random weights from ``--seed``), without it its smoke config runs.
+dbrx-132b's full dims (264 GB of bf16 weights) do not fit one card.
+``--device`` defaults to ``cuda`` and the driver raises when no card is
+found.  The engine and load generator modes come with the engine slice.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Model registry (port of :mod:`repro.models.api`), dense family only.
+"""Model registry (port of :mod:`repro.models.api`): the dense and MoE families.
 
 ``get_model(cfg)`` returns a :class:`Model` whose methods dispatch to the
 family module.  Families the port does not run yet raise
@@ -12,11 +12,11 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models import dense
+from repro_torch.models import dense, moe
 from repro_torch.models.config import ModelConfig
 
+_FAMILIES = {"dense": dense, "moe": moe}
 _NOT_YET = {
-    "moe": "ROADMAP 'MoE family'",
     "rglru": "ROADMAP 'Recurrent families'",
     "rwkv6": "ROADMAP 'Recurrent families'",
     "encdec": "ROADMAP 'Encoder-decoder and vision-language'",
@@ -36,6 +36,10 @@ class Model:
 
     def forward(self, params, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward -> (logits, aux loss); aux is 0 for the dense family."""
+        if self.cfg.family == "moe":
+            # the router's load-balance loss must reach the training loss
+            raise NotImplementedError(
+                "MoE training forward is not ported yet (ROADMAP item 10, MoE training)")
         logits = self.mod.forward(params, self.cfg, tokens)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -50,8 +54,8 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         item = _NOT_YET.get(cfg.family, "ROADMAP 'Modules to port'")
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet ({item})")
-    return Model(cfg=cfg, mod=dense)
+    return Model(cfg=cfg, mod=_FAMILIES[cfg.family])

@@ -29,6 +29,15 @@ class ModelConfig:
     mlp: str = "swiglu"
     tie_embeddings: bool = False
 
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # the fused dispatch + expert-GEMM kernels; the port has no other MoE
+    # path, so moe_mlp refuses False (the reference's unfused A/B baseline)
+    fused_moe: bool = True
+
     # local attention window (None: full causal)
     window: Optional[int] = None
 
@@ -54,12 +63,15 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family (as the reference's
-        ``param_count`` counts it)."""
+        """Analytic parameter count of the dense and MoE families (as the
+        reference's ``param_count`` counts it: norms are not counted)."""
         d, ff, V = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim()
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        mlp_p = 3 * d * ff if self.mlp in ("swiglu", "geglu") else 2 * d * ff
+        if self.family == "moe":
+            mlp_p = (3 * d * ff + d) * self.n_experts   # experts + router
+        else:
+            mlp_p = 3 * d * ff if self.mlp in ("swiglu", "geglu") else 2 * d * ff
         n = self.n_layers * (attn + mlp_p) + V * d
         if not self.tie_embeddings:
             n += V * d

@@ -121,10 +121,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def _mlp(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return L.mlp_apply(lp["mlp"], x, cfg.mlp)
+
+
+# (layer params, normed activations, cfg) -> the block's FFN output
+FFN = Callable[[Dict, torch.Tensor, ModelConfig], torch.Tensor]
+
+
 @torch.no_grad()
-def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Run the prompt; return last-position logits (B, 1, V) + KV cache."""
+def prefill_with(ffn: FFN, params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill of the attention skeleton with ``ffn`` as each block's MLP."""
     x = L.embed(params["embedding"], tokens, cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     kvs = []
@@ -137,18 +145,18 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             kv_cache_dtype=cfg.kv_cache_dtype,
         )
         x = x + attn_out
-        x = x + L.mlp_apply(lp["mlp"], L.rms_norm(lp["ln2"], x), cfg.mlp)
+        x = x + ffn(lp, L.rms_norm(lp["ln2"], x), cfg)
         kvs.append(kv)
     cache = {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
     return _final(params, x[:, -1:], cfg), cache
 
 
 @torch.no_grad()
-def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
-                cache: Dict[str, torch.Tensor], pos: torch.Tensor
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """token (B, 1), pos (B,) -> logits (B, 1, V).  ``cache`` is updated in
-    place (the JAX package donates it) and returned."""
+def decode_step_with(ffn: FFN, params: PyTree, cfg: ModelConfig, token: torch.Tensor,
+                     cache: Dict[str, torch.Tensor], pos: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step of the attention skeleton with ``ffn`` as each block's
+    MLP; ``cache`` is updated in place and returned."""
     x = L.embed(params["embedding"], token, cfg.dtype)
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
@@ -158,5 +166,19 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
             rope_theta=cfg.rope_theta, slot=pos,
         )
         x = x + attn_out
-        x = x + L.mlp_apply(lp["mlp"], L.rms_norm(lp["ln2"], x), cfg.mlp)
+        x = x + ffn(lp, L.rms_norm(lp["ln2"], x), cfg)
     return _final(params, x, cfg), cache
+
+
+def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the prompt; return last-position logits (B, 1, V) + KV cache."""
+    return prefill_with(_mlp, params, cfg, tokens, cache_len)
+
+
+def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """token (B, 1), pos (B,) -> logits (B, 1, V).  ``cache`` is updated in
+    place (the JAX package donates it) and returned."""
+    return decode_step_with(_mlp, params, cfg, token, cache, pos)

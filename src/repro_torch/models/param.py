@@ -18,38 +18,50 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 PyTree = Any
-Init = Callable[[Optional[torch.Generator], Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
+# (generator, shape, dtype, device, stacked) -> tensor; the first ``stacked``
+# dims of ``shape`` are layer dims
+Init = Callable[[Optional[torch.Generator], Tuple[int, ...], torch.dtype, torch.device, int],
+                torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# Initializers (generator, shape, dtype, device) -> tensor
+# Initializers
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen, shape, dtype, device, std: float) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(std).to(dtype)
+def _normal(gen, shape, dtype, device, std: float, stacked: int = 0) -> torch.Tensor:
+    """N(0, std^2) drawn in float32 and cast to ``dtype``.  A leaf whose first
+    ``stacked`` dims are layer dims is drawn one layer slice at a time into
+    the preallocated result, so the float32 draw never exceeds one slice."""
+    if stacked == 0:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return x.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in out.view(-1, *shape[stacked:]):
+        part.copy_(_normal(gen, shape[stacked:], dtype, device, std))
+    return out
 
 
 def normal_init(stddev: float = 0.02) -> Init:
-    def init(gen, shape, dtype, device):
-        return _normal(gen, shape, dtype, device, stddev)
+    def init(gen, shape, dtype, device, stacked=0):
+        return _normal(gen, shape, dtype, device, stddev, stacked)
 
     return init
 
 
 def scaled_init(fan_in_axis: int = -2) -> Init:
-    """LeCun-style 1/sqrt(fan_in) initializer (fan-in read from shape)."""
+    """LeCun-style 1/sqrt(fan_in) initializer.  Fan-in is read from the whole
+    shape, layer dims included, as the reference reads it."""
 
-    def init(gen, shape, dtype, device):
+    def init(gen, shape, dtype, device, stacked=0):
         fan_in = shape[fan_in_axis] if len(shape) >= 2 else shape[-1]
-        return _normal(gen, shape, dtype, device, 1.0 / math.sqrt(max(1, fan_in)))
+        return _normal(gen, shape, dtype, device, 1.0 / math.sqrt(max(1, fan_in)), stacked)
 
     return init
 
 
 def ones_init() -> Init:
-    def init(gen, shape, dtype, device):
+    def init(gen, shape, dtype, device, stacked=0):
         return torch.ones(shape, dtype=dtype, device=device)
 
     return init
@@ -88,6 +100,7 @@ class ParamBuilder:
         axes: Tuple[Optional[str], ...],
         init: Optional[Init] = None,
         dtype: Optional[torch.dtype] = None,
+        stacked: int = 0,
     ) -> torch.Tensor:
         if len(shape) != len(axes):
             raise ValueError(f"{name}: shape {tuple(shape)} vs axes {axes}")
@@ -96,7 +109,7 @@ class ParamBuilder:
         if self.abstract:
             leaf = torch.empty(shape, dtype=dtype, device="meta")
         else:
-            leaf = (init or normal_init())(self.generator, shape, dtype, self.device)
+            leaf = (init or normal_init())(self.generator, shape, dtype, self.device, stacked)
         self.params[name] = leaf
         self.axes[name] = tuple(axes)
         return leaf
@@ -115,7 +128,8 @@ class StackedBuilder:
 
     def param(self, name, shape, axes, init=None, dtype=None):
         return self._inner.param(
-            name, (self._n, *shape), ("layers", *axes), init=init, dtype=dtype
+            name, (self._n, *shape), ("layers", *axes), init=init, dtype=dtype,
+            stacked=1,
         )
 
 

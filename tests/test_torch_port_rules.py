@@ -44,7 +44,11 @@ def _public_ops():
 
 def test_every_public_op_has_a_ref_and_a_parity_test():
     names = _public_ops()
-    assert set(names) == set(ops.LAUNCHES), "every op keeps a launch counter"
+    assert not set(ops.LAUNCHES) & set(ops.COMPOSITE_OPS)
+    assert set(names) == set(ops.LAUNCHES) | set(ops.COMPOSITE_OPS), \
+        "every op keeps a launch counter or is made of ops that do"
+    for parts in ops.COMPOSITE_OPS.values():
+        assert parts and set(parts) <= set(ops.LAUNCHES)
     tests = "\n".join(p.read_text() for p in (ROOT / "tests").glob("test_torch_*.py"))
     for name in names:
         assert callable(getattr(R, f"{name}_ref", None)), f"no ref.{name}_ref"
