@@ -52,13 +52,39 @@ MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
      prompt 512, 64 new tokens, native and int8 KV cache;
  12. profiles, after every timed run (a generate timed after the profiler ran
      measured slower decode steps): one training step per precision, the
-     decode step of phase 5 and the MoE decode step of phase 11
-     (``torch.profiler``, device time by kind, busy ms, idle share; the MoE
-     step split into matmul, attention, fused_moe, routing and other).
+     decode step of phase 5, the MoE decode step of phase 11 and the
+     recurrent decode steps of phase 15 (``torch.profiler``, device time by
+     kind, busy ms, idle share; the MoE step split into matmul, attention,
+     fused_moe, routing and other).
+
+Recurrent serving (rwkv6-7b, recurrentgemma-2b; after the MoE state is freed):
+ 13. the WKV-6 and RG-LRU scan kernels at the prefill shapes (B 8, S 512;
+     64 heads of 64 in bf16, lru width 2560 in f32) and at ragged smoke-size
+     shapes, and the flash (S 3072, window 2048) and decode (2048-row cache,
+     native and int8) kernels at recurrentgemma's 10 query heads over one kv
+     head of 256, against their plain versions; times and bounds as in phase 3;
+ 14. both recurrent smoke configs in float32 (recurrentgemma with native and
+     int8 cache, prompt 13 > its window 8): greedy tokens from the plain path
+     on the CPU and the kernels on the card must be identical, through
+     ``ServeSession.generate`` and through the batched route
+     (``make_prefill_step`` then ``make_serve_step``); on the card the
+     batched prefill's cache must equal the stepped prefill's leaf for leaf;
+ 15. both configs at their published size (random weights from seed 0),
+     the batched route at batch 8, prompt 512, 64 greedy steps (rwkv6-7b;
+     recurrentgemma-2b native and int8), and recurrentgemma-2b at prompt 3072
+     (longer than its window) with 16 steps: prefill ms, decode ms/step,
+     tok/s, peak memory, launches of every kernel per prefill and step;
+ 16. ``ServeSession.generate`` at full width (native, batch 8, prompt 512, 64
+     new tokens), the reference's own recurrent route (the prompt stepped
+     through ``decode_step``): its prefill ms beside the batched one; then
+     the largest difference between the two routes' states, a reading, at
+     prompt 128 (cut from 512 to keep the run near 5 minutes) in bf16 and
+     in float32.
 
 Each record of the kernels line carries the main path (``serving``,
-``training`` or ``moe_serving``) whose shapes it was timed at and whose
-launches it counts, and a ``shape`` where one path times a kernel at two.
+``training``, ``moe_serving`` or ``recurrent_serving``) whose shapes it was
+timed at and whose launches it counts, and a ``shape`` where one path times a
+kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port's
 sources beside this file, it exits non-zero and prints no result.
@@ -67,6 +93,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -115,6 +143,34 @@ def timed_ms(fn, flush) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def build_report(log: str):
+    """One line per source and per compiled kernel (nvcc's ``-Xptxas -v``
+    log): the kernel, its registers and its spill stores."""
+    lines, name, spill = [], "?", "?"
+    for line in log.splitlines():
+        if line.startswith("=="):
+            lines.append(line.strip())
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            lines.append(f"{name}: {m.group(1)} registers, {spill} bytes spill stores")
+    mangled = sorted({w for ln in lines for w in re.findall(r"_Z\w+", ln)})
+    if mangled and shutil.which("c++filt"):
+        plain = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        short = (n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                 for n in plain)
+        names = dict(zip(mangled, short))
+        lines = [re.sub(r"_Z\w+", lambda m: names.get(m.group(0), m.group(0)), ln)
+                 for ln in lines]
+    return lines
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -699,7 +755,6 @@ def moe_kernel_checks(torch, R, F, dev):
 
     # -- attention at qwen3's GQA-8 shapes: 32 query heads over 4 kv heads -----
     B, S, H, Hkv, D, CACHE = 8, 512, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(), 577
-    tol = 2e-2                                          # bf16 output rounding
     q, kk, vv = rand(B, S, H, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
 
     def check(name, got, want):
@@ -874,6 +929,445 @@ def profile_moe_serving(torch, get_model, get_config, dev, ms_per_step):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Recurrent serving (rwkv6-7b, recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+
+RECURRENT_CASES = (("rwkv6-7b", "native"), ("recurrentgemma-2b", "native"),
+                   ("recurrentgemma-2b", "int8"))
+
+
+def close_check(torch, label, got, want, rtol, atol):
+    """``|got - want| <= atol + rtol |want|`` everywhere, or raise; returns
+    the max abs error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= atol + rtol * want.abs()).all())
+    print(f"[check] {label}: max_abs_err={err:.3e} (rtol {rtol:.0e}, atol {atol:.3e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def row_ulp_check(torch, label, got, want, ulps=2):
+    """bf16 attention output against its plain version: each row (the last
+    axis) within ``ulps`` bf16 ulps of that row's largest |want|, exactly 0
+    where the row is all 0 (no live key).  Both sides compute in float32 and
+    round once, so a 1-ulp rounding flip is the expected difference; a
+    long-window row's outputs are small, so its bound is small too.  Returns
+    the max abs error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rowmax = want.abs().amax(dim=-1, keepdim=True)
+    exp = torch.frexp(rowmax).exponent.float()
+    bnd = torch.where(rowmax > 0, ulps * torch.exp2(exp - 8), torch.zeros_like(rowmax))
+    err = diff.max().item()
+    ratio = (diff / torch.where(bnd > 0, bnd, torch.ones_like(bnd))).max().item()
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= bnd).all())
+    print(f"[check] {label}: max_abs_err={err:.3e}, max err/bound={ratio:.3f} "
+          f"(bound {ulps} bf16 ulps of each row's max |want|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def recurrent_kernel_checks(torch, R, F, dev):
+    """Phase 13: the two scan kernels and the attention kernels at the
+    recurrent serving path's shapes against their plain versions on the card."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6060)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    bf16, f32 = torch.bfloat16, torch.float32
+    records = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    # -- WKV-6 scan: rwkv6-7b's prefill (B 8, S 512, 64 heads of 64), and a
+    #    ragged smoke-size case; w as the model makes it, exp(-exp(.)) in (0, 1)
+    for label, (B, S, H, D), dtype in (("prefill", (8, 512, 64, 64), bf16),
+                                       ("ragged", (2, 45, 4, 16), f32)):
+        r, k, v = (randn(B, S, H, D).to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, S, H, D) * 0.5)).to(dtype)
+        u = randn(H, D)
+        out, state = rwkv6_scan(r, k, v, w, u)
+        want_out, want_state = R.rwkv6_scan_ref(r, k, v, w, u)
+        torch.cuda.synchronize()
+        if dtype == bf16:
+            # one bf16 ulp of the largest |out|: both compute the same f32
+            # value up to summation order, then round once
+            atol = 2.0 ** (math.frexp(want_out.float().abs().max().item())[1] - 8)
+            err = close_check(torch, f"rwkv6_scan {label} {(B, S, H, D)} bf16 out", out,
+                              want_out, 0.0, atol)
+        else:
+            err = close_check(torch, f"rwkv6_scan {label} {(B, S, H, D)} f32 out", out,
+                              want_out, 1e-4, 1e-5)
+        # the state sums terms of both signs: rtol 1e-4 plus 1e-4 of its largest |value|
+        close_check(torch, f"rwkv6_scan {label} state", state, want_state, 1e-4,
+                    1e-4 * want_state.abs().max().item())
+        if label == "prefill":
+            nbytes = 5 * r.numel() * r.element_size() + u.numel() * 4 + state.numel() * 4
+            b_ms, b_by = bound(nbytes, 5.0 * D * D * B * H * S, "float32")
+            records.append(dict(
+                name="rwkv6_scan", path="recurrent_serving", shape=f"prefill {(B, S, H, D)}",
+                route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan.py:119",
+                launches=0, max_abs_err=err,
+                ms=timed_ms(lambda: rwkv6_scan(r, k, v, w, u), flush),
+                plain_ms=timed_ms(lambda: R.rwkv6_scan_ref(r, k, v, w, u), flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            ))
+        del r, k, v, w, u, out, state, want_out, want_state
+
+    # -- RG-LRU scan: recurrentgemma-2b's prefill (B 8, S 512, lru_width 2560)
+    #    and a case ragged in S and W; decays in (0.5, 0.999) so the carry lives
+    for label, (B, S, W) in (("prefill", (8, 512, 2560)), ("ragged", (2, 45, 300))):
+        a = torch.rand(B, S, W, generator=gen, device=dev) * 0.499 + 0.5
+        x = randn(B, S, W)
+        err = close_check(torch, f"rglru_scan {label} {(B, S, W)} f32", rglru_scan(a, x),
+                          R.rglru_scan_ref(a, x), 1e-5, 1e-6)
+        if label == "prefill":
+            b_ms, b_by = bound(3 * x.numel() * 4, 2.0 * x.numel(), "float32")
+            records.append(dict(
+                name="rglru_scan", path="recurrent_serving", shape=f"prefill {(B, S, W)}",
+                route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+                replaces="src/repro/kernels/rglru_scan.py:65",
+                launches=0, max_abs_err=err,
+                ms=timed_ms(lambda: rglru_scan(a, x), flush),
+                plain_ms=timed_ms(lambda: R.rglru_scan_ref(a, x), flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            ))
+        del a, x
+
+    # -- attention at recurrentgemma-2b's shapes: 10 query heads over one kv
+    #    head of 256 (MQA), local window 2048, a prompt longer than the window
+    B, S, H, Hkv, D, WIN = 8, 3072, 10, 1, 256, 2048
+    q, kk, vv = randn(B, S, H, D).to(bf16), randn(B, S, Hkv, D).to(bf16), \
+        randn(B, S, Hkv, D).to(bf16)
+    err = row_ulp_check(torch, f"flash_attention MQA-10 D=256 window {WIN} S={S} bf16",
+                        flash_attention_fwd(q, kk, vv, causal=True, window=WIN),
+                        R.flash_attention_ref(q, kk, vv, causal=True, window=WIN))
+    pairs = WIN * (WIN + 1) // 2 + (S - WIN) * WIN      # live (query, key) pairs per head
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - WIN)
+    b_ms, b_by = bound(2 * (q.numel() + kk.numel()) * 2, 4.0 * D * B * H * pairs, "bfloat16")
+    records.append(dict(
+        name="flash_attention", path="recurrent_serving",
+        shape=f"prefill MQA-10 D=256 S={S} window {WIN}", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:133",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(lambda: flash_attention_fwd(q, kk, vv, causal=True, window=WIN), flush),
+        plain_ms=timed_ms(lambda: R.flash_attention_ref(q, kk, vv, causal=True, window=WIN),
+                          flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
+    ))
+    del q, kk, vv, qt, kt, vt, mask
+
+    CACHE = WIN
+    valid = torch.tensor([2048, 1, 1000, 2047, 577, 0, 1500, 2048], dtype=torch.int32,
+                         device=dev)
+    rows = int(valid.sum())
+    q = randn(B, 1, H, D).to(bf16)
+    kc, vc = randn(B, CACHE, Hkv, D).to(bf16), randn(B, CACHE, Hkv, D).to(bf16)
+    err = row_ulp_check(torch, "decode_attention MQA-10 D=256 bf16",
+                        decode_attention(q, kc, vc, valid),
+                        R.decode_attention_ref(q, kc, vc, valid))
+    amask = (torch.arange(CACHE, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    b_ms, b_by = bound(2 * rows * Hkv * D * 2 + 2 * q.numel() * 2 + B * 4,
+                       4.0 * D * H * rows, "bfloat16")
+    records.append(dict(
+        name="decode_attention", path="recurrent_serving", shape="decode MQA-10 D=256",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:327",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(lambda: decode_attention(q, kc, vc, valid), flush),
+        plain_ms=timed_ms(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
+        bound_ms=b_ms, bound_by=b_by,
+        # valid_len 0 rows give NaN here (all masked); timing only
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask, enable_gqa=True), flush),
+    ))
+    kq, ks = R.quantize_int8_ref(kc)
+    vq, vs = R.quantize_int8_ref(vc)
+    err = row_ulp_check(torch, "decode_attention_int8 MQA-10 D=256 bf16",
+                        decode_attention_int8(q, kq, ks, vq, vs, valid),
+                        R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid))
+    b_ms, b_by = bound(2 * rows * Hkv * (D + 4) + 2 * q.numel() * 2 + B * 4,
+                       4.0 * D * H * rows, "bfloat16")
+    records.append(dict(
+        name="decode_attention_int8", path="recurrent_serving", shape="decode MQA-10 D=256",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:378",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(lambda: decode_attention_int8(q, kq, ks, vq, vs, valid), flush),
+        plain_ms=timed_ms(lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid),
+                          flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    del q, kc, vc, qt, kt, vt, kq, ks, vq, vs, amask, scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
+def serve_batched(torch, model, params, prompt, n_new, cache_len):
+    """The flow of ``examples/serve_batched.py``: ``make_prefill_step`` then
+    ``n_new`` greedy ``make_serve_step`` steps.  -> (tokens (B, 1 + n_new),
+    prefill s, decode s), host clock after a synchronize on the card."""
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    def sync():
+        if prompt.is_cuda:
+            torch.cuda.synchronize(prompt.device)
+
+    B, P = prompt.shape
+    step = make_serve_step(model)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(model, cache_len)(params, prompt)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    sync()
+    t1 = time.perf_counter()
+    out = [tok]
+    for t in range(n_new):
+        pos = torch.full((B,), P + t, dtype=torch.int32, device=prompt.device)
+        tok, _, cache = step(params, tok, cache, pos)
+        out.append(tok)
+    sync()
+    return torch.cat(out, dim=1), t1 - t0, time.perf_counter() - t1
+
+
+def _expected_launches(cfg, kv, prefills, decode_steps):
+    """Launches of the recurrent path's kernels for ``prefills`` batched
+    prefills and ``decode_steps`` decode steps of ``cfg``."""
+    if cfg.family == "rwkv6":
+        return {"rwkv6_scan": prefills * cfg.n_layers}
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+    n_a = kinds.count("A")
+    decode_op = "decode_attention_int8" if kv == "int8" else "decode_attention"
+    return {"rglru_scan": prefills * (cfg.n_layers - n_a), "flash_attention": prefills * n_a,
+            decode_op: decode_steps * n_a}
+
+
+def _check_launches(counts, expect, what):
+    bad = {k: (counts[k], n) for k, n in expect.items() if counts[k] != n}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}: {counts}")
+
+
+def _per_leaf(fn, *trees, prefix=""):
+    """``{"A/k": fn(leaf of each tree), ...}`` over nested dicts of tensors."""
+    if isinstance(trees[0], dict):
+        out = {}
+        for k in trees[0]:
+            out.update(_per_leaf(fn, *(t[k] for t in trees), prefix=f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: fn(*trees)}
+
+
+def _cache_diff(a, b):
+    """Largest |a - b| per cache leaf."""
+    return _per_leaf(lambda x, y: (x.float() - y.float()).abs().max().item(), a, b)
+
+
+def cross_device_recurrent(torch, ops, get_model, smoke_config, ServeSession, dev):
+    """Phase 14: both recurrent smoke configs in f32, the plain path on the CPU
+    vs the kernels on the card, through ServeSession.generate and through the
+    batched route; on the card, the batched prefill's cache against the
+    stepped prefill's."""
+    B, P, N = 2, 13, 6                  # prompt 13 > recurrentgemma's window 8
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (B, P)))
+    gprompt = prompt.to(dev)
+    for arch, kv in RECURRENT_CASES:
+        cfg = smoke_config(arch).with_(kv_cache_dtype=kv)
+        model = get_model(cfg)
+        cpu_params, _ = model.init_params(seed=0, device="cpu")
+        gpu_params = _to(cpu_params, dev)
+        serve = ServeSession(model=model, params=gpu_params, device=dev)
+        want = ServeSession(model=model, params=cpu_params, device="cpu").generate(
+            prompt, max_new_tokens=N).tokens
+        ops.reset_launches()
+        got = serve.generate(gprompt, max_new_tokens=N).tokens.cpu()
+        counts = dict(ops.LAUNCHES)
+        print(f"[cross-device] {arch} {kv} generate: cpu={want.tolist()} gpu={got.tolist()} "
+              f"launches={counts}")
+        if not torch.equal(want, got):
+            raise AssertionError(f"{arch} {kv}: generate tokens differ between CPU and card")
+        expect = {k: 0 for k in ("rwkv6_scan", "rglru_scan", "flash_attention")}
+        expect.update({k: n for k, n in _expected_launches(cfg, kv, 0, P + N).items() if n})
+        _check_launches(counts, expect, f"{arch} {kv} generate")
+
+        cache_len = P + N + 1
+        want_b = serve_batched(torch, model, cpu_params, prompt, N, cache_len)[0]
+        ops.reset_launches()
+        got_b = serve_batched(torch, model, gpu_params, gprompt, N, cache_len)[0].cpu()
+        counts = dict(ops.LAUNCHES)
+        print(f"[cross-device] {arch} {kv} batched: cpu={want_b.tolist()} gpu={got_b.tolist()} "
+              f"launches={counts}")
+        if not torch.equal(want_b, got_b):
+            raise AssertionError(f"{arch} {kv}: batched-route tokens differ between CPU and card")
+        _check_launches(counts, _expected_launches(cfg, kv, 1, N), f"{arch} {kv} batched")
+
+        _, batched = model.prefill(gpu_params, gprompt, cache_len)
+        _, stepped = serve._prefill_recurrent(gprompt, cache_len)
+        diff = _cache_diff(batched, stepped)
+        # int8 cache bytes: K/V from a batched and a one-row matmul may fall
+        # on either side of a rounding tie, so 1 LSB
+        bad = {k: d for k, d in diff.items()
+               if not d <= (1.0 if k in ("A/k", "A/v") and kv == "int8" else 1e-3)}
+        print(f"[cross-device] {arch} {kv}: batched vs stepped prefill cache, max |diff| per "
+              f"leaf {diff} {'ok' if not bad else 'FAIL'}")
+        if bad:
+            raise AssertionError(f"{arch} {kv}: batched and stepped prefill caches differ: {bad}")
+
+
+def full_width_recurrent(torch, ops, get_model, get_config, ServeSession, dev):
+    """Phases 15-16 (and the full-width half of 14's comparison): both
+    recurrent configs at their published size, random weights from seed 0."""
+    B, P, N = 8, 512, 64
+    P_LONG, N_LONG = 3072, 16
+    P_STATE = 128
+    totals = {name: 0 for name in ops.LAUNCHES}
+    decode_ms = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def run(model, cfg, kv, params, prompt, n_new, what):
+        P_ = prompt.shape[1]
+        # the first prefill at this shape, timed apart and checked: it holds
+        # the one-time costs (allocator growth, first launches at new shapes)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompt, P_ + n_new + 1)
+        torch.cuda.synchronize(dev)
+        first_s = time.perf_counter() - t0
+        if tuple(logits.shape) != (B, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name} {kv} {what}: prefill logits not finite")
+        del logits, cache
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        toks, pre_s, dec_s = serve_batched(torch, model, params, prompt, n_new, P_ + n_new + 1)
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms_step = dec_s / n_new * 1e3
+        print(f"[recurrent] {cfg.name} {kv} {what}: batch {B}, prompt {P_}: prefill "
+              f"{pre_s * 1e3:.3f} ms (the first at this shape {first_s * 1e3:.3f} ms), "
+              f"decode {ms_step:.3f} ms/step "
+              f"({n_new * B / dec_s:.3f} tok/s), peak memory {peak / 2**30:.3f} GiB, "
+              f"launches {counts}")
+        if (tuple(toks.shape) != (B, n_new + 1) or int(toks.min()) < 0
+                or int(toks.max()) >= cfg.vocab):
+            raise AssertionError(f"{cfg.name} {kv}: tokens {tuple(toks.shape)} out of range")
+        _check_launches(counts, _expected_launches(cfg, kv, 1, n_new), f"{cfg.name} {kv} {what}")
+        for name, c in counts.items():
+            totals[name] += c
+        return pre_s, ms_step
+
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params, _ = get_model(cfg).init_params(seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"[recurrent] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{n_params / 1e9:.3f} B params ({str(cfg.dtype)}), init "
+              f"{time.perf_counter() - t0:.1f} s")
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+        batched_prefill_s = {}
+        for a, kv in RECURRENT_CASES:
+            if a != arch:
+                continue
+            model = get_model(cfg.with_(kv_cache_dtype=kv))
+            batched_prefill_s[kv], decode_ms[(arch, kv)] = run(
+                model, cfg, kv, params, prompt, N, "batched route")
+
+        model = get_model(cfg)
+        if cfg.family == "rglru":
+            # phase 15: a prompt longer than the window: the rotating cache
+            # from the first decode step, the windowed flash with tile skips
+            long_prompt = torch.randint(0, cfg.vocab, (B, P_LONG), generator=gen, device=dev)
+            run(model, cfg, "native", params, long_prompt, N_LONG,
+                f"prompt {P_LONG} > window {cfg.window}")
+            del long_prompt
+
+        # phase 16: the reference's own recurrent route, the prompt stepped
+        # through decode_step
+        serve = ServeSession(model=model, params=params, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        out = serve.generate(prompt, max_new_tokens=N)
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        expect = {k: 0 for k in ("rwkv6_scan", "rglru_scan", "flash_attention")}
+        expect.update({k: n for k, n in _expected_launches(cfg, "native", 0, P + N).items() if n})
+        _check_launches(counts, expect, f"{arch} generate")
+        for name, c in counts.items():
+            totals[name] += c
+        print(f"[recurrent] {cfg.name} native ServeSession.generate: prefill (prompt stepped "
+              f"through decode_step) {out.prefill_time * 1e3:.3f} ms vs batched prefill "
+              f"{batched_prefill_s['native'] * 1e3:.3f} ms; decode {out.ms_per_step:.3f} ms/step "
+              f"({out.decode_tok_s:.3f} tok/s), peak memory {peak / 2**30:.3f} GiB, "
+              f"launches {counts}")
+        # the two routes' states, a reading: the prompt cut to P_STATE (512
+        # stepped decode steps more would double the phase), in bf16 and in
+        # float32, where rounding does not pile up through the layers
+        short = prompt[:, :P_STATE]
+        for dtype in dict.fromkeys((cfg.dtype, torch.float32)):
+            if dtype != cfg.dtype:
+                del params, serve
+                torch.cuda.empty_cache()
+                model = get_model(cfg.with_(dtype=dtype))
+                params, _ = model.init_params(seed=0, device=dev)
+                serve = ServeSession(model=model, params=params, device=dev)
+            _, batched = model.prefill(params, short, P_STATE + 1)
+            _, stepped = serve._prefill_recurrent(short, P_STATE + 1)
+            print(f"[recurrent] {cfg.name}: batched vs stepped prefill state, prompt {P_STATE}, "
+                  f"{str(dtype).split('.')[-1]} (a reading): max |diff| per leaf "
+                  f"{_cache_diff(batched, stepped)}, max |value| per leaf "
+                  f"{_per_leaf(lambda x: x.float().abs().max().item(), stepped)}")
+            del batched, stepped
+        del params, model, serve, out, prompt, short
+        torch.cuda.empty_cache()
+    return totals, decode_ms
+
+
+def profile_recurrent_serving(torch, get_model, get_config, dev, ms_per_step):
+    """Phase 12, recurrent serving: the decode step of phase 15's batched route."""
+    B, P, N = 8, 512, 64
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        cfg = get_config(arch)
+        params, _ = get_model(cfg).init_params(seed=0, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+        for (a, kv), step_ms in ms_per_step.items():
+            if a != arch:
+                continue
+            model = get_model(cfg.with_(kv_cache_dtype=kv))
+            logits, cache = model.prefill(params, prompt, P + N + 1)
+            busy = profile_decode(torch, model, params, cache, logits, P)
+            del logits, cache
+            if busy is not None:
+                print(f"[profile] {arch} {kv}: device busy {busy:.3f} ms of {step_ms:.3f} ms "
+                      f"per decode step: idle share {1 - busy / step_ms:.3f}")
+        del params
+        torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -909,9 +1403,8 @@ def main() -> int:
 
     _build.KERNELS.build()
     print(f"[build] {_build.KERNELS.build_seconds:.1f} s")
-    for line in _build.KERNELS.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"[build] {line.strip()}")
+    for line in build_report(_build.KERNELS.build_log):
+        print(f"[build] {line}")
 
     records = kernel_checks(torch, ops, R, F, dev)
     records += train_kernel_checks(torch, ops, R, F, dev)
@@ -927,12 +1420,19 @@ def main() -> int:
     records += moe_kernel_checks(torch, R, F, dev)
     cross_device_moe(torch, ops, get_model, smoke_config, ServeSession, dev)
     moe_totals, moe_ms = full_width_moe(torch, ops, get_model, get_config, ServeSession, dev)
+    # recurrent serving, after the MoE state is freed
+    records += recurrent_kernel_checks(torch, R, F, dev)
+    cross_device_recurrent(torch, ops, get_model, smoke_config, ServeSession, dev)
+    rec_totals, rec_ms = full_width_recurrent(torch, ops, get_model, get_config, ServeSession,
+                                              dev)
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)
     profile_serving(torch, get_model, get_config, dev, decode_ms)
     profile_moe_serving(torch, get_model, get_config, dev, moe_ms)
-    totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals}
+    profile_recurrent_serving(torch, get_model, get_config, dev, rec_ms)
+    totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
+              "recurrent_serving": rec_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

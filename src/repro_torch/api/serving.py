@@ -1,5 +1,8 @@
 """`ServeSession` (port of :mod:`repro.api.serving`): prefill + KV-cache
-decode behind one object, attention-family path.
+decode behind one object, with the reference's family-aware control flow:
+attention archs prefill with one batched ``Model.prefill``; recurrent archs
+(rglru, rwkv6) step ``decode_step`` over the prompt from ``init_cache``, as
+the reference's ``_prefill_recurrent`` does with its compiled scan.
 
     serve = ServeSession(model=model, params=params)          # device="cuda"
     out = serve.generate(prompt_tokens, max_new_tokens=16)
@@ -49,6 +52,20 @@ class ServeSession:
         self._serve = make_serve_step(model)
         self._sample = make_sample_fn()
 
+    @property
+    def recurrent(self) -> bool:
+        return self.model.cfg.family in ("rglru", "rwkv6")
+
+    def _prefill_recurrent(self, prompt: torch.Tensor, cache_len: int):
+        """The prompt one token at a time through ``decode_step``, the cache
+        updated in place -> (last logits (B, V), cache)."""
+        B, P = prompt.shape
+        cache = self.model.init_cache(B, cache_len, device=self.device)
+        for t in range(P):
+            pos = torch.full((B,), t, dtype=torch.int32, device=self.device)
+            logits, cache = self.model.decode_step(self.params, prompt[:, t:t + 1], cache, pos)
+        return logits[:, -1], cache
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -68,8 +85,11 @@ class ServeSession:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(self.params, prompt, cache_len)
-        logits = logits[:, -1]
+        if self.recurrent:
+            logits, cache = self._prefill_recurrent(prompt, cache_len)
+        else:
+            logits, cache = self.model.prefill(self.params, prompt, cache_len)
+            logits = logits[:, -1]
 
         greedy = sampling.temperature <= 0.0
         if greedy:

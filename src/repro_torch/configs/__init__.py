@@ -11,12 +11,15 @@ from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS: List[str] = ["deepseek-7b", "qwen3-moe-30b-a3b", "dbrx-132b"]
+ARCHS: List[str] = ["deepseek-7b", "qwen3-moe-30b-a3b", "dbrx-132b", "rwkv6-7b",
+                    "recurrentgemma-2b"]
 
 _MODULES: Dict[str, str] = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 

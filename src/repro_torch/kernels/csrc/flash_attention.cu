@@ -19,8 +19,13 @@
 // kernel does, which halves the causal work.  The products run on the f32
 // FMA units, not the tensor cores: moving them to wgmma is a later change.
 //
+// Head dims 16, 32, 128 and 256 (the smoke configs, deepseek-7b and qwen3,
+// recurrentgemma-2b).  At D = 256 a block takes 137 KiB of shared memory, so
+// one block runs per SM.
+//
 // Layouts follow the JAX package: q/o (B, Sq, H, D), k/v (B, Skv, Hkv, D),
-// contiguous; the kv head of query head h is h / (H / Hkv).  Ragged edges are
+// contiguous; the kv head of query head h is h / (H / Hkv), any group size
+// (recurrentgemma's 10 query heads over one kv head included).  Ragged edges are
 // masked by bounds checks, not padded copies.  A row with no live key gives 0
 // (acc / max(l, 1e-30)).
 //
@@ -377,7 +382,9 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
                        int window, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

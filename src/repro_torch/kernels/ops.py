@@ -28,6 +28,8 @@ from repro_torch.kernels import fused_moe as FM
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
 from repro_torch.kernels.quantize import quantize_rows
+from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_scan_cuda
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_scan_cuda
 
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
@@ -37,6 +39,8 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention_int8": 0,
     "fused_moe_gemm": 0,
     "fused_moe_combine": 0,
+    "rwkv6_scan": 0,
+    "rglru_scan": 0,
 }
 
 # public ops made only of counted ops: no kernel, so no counter of their own
@@ -254,3 +258,33 @@ def fused_moe_mlp(
     -> (out (T, d), aux loss f32); the backward recomputes through
     :func:`~repro_torch.kernels.ref.fused_moe_mlp_ref`."""
     return _FusedMoE.apply(x, router, wg, wu, wo, k, capacity)
+
+
+# ---------------------------------------------------------------------------
+# linear recurrences (forward only: the serving path; the reference's
+# recompute backward comes with the recurrent training slice)
+# ---------------------------------------------------------------------------
+
+
+def rwkv6_scan(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,  # (B, S, H, D)
+    u: torch.Tensor,                                                    # (H, D) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV-6 from a zero state: ``out_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T)``,
+    ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``.  -> (out (B, S, H, D) in r.dtype,
+    final state (B, H, D, D) f32)."""
+    if not r.is_cuda:
+        return R.rwkv6_scan_ref(r, k, v, w, u)
+    out = _rwkv6_scan_cuda(r, k, v, w, u)
+    LAUNCHES["rwkv6_scan"] += 1
+    return out
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + x_t`` from ``h_0 = 0`` with a float32 carry.
+    a, x (B, S, W) -> every h_t (B, S, W) in x.dtype."""
+    if not x.is_cuda:
+        return R.rglru_scan_ref(a, x)
+    y = _rglru_scan_cuda(a, x)
+    LAUNCHES["rglru_scan"] += 1
+    return y

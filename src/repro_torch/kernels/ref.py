@@ -251,3 +251,47 @@ def fused_moe_mlp_ref(
     out = torch.zeros((T, d), dtype=y.dtype, device=x.device).index_add(
         0, st, y[safe_slot] * gate_w[:, None])
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Linear recurrences
+# ---------------------------------------------------------------------------
+
+
+def rglru_scan_ref(
+    a: torch.Tensor,               # (B, S, W) decay in (0, 1)
+    x: torch.Tensor,               # (B, S, W) gated input
+    h0: Optional[torch.Tensor] = None,   # (B, W)
+) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + x_t`` one step at a time in float32 from
+    ``h0`` (zeros by default); returns every h_t in ``x.dtype``."""
+    af, xf = a.float(), x.float()
+    h = torch.zeros_like(xf[:, 0]) if h0 is None else h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        ys.append(h)
+    return (torch.stack(ys, dim=1) if ys else xf).to(x.dtype)
+
+
+def rwkv6_scan_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,  # (B, S, H, D)
+    u: torch.Tensor,                                                    # (H, D)
+    s0: Optional[torch.Tensor] = None,                                  # (B, H, D, D)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV-6 one token at a time in float32:
+    ``out_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T)``,
+    ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``.
+    -> (out (B, S, H, D) in ``r.dtype``, final state (B, H, D, D) f32)."""
+    B, S, H, D = r.shape
+    s = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]           # (B, H, D, D)
+        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, t], s + uf[..., :, None] * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    out = torch.stack(outs, dim=1) if S else torch.zeros_like(rf)
+    return out.to(r.dtype), s

@@ -3,10 +3,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --full-config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full-config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
 
 ``--arch`` takes any arch of ``repro_torch.configs.ARCHS`` (deepseek-7b,
-qwen3-moe-30b-a3b, dbrx-132b); ``--full-config`` runs its published dims
-(random weights from ``--seed``), without it its smoke config runs.
+qwen3-moe-30b-a3b, dbrx-132b, rwkv6-7b, recurrentgemma-2b); ``--full-config``
+runs its published dims (random weights from ``--seed``), without it its
+smoke config runs.
 dbrx-132b's full dims (264 GB of bf16 weights) do not fit one card.
 ``--device`` defaults to ``cuda`` and the driver raises when no card is
 found.  The engine and load generator modes come with the engine slice.

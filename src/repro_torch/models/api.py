@@ -1,4 +1,5 @@
-"""Model registry (port of :mod:`repro.models.api`): the dense and MoE families.
+"""Model registry (port of :mod:`repro.models.api`): the dense, MoE and
+recurrent (rwkv6, rglru) families.
 
 ``get_model(cfg)`` returns a :class:`Model` whose methods dispatch to the
 family module.  Families the port does not run yet raise
@@ -12,13 +13,18 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models import dense, moe
+from repro_torch.models import dense, moe, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES = {"dense": dense, "moe": moe}
+_FAMILIES = {"dense": dense, "moe": moe, "rglru": rglru, "rwkv6": rwkv6}
+# families whose training forward is not ported yet, and the ROADMAP item
+_NO_FORWARD = {
+    # the router's load-balance loss must reach the training loss
+    "moe": "ROADMAP item 10, MoE training",
+    "rglru": "ROADMAP item 11, recurrent training",
+    "rwkv6": "ROADMAP item 11, recurrent training",
+}
 _NOT_YET = {
-    "rglru": "ROADMAP 'Recurrent families'",
-    "rwkv6": "ROADMAP 'Recurrent families'",
     "encdec": "ROADMAP 'Encoder-decoder and vision-language'",
     "vlm": "ROADMAP 'Encoder-decoder and vision-language'",
 }
@@ -36,10 +42,10 @@ class Model:
 
     def forward(self, params, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward -> (logits, aux loss); aux is 0 for the dense family."""
-        if self.cfg.family == "moe":
-            # the router's load-balance loss must reach the training loss
+        if self.cfg.family in _NO_FORWARD:
             raise NotImplementedError(
-                "MoE training forward is not ported yet (ROADMAP item 10, MoE training)")
+                f"the {self.cfg.family} training forward is not ported yet "
+                f"({_NO_FORWARD[self.cfg.family]})")
         logits = self.mod.forward(params, self.cfg, tokens)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

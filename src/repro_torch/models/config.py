@@ -6,7 +6,7 @@ ported arrive with them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,7 +26,7 @@ class ModelConfig:
     vocab: int = 1024
     head_dim: Optional[int] = None   # default: d_model // n_heads
     rope_theta: float = 10000.0
-    mlp: str = "swiglu"
+    mlp: str = "swiglu"              # swiglu | geglu
     tie_embeddings: bool = False
 
     # MoE
@@ -38,8 +38,15 @@ class ModelConfig:
     # path, so moe_mlp refuses False (the reference's unfused A/B baseline)
     fused_moe: bool = True
 
-    # local attention window (None: full causal)
-    window: Optional[int] = None
+    # hybrid / recurrent (RecurrentGemma)
+    block_pattern: Tuple[str, ...] = ()   # cycle of "R" (recurrent) / "A" (attention)
+    window: Optional[int] = None          # local attention window (None: full causal)
+    lru_width: Optional[int] = None
+    conv_width: int = 4
+
+    # rwkv
+    rwkv_head_dim: int = 64
+    decay_lora: int = 64
 
     # numerics
     dtype: torch.dtype = torch.float32
@@ -63,16 +70,27 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense and MoE families (as the
+        """Analytic parameter count of the ported families (as the
         reference's ``param_count`` counts it: norms are not counted)."""
         d, ff, V = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim()
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
         if self.family == "moe":
-            mlp_p = (3 * d * ff + d) * self.n_experts   # experts + router
+            n = self.n_layers * (attn + (3 * d * ff + d) * self.n_experts)  # + router
+        elif self.family == "rglru":
+            lw = self.lru_width or d
+            rec = 2 * d * lw + lw * d + self.conv_width * lw + 3 * lw  # in/out + conv + gates
+            n_att = sum(1 for i in range(self.n_layers)
+                        if self.block_pattern[i % len(self.block_pattern)] == "A")
+            n = n_att * (attn + 3 * d * ff) + (self.n_layers - n_att) * (rec + 3 * d * ff)
+        elif self.family == "rwkv6":
+            heads = d // self.rwkv_head_dim
+            tm = 6 * d * d + 2 * self.decay_lora * d + heads * self.rwkv_head_dim
+            n = self.n_layers * (tm + 2 * d * ff)
         else:
             mlp_p = 3 * d * ff if self.mlp in ("swiglu", "geglu") else 2 * d * ff
-        n = self.n_layers * (attn + mlp_p) + V * d
+            n = self.n_layers * (attn + mlp_p)
+        n += V * d
         if not self.tie_embeddings:
             n += V * d
         return int(n)

@@ -1,7 +1,7 @@
-"""Transformer layers of the dense path (port of a subset of
-:mod:`repro.models.layers`): RMSNorm, RoPE, GQA attention for training,
-prefill and KV-cache decode (native and int8 cache), SwiGLU, embedding and
-logits.
+"""Transformer layers (port of a subset of :mod:`repro.models.layers`):
+RMSNorm, LayerNorm, RoPE, GQA attention for training, prefill (with the
+rotating window of the local-attention archs) and KV-cache decode (native
+and int8 cache), SwiGLU, GeGLU, linear, embedding and logits.
 
 Plain functions on tensors over the nested-dict parameter tree of
 :mod:`repro_torch.models.param`, in the JAX layouts.  The JAX package's
@@ -18,7 +18,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as KR
-from repro_torch.models.param import ParamBuilder, normal_init, ones_init, scaled_init
+from repro_torch.models.param import (
+    ParamBuilder, normal_init, ones_init, scaled_init, zeros_init,
+)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -34,6 +36,20 @@ def rms_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(b: ParamBuilder, name: str, dim: int):
+    s = b.scope(name)
+    s.param("scale", (dim,), ("norm",), init=ones_init())
+    s.param("bias", (dim,), ("norm",), init=zeros_init())
+
+
+def layer_norm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -122,18 +138,26 @@ def attention_prefill(
     causal: bool = True,
     window: Optional[int] = None,
     rope_theta: float = 10000.0,
+    rotating: bool = False,
     kv_cache_dtype: str = "native",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: full attention over the prompt AND its KV cache padded to
     ``cache_len``.  With ``kv_cache_dtype="int8"`` the cache holds per-row
     int8 K/V + f32 scales, but attention over the prompt itself runs on the
-    full-precision K/V (as ``layers.py:448`` runs before ``:456``)."""
+    full-precision K/V (as ``layers.py:448`` runs before ``:456``).
+
+    ``rotating=True`` (the local-attention archs): the cache holds only the
+    last ``min(S, cache_len)`` positions, aligned to slot 0, the layout the
+    rotating-window decode expects; keys keep their absolute RoPE phases."""
     q, k, v = qkv_project(p, x)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     o = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal, window=window)
     S = k.shape[1]
+    if rotating and S > cache_len:
+        k, v = k[:, S - cache_len:], v[:, S - cache_len:]
+        S = cache_len
     if S > cache_len:
         raise ValueError(f"prompt length {S} exceeds cache_len {cache_len}")
     pad = (0, 0, 0, 0, 0, cache_len - S)
@@ -157,20 +181,22 @@ def attention_decode(
     window: Optional[int] = None,
     rope_theta: float = 10000.0,
     slot: Optional[torch.Tensor] = None,     # (B,) cache row to write (default pos)
+    valid_len: Optional[torch.Tensor] = None,  # (B,) live cache rows (default slot+1)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode against a KV cache. x: (B, 1, d).
 
     The new K/V row of batch row ``b`` is written IN PLACE at ``cache[...][b,
     slot[b]]`` (the JAX package writes it with a vmapped
     ``dynamic_update_slice`` into a donated buffer); the returned dict holds
-    the same tensors.  An int8 cache (``"k_scale"`` leaf) quantizes the new
-    row before the write and attends through the int8 decode op.
+    the same tensors.  Rows ``< valid_len[b]`` attend.  An int8 cache
+    (``"k_scale"`` leaf) quantizes the new row before the write and attends
+    through the int8 decode op.
     """
     q, k, v = qkv_project(p, x)                       # (B,1,H,D) / (B,1,Hkv,D)
     q = apply_rope(q, pos[:, None], rope_theta)
     k = apply_rope(k, pos[:, None], rope_theta)
     idx = (pos if slot is None else slot).long()      # (B,) write row
-    valid = (idx + 1).to(torch.int32)                 # rows 0..slot attend
+    valid = (idx + 1 if valid_len is None else valid_len).to(torch.int32)
     rows = torch.arange(x.shape[0], device=x.device)
     q = q.contiguous()
 
@@ -210,6 +236,19 @@ def swiglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(F.silu(g) * u, p["wo"].to(x.dtype))
 
 
+def init_geglu(b: ParamBuilder, name: str, d_model: int, d_ff: int):
+    init_swiglu(b, name, d_model, d_ff)
+
+
+def geglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """GELU-gated MLP; the GELU is ``jax.nn.gelu``'s default, the tanh
+    approximation."""
+    g = torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(x.dtype))
+    u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(x.dtype))
+    h = F.gelu(g, approximate="tanh") * u
+    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+
+
 def init_mlp(b: ParamBuilder, name: str, kind: str, d_model: int, d_ff: int):
     if kind != "swiglu":
         raise NotImplementedError(f"mlp {kind!r} is not ported yet (ROADMAP: model families)")
@@ -220,6 +259,22 @@ def mlp_apply(p: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind != "swiglu":
         raise NotImplementedError(f"mlp {kind!r} is not ported yet (ROADMAP: model families)")
     return swiglu(p, x)
+
+
+def init_linear(b: ParamBuilder, name: str, d_in: int, d_out: int,
+                axes: Tuple[Optional[str], Optional[str]] = ("embed", "mlp"),
+                bias: bool = False):
+    s = b.scope(name)
+    s.param("w", (d_in, d_out), axes, init=scaled_init(0))
+    if bias:
+        s.param("b", (d_out,), (axes[1],), init=zeros_init())
+
+
+def linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -29,22 +29,41 @@ Init = Callable[[Optional[torch.Generator], Tuple[int, ...], torch.dtype, torch.
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen, shape, dtype, device, std: float, stacked: int = 0) -> torch.Tensor:
-    """N(0, std^2) drawn in float32 and cast to ``dtype``.  A leaf whose first
-    ``stacked`` dims are layer dims is drawn one layer slice at a time into
-    the preallocated result, so the float32 draw never exceeds one slice."""
+def _draw(gen, shape, dtype, device, stacked, draw_f32) -> torch.Tensor:
+    """``draw_f32(gen, shape, device)`` (a float32 tensor) cast to ``dtype``.
+    A leaf whose first ``stacked`` dims are layer dims is drawn one layer
+    slice at a time into the preallocated result, so the float32 draw never
+    exceeds one slice."""
     if stacked == 0:
-        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return x.mul_(std).to(dtype)
+        return draw_f32(gen, shape, device).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=device)
     for part in out.view(-1, *shape[stacked:]):
-        part.copy_(_normal(gen, shape[stacked:], dtype, device, std))
+        part.copy_(draw_f32(gen, shape[stacked:], device))
     return out
+
+
+def _normal(gen, shape, dtype, device, std: float, stacked: int = 0) -> torch.Tensor:
+    """N(0, std^2) drawn in float32 and cast to ``dtype``, slice by slice."""
+    def draw(g, s, dev):
+        return torch.randn(s, generator=g, dtype=torch.float32, device=dev).mul_(std)
+
+    return _draw(gen, shape, dtype, device, stacked, draw)
 
 
 def normal_init(stddev: float = 0.02) -> Init:
     def init(gen, shape, dtype, device, stacked=0):
         return _normal(gen, shape, dtype, device, stddev, stacked)
+
+    return init
+
+
+def uniform_init(lo: float, hi: float) -> Init:
+    """U[lo, hi) drawn in float32 and cast to ``dtype``, slice by slice."""
+    def draw(g, s, dev):
+        return torch.rand(s, generator=g, dtype=torch.float32, device=dev).mul_(hi - lo).add_(lo)
+
+    def init(gen, shape, dtype, device, stacked=0):
+        return _draw(gen, shape, dtype, device, stacked, draw)
 
     return init
 
@@ -60,11 +79,19 @@ def scaled_init(fan_in_axis: int = -2) -> Init:
     return init
 
 
-def ones_init() -> Init:
+def constant_init(value: float) -> Init:
     def init(gen, shape, dtype, device, stacked=0):
-        return torch.ones(shape, dtype=dtype, device=device)
+        return torch.full(shape, value, dtype=dtype, device=device)
 
     return init
+
+
+def ones_init() -> Init:
+    return constant_init(1.0)
+
+
+def zeros_init() -> Init:
+    return constant_init(0.0)
 
 
 # ---------------------------------------------------------------------------
