@@ -51,7 +51,8 @@ MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
      random weights from seed 0): ``ServeSession.generate`` greedy at batch 8,
      prompt 512, 64 new tokens, native and int8 KV cache;
  12. profiles, after every timed run (a generate timed after the profiler ran
-     measured slower decode steps): one training step per precision, the
+     measured slower decode steps): one training step per model of phases 8
+     and 19 and precision, the
      decode step of phase 5, the MoE decode step of phase 11 and the
      recurrent decode steps of phase 15 (``torch.profiler``, device time by
      kind, busy ms, idle share; the MoE step split into matmul, attention,
@@ -81,8 +82,30 @@ Recurrent serving (rwkv6-7b, recurrentgemma-2b; after the MoE state is freed):
      prompt 128 (cut from 512 to keep the run near 5 minutes) in bf16 and
      in float32.
 
+Recurrent training (``launch/train.py``'s session, as phases 6-8):
+ 17. the path's kernels at its full-width shapes against their plain
+     versions: the WKV-6 scan, float and int8 r/k/v (60 rows, seq 256, 64
+     heads of 64, bf16), the RG-LRU scan, float and int8 x, bit for bit (60
+     rows, seq 128, width 2560, f32), the quantizer at rows of 2560 bit for
+     bit, flash attention with float and int8 K/V at D = 256 (10 query heads
+     over one kv head, window 2048) and at D = 32, each also at a ragged
+     smoke-size shape; then the gradients of ``ops.rwkv6_scan``,
+     ``rwkv6_scan_q8``, ``rglru_scan``, ``rglru_scan_q8`` and
+     ``flash_attention_q8`` (D = 256) on the card against the plain ops'
+     autograd gradients, for every input, at 4 rows; times and bounds as in
+     phase 3;
+ 18. both recurrent smoke configs in float32, as phase 7: ``Session.run`` for
+     6 steps on the CPU and on the card in ``f32`` and ``int8-fused``;
+     per-step losses agree, and the launch counters show every scan and
+     attention call (the remat recompute included) went through its kernel;
+ 19. rwkv6-7b (8 of 32 layers, seq 256) and recurrentgemma-2b (26 layers,
+     seq 128) at full width: ``Session.run`` for 5 steps in ``f32`` and
+     ``int8-fused``, reported as phase 8.  Phase 12 profiles one step of
+     each.
+
 Each record of the kernels line carries the main path (``serving``,
-``training``, ``moe_serving`` or ``recurrent_serving``) whose shapes it was
+``training``, ``moe_serving``, ``recurrent_serving`` or
+``recurrent_training``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -411,6 +434,8 @@ def device_time_by_kind(torch, prof, steps, what, moe=False):
         kind = ("flash_attention" if "flash_fwd" in name else
                 "decode_attention" if "decode_kernel" in name else
                 "quantize" if "quantize_rows_kernel" in name else
+                "wkv6_scan" if "wkv6_kernel" in name else
+                "rglru_scan" if "rglru_kernel" in name else
                 "fused_moe" if any(w in name for w in MOE_KERNELS) else
                 "matmul" if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")) else
                 "routing" if moe and any(w in low for w in ROUTING_KERNELS) else
@@ -540,15 +565,37 @@ def train_kernel_checks(torch, ops, R, F, dev):
     return records
 
 
-def cross_device_train(torch, ops, train_session_factory, dev):
-    """Phase 7: smoke config in f32, Session.run on the CPU (plain versions)
-    vs on the card (kernels), from the same weights."""
+def expected_train_launches(cfg, prec, steps):
+    """Kernel launches of ``steps`` training steps of ``cfg`` under ``prec``
+    with remat (each layer's forward runs twice: the forward and its
+    recompute in the backward): every attention layer through the flash
+    kernel, every recurrent layer through its scan, and under int8-fused the
+    row quantizer for K and V, for r, k and v, or for the RG-LRU input."""
+    if cfg.family == "rglru":
+        kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+    else:
+        kinds = ["W" if cfg.family == "rwkv6" else "A"] * cfg.n_layers
+    q8 = prec == "int8-fused"
+    kernel = {"A": "flash_attention", "R": "rglru_scan", "W": "rwkv6_scan"}
+    quantized_rows = {"A": 2, "R": 1, "W": 3}        # K, V; x; r, k, v
+    out = {}
+    for kind in kinds:
+        name = kernel[kind] + ("_q8" if q8 else "")
+        out[name] = out.get(name, 0) + 2 * steps
+        if q8:
+            out["quantize_int8"] = out.get("quantize_int8", 0) + 2 * steps * quantized_rows[kind]
+    return out
+
+
+def cross_device_train(torch, ops, train_session_factory, dev, arch="deepseek-7b"):
+    """Phases 7 and 18: a smoke config in f32, Session.run on the CPU (plain
+    versions) vs on the card (kernels), from the same weights."""
     import copy
 
     rtol = {"f32": 1e-4, "int8-fused": 1e-2}   # f32 reassociation; int8 rounding flips
     steps = 6
     for prec in ("f32", "int8-fused"):
-        kw = dict(steps=steps, seq=32, precision=prec)
+        kw = dict(arch=arch, steps=steps, seq=32, precision=prec)
         cpu = train_session_factory(device="cpu", **kw)
         params, _ = cpu.init_state()
         gpu_params = _to(copy.deepcopy(params), dev)
@@ -558,25 +605,31 @@ def cross_device_train(torch, ops, train_session_factory, dev):
         report = gpu.run(gpu_params)
         counts = dict(ops.LAUNCHES)
         got = [h["loss"] for h in report.history]
-        print(f"[cross-device] train {prec}: cpu={[round(x, 6) for x in want]} "
+        print(f"[cross-device] train {arch} {prec}: cpu={[round(x, 6) for x in want]} "
               f"gpu={[round(x, 6) for x in got]} launches={counts}")
         if not np.allclose(got, want, rtol=rtol[prec], atol=0.0):
-            raise AssertionError(f"{prec}: per-step losses differ between CPU and card")
-        calls = steps * gpu.model.cfg.n_layers * 2        # forward + remat recompute
-        expect = ({"flash_attention": calls} if prec == "f32" else
-                  {"flash_attention_q8": calls, "quantize_int8": 2 * calls})
-        if any(counts[k] != n for k, n in expect.items()):
-            raise AssertionError(f"{prec}: attention did not run through the kernels: {counts}")
+            raise AssertionError(f"{arch} {prec}: per-step losses differ between CPU and card")
+        _check_launches(counts, expected_train_launches(gpu.model.cfg, prec, steps),
+                        f"{arch} {prec} training")
 
 
-def full_width_train(torch, ops, train_session_factory, dev):
-    """Phase 8: deepseek-7b, full width, 8 layers, through Session.run."""
-    steps, seq, layers = 5, 256, 8
+# the full-width training cells: arch -> (layers, seq).  deepseek-7b and
+# rwkv6-7b are cut to 8 layers (the AdamW state of the full depth does not
+# fit 80 GB); recurrentgemma-2b runs all 26 at seq 128 (its 256,000-entry
+# vocabulary makes the logits the largest tensors of a step)
+TRAIN_CELLS = {"deepseek-7b": (8, 256), "rwkv6-7b": (8, 256), "recurrentgemma-2b": (26, 128)}
+
+
+def full_width_train(torch, ops, train_session_factory, get_config, dev, arch="deepseek-7b"):
+    """Phases 8 and 19: ``arch`` at full width, depth and seq from
+    TRAIN_CELLS, through Session.run for 5 steps in f32 and int8-fused."""
+    steps = 5
+    layers, seq = TRAIN_CELLS[arch]
     totals = {name: 0 for name in ops.LAUNCHES}
     step_ms = {}
     for prec in ("f32", "int8-fused"):
-        session = train_session_factory(device=dev, full_config=True, n_layers=layers,
-                                        seq=seq, steps=steps, precision=prec)
+        session = train_session_factory(arch=arch, device=dev, full_config=True,
+                                        n_layers=layers, seq=seq, steps=steps, precision=prec)
         cfg = session.model.cfg
         sched = session.tune().schedule
         torch.cuda.reset_peak_memory_stats(dev)
@@ -589,44 +642,44 @@ def full_width_train(torch, ops, train_session_factory, dev):
         data_ms = statistics.median(h["data_time"] for h in hist[1:]) * 1e3
         valid_tok_s = sched.valid_rows * seq / (ms / 1e3)
         loop_ms = report.wall_time / steps * 1e3          # all steps, data plane included
-        print(f"[train] {cfg.name} {prec}: {cfg.n_layers} of 30 layers, d_model "
-              f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params ({str(cfg.dtype)}), "
-              f"rows {sched.global_rows} ({sched.valid_rows} valid) x seq {seq}")
-        print(f"[train] {prec}: {ms:.3f} ms/step (median of steps 2-{steps}), "
+        print(f"[train] {cfg.name} {prec}: {cfg.n_layers} of {get_config(arch).n_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params "
+              f"({str(cfg.dtype)}), rows {sched.global_rows} ({sched.valid_rows} valid) x seq "
+              f"{seq}")
+        print(f"[train] {cfg.name} {prec}: {ms:.3f} ms/step (median of steps 2-{steps}), "
               f"{valid_tok_s:.1f} valid tok/s, first step {hist[0]['step_time'] * 1e3:.1f} ms, "
               f"peak memory {peak / 2**30:.3f} GiB, launches {counts}")
-        print(f"[train] {prec}: whole loop {report.wall_time * 1e3:.1f} ms for {steps} steps "
-              f"({loop_ms:.3f} ms/step, {sched.valid_rows * seq / (loop_ms / 1e3):.1f} valid "
-              f"tok/s), of which batch assembly {data_ms:.3f} ms/step (median of steps 2-{steps})")
-        print(f"[train] {prec}: losses {[round(h['loss'], 4) for h in hist]} grad_norm "
-              f"{[round(h['grad_norm'], 3) for h in hist]}")
+        print(f"[train] {cfg.name} {prec}: whole loop {report.wall_time * 1e3:.1f} ms for "
+              f"{steps} steps ({loop_ms:.3f} ms/step, "
+              f"{sched.valid_rows * seq / (loop_ms / 1e3):.1f} valid tok/s), of which batch "
+              f"assembly {data_ms:.3f} ms/step (median of steps 2-{steps})")
+        print(f"[train] {cfg.name} {prec}: losses {[round(h['loss'], 4) for h in hist]} "
+              f"grad_norm {[round(h['grad_norm'], 3) for h in hist]}")
         if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
-            raise AssertionError(f"{prec}: non-finite loss or grad norm")
-        calls = steps * layers * 2                          # forward + remat recompute
-        expect = ({"flash_attention": calls} if prec == "f32" else
-                  {"flash_attention_q8": calls, "quantize_int8": 2 * calls})
-        if any(counts[k] != n for k, n in expect.items()):
-            raise AssertionError(f"{prec}: attention did not run through the kernels: {counts}")
+            raise AssertionError(f"{cfg.name} {prec}: non-finite loss or grad norm")
+        _check_launches(counts, expected_train_launches(cfg, prec, steps),
+                        f"{cfg.name} {prec} training")
         for name, c in counts.items():
             totals[name] += c
-        step_ms[prec] = ms
+        step_ms[(arch, prec)] = ms
         del session, report, hist
         torch.cuda.empty_cache()
     return totals, step_ms
 
 
 def profile_train(torch, train_session_factory, dev, step_ms):
-    """Phase 12, training: one profiled step per precision at the phase-8
-    shapes, after a warm step, on fresh weights; then one more step split
-    into its parts."""
+    """Phase 12, training: one profiled step per (arch, precision) at the
+    shapes of phases 8 and 19, after a warm step, on fresh weights; then one
+    more step split into its parts."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.train.steps import loss_fn, value_and_grad
 
-    for prec, ms in step_ms.items():
-        session = train_session_factory(device=dev, full_config=True, n_layers=8, seq=256,
-                                        steps=2, precision=prec)
+    for (arch, prec), ms in step_ms.items():
+        layers, seq = TRAIN_CELLS[arch]
+        session = train_session_factory(arch=arch, device=dev, full_config=True,
+                                        n_layers=layers, seq=seq, steps=2, precision=prec)
         step = session.compile().step_fn
         params, opt_state = session.init_state()
         batch = session.dataset.next_device_batch(dev)
@@ -636,10 +689,10 @@ def profile_train(torch, train_session_factory, dev, step_ms):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             params, opt_state, metrics = step(params, opt_state, batch)
             torch.cuda.synchronize()
-        busy = device_time_by_kind(torch, prof, 1, f"{prec} train step")
+        busy = device_time_by_kind(torch, prof, 1, f"{arch} {prec} train step")
         if busy is not None:
-            print(f"[profile] {prec}: device busy {busy:.3f} ms of {ms:.3f} ms per train "
-                  f"step: idle share {1 - busy / ms:.3f}")
+            print(f"[profile] {arch} {prec}: device busy {busy:.3f} ms of {ms:.3f} ms per "
+                  f"train step: idle share {1 - busy / ms:.3f}")
         # the parts of make_train_step's step, one after another, on CUDA events
         batch = session.dataset.next_device_batch(dev)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -655,7 +708,7 @@ def profile_train(torch, train_session_factory, dev, step_ms):
         ev[4].record()
         torch.cuda.synchronize()
         part = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
-        print(f"[profile] {prec}: one step in parts (CUDA events): forward+backward "
+        print(f"[profile] {arch} {prec}: one step in parts (CUDA events): forward+backward "
               f"{part[1]:.3f} ms (a forward alone {part[0]:.3f} ms), AdamW update "
               f"{part[2]:.3f} ms, grad norm {part[3]:.3f} ms")
         del session, step, params, opt_state, batch, prof, grads
@@ -1368,6 +1421,232 @@ def profile_recurrent_serving(torch, get_model, get_config, dev, ms_per_step):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Recurrent training (rwkv6-7b, recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+
+
+def grad_check(torch, label, got, want, share):
+    """Each gradient within ``share`` of its largest |want|, or raise."""
+    for name, g, w in zip(label[1], got, want):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{label[0]} d{name}: dtype {g.dtype} != {w.dtype}")
+        close_check(torch, f"{label[0]} d{name} ({str(g.dtype).split('.')[-1]})", g, w, 0.0,
+                    share * w.float().abs().max().item())
+
+
+def recurrent_train_kernel_checks(torch, ops, R, F, dev):
+    """Phase 17: the recurrent training path's kernels at its full-width
+    shapes (and ragged smoke-size ones) against their plain versions on the
+    card, and the gradients of its differentiable ops against the plain
+    ops' gradients."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_int8
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_int8
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7070)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    bf16, f32 = torch.bfloat16, torch.float32
+    records = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def q8(x):
+        """The training quantizer's int8 and scales over the last axis."""
+        q, s = quantize_rows(x.reshape(-1, x.shape[-1]), 0.5)
+        return q.view(x.shape), s.view(x.shape[:-1] + (1,))
+
+    def deq(q, s):
+        return R.dequantize_int8_ref(q, s)
+
+    def record(name, shape, source, replaces, err, kernel, plain, nbytes, flops, dtype,
+               library=None):
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        records.append(dict(
+            name=name, path="recurrent_training", shape=shape, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=f"src/repro/kernels/{replaces}", launches=0, max_abs_err=err,
+            ms=timed_ms(kernel, flush), plain_ms=timed_ms(plain, flush),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if library is None else timed_ms(library, flush)))
+
+    # -- WKV-6, float and int8: rwkv6-7b's training shape (60 rows, seq 256,
+    #    64 heads of 64, bf16) and a ragged smoke-size one (f32)
+    for label, (B, S, H, D), dtype in (("train", (60, 256, 64, 64), bf16),
+                                       ("ragged", (2, 45, 4, 16), f32)):
+        r, k, v = (randn(B, S, H, D).to(dtype) for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, S, H, D) * 0.5)).to(dtype)
+        u = randn(H, D)
+        (rq, rs), (kq, ks), (vq, vs) = q8(r), q8(k), q8(v)
+        rd, kd, vd = deq(rq, rs), deq(kq, ks), deq(vq, vs)
+        ops_ = 5.0 * D * D * B * H * S
+        for name, kernel, plain in (
+                ("rwkv6_scan", lambda: rwkv6_scan(r, k, v, w, u),
+                 lambda: R.rwkv6_scan_ref(r, k, v, w, u)),
+                ("rwkv6_scan_q8", lambda: rwkv6_scan_int8(rq, rs, kq, ks, vq, vs, w, u, dtype),
+                 lambda: R.rwkv6_scan_ref(rd, kd, vd, w, u))):
+            out, state = kernel()
+            want_out, want_state = plain()
+            want_out = want_out.to(dtype)
+            torch.cuda.synchronize()
+            if dtype == bf16:
+                # one bf16 ulp of the largest |out|, as phase 13 bounds the float kernel
+                atol = 2.0 ** (math.frexp(want_out.float().abs().max().item())[1] - 8)
+                err = close_check(torch, f"{name} {label} {(B, S, H, D)} bf16 out", out,
+                                  want_out, 0.0, atol)
+            else:
+                err = close_check(torch, f"{name} {label} {(B, S, H, D)} f32 out", out,
+                                  want_out, 1e-4, 1e-5)
+            close_check(torch, f"{name} {label} state", state, want_state, 1e-4,
+                        1e-4 * want_state.abs().max().item())
+            if label == "train":
+                act = 3 * r.numel() * (1 if name.endswith("q8") else r.element_size())
+                scales = 3 * rs.numel() * 4 if name.endswith("q8") else 0
+                nbytes = (act + scales + 2 * w.numel() * w.element_size() + u.numel() * 4
+                          + state.numel() * 4)                    # w in, out (same dtype)
+                record(name, f"train {(B, S, H, D)}", "rwkv6_scan.cu",
+                       "rwkv6_scan.py:171" if name.endswith("q8") else "rwkv6_scan.py:119",
+                       err, kernel, plain, nbytes, ops_, "float32")
+            del out, state, want_out, want_state
+        del r, k, v, w, u, rq, rs, kq, ks, vq, vs, rd, kd, vd
+
+    # -- RG-LRU, float and int8: recurrentgemma-2b's training shape (60 rows,
+    #    seq 128, lru width 2560, f32 gates) and a ragged one; bit for bit,
+    #    and the quantizer at rows of 2560 bit for bit too
+    for label, (B, S, W) in (("train", (60, 128, 2560)), ("ragged", (2, 45, 300))):
+        a = torch.rand(B, S, W, generator=gen, device=dev) * 0.499 + 0.5
+        x = randn(B, S, W)
+        xq, xs = q8(x)
+        want_q, want_s = R.quantize_int8_ref(x, 0.5)
+        same = torch.equal(xq, want_q) and torch.equal(xs, want_s)
+        print(f"[check] quantize_int8 rows of {W} f32 {tuple(x.shape)}: "
+              f"{'bit-equal' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"quantize_int8 differs from its plain version at width {W}")
+        xd = deq(xq, xs)
+        for name, kernel, plain in (("rglru_scan", lambda: rglru_scan(a, x),
+                                     lambda: R.rglru_scan_ref(a, x)),
+                                    ("rglru_scan_q8", lambda: rglru_scan_int8(a, xq, xs),
+                                     lambda: R.rglru_scan_ref(a, xd))):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            print(f"[check] {name} {label} {(B, S, W)} f32: "
+                  f"{'bit-equal' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"{name} ({label}) differs from its plain version")
+            if label == "train":
+                x_bytes = xq.numel() + xs.numel() * 4 if name.endswith("q8") else x.numel() * 4
+                record(name, f"train {(B, S, W)}", "rglru_scan.cu",
+                       "rglru_scan.py:103" if name.endswith("q8") else "rglru_scan.py:65",
+                       0.0, kernel, plain, 2 * a.numel() * 4 + x_bytes, 2.0 * x.numel(),
+                       "float32")
+        if label == "train":
+            rows = x.view(-1, W)
+            record("quantize_int8", f"RG-LRU rows {tuple(rows.shape)} f32", "quantize.cu",
+                   "quantize.py:38", 0.0, lambda: quantize_rows(rows, 0.5),
+                   lambda: R.quantize_int8_ref(rows, 0.5),
+                   rows.numel() * 5 + rows.shape[0] * 4, 0.0, "float32")
+        del a, x, xq, xs, xd, want_q, want_s
+
+    # -- flash attention, float and int8 K/V, at recurrentgemma's head dims:
+    #    D = 256 at its training shape (60 rows, seq 128, 10 query heads over
+    #    one kv head, window 2048), D = 32 at its smoke shape (window 8)
+    for label, (B, S, H, Hkv, D, WIN), dtype in (
+            ("train", (60, 128, 10, 1, 256, 2048), bf16),
+            ("smoke", (2, 13, 2, 1, 32, 8), f32)):
+        q, kk, vv = randn(B, S, H, D).to(dtype), randn(B, S, Hkv, D).to(dtype), \
+            randn(B, S, Hkv, D).to(dtype)
+        (kq, ks), (vq, vs) = q8(kk), q8(vv)
+        kd, vd = deq(kq, ks), deq(vq, vs)
+        pairs = sum(min(i + 1, WIN) for i in range(S))    # live (query, key) pairs per head
+        flops = 4.0 * D * B * H * pairs
+        for name, kernel, plain in (
+                ("flash_attention",
+                 lambda: flash_attention_fwd(q, kk, vv, causal=True, window=WIN),
+                 lambda: R.flash_attention_ref(q, kk, vv, causal=True, window=WIN)),
+                ("flash_attention_q8",
+                 lambda: flash_attention_int8_fwd(q, kq, ks, vq, vs, causal=True, window=WIN),
+                 lambda: R.flash_attention_ref(q, kd, vd, causal=True, window=WIN))):
+            tag = f"{name} MQA-{H} D={D} S={S} window {WIN} {str(dtype).split('.')[-1]}"
+            if dtype == bf16:
+                err = row_ulp_check(torch, tag, kernel(), plain())
+            else:
+                err = close_check(torch, tag, kernel(), plain(), 1e-4, 1e-5)
+            if label == "train":
+                kv_bytes = (kq.numel() * 2 + ks.numel() * 8 if name.endswith("q8")
+                            else 2 * kk.numel() * kk.element_size())
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
+                library = None if name.endswith("q8") else (
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                           enable_gqa=True))
+                record(name, f"train MQA-{H} D={D} S={S}", "flash_attention.cu",
+                       "flash_attention.py:200" if name.endswith("q8")
+                       else "flash_attention.py:133",
+                       err, kernel, plain, 2 * q.numel() * q.element_size() + kv_bytes, flops,
+                       "bfloat16", library)
+                del qt, kt, vt
+        del q, kk, vv, kq, ks, vq, vs, kd, vd
+
+    # -- gradients: each differentiable op of the path with its kernel (on
+    #    the card) against the plain op's autograd gradients; the int8-fused
+    #    ops' gradients are the plain op's at the dequantized inputs (the
+    #    reference's straight-through vjp), cast to the inputs' dtypes.
+    #    Batch cut to 4 rows (the plain WKV's autograd keeps ~3 (B, H, D, D)
+    #    f32 tensors per step); every other axis as in training.
+    def grads_of(fn, inputs, cots):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+        return torch.autograd.grad(loss, leaves)
+
+    B = 4
+    r, k, v = (randn(B, 256, 64, 64).to(bf16) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(B, 256, 64, 64) * 0.5)).to(bf16)
+    u = randn(64, 64)
+    cots = (randn(B, 256, 64, 64), randn(B, 64, 64, 64))
+    rd, kd, vd = (deq(*q8(t)) for t in (r, k, v))
+    grad_check(torch, ("ops.rwkv6_scan", "rkvwu"),
+               grads_of(ops.rwkv6_scan, (r, k, v, w, u), cots),
+               grads_of(R.rwkv6_scan_ref, (r, k, v, w, u), cots), 2 ** -7)
+    # the reference's vjp: of the plain scan with its output cast to r's dtype
+    want = grads_of(lambda *a: (lambda o, st: (o.to(bf16), st))(*R.rwkv6_scan_ref(*a)),
+                    (rd, kd, vd, w, u), cots)
+    want = [g.to(t.dtype) for g, t in zip(want, (r, k, v, w, u))]
+    grad_check(torch, ("ops.rwkv6_scan_q8", "rkvwu"),
+               grads_of(ops.rwkv6_scan_q8, (r, k, v, w, u), cots), want, 2 ** -7)
+    del r, k, v, w, u, cots, rd, kd, vd, want
+
+    a = torch.rand(B, 128, 2560, generator=gen, device=dev) * 0.499 + 0.5
+    x = randn(B, 128, 2560)
+    cot = (randn(B, 128, 2560),)
+    grad_check(torch, ("ops.rglru_scan", "ax"), grads_of(ops.rglru_scan, (a, x), cot),
+               grads_of(R.rglru_scan_ref, (a, x), cot), 1e-5)
+    grad_check(torch, ("ops.rglru_scan_q8", "ax"), grads_of(ops.rglru_scan_q8, (a, x), cot),
+               grads_of(R.rglru_scan_ref, (a, deq(*q8(x))), cot), 1e-5)
+    del a, x, cot
+
+    q, kk, vv = randn(B, 128, 10, 256).to(bf16), randn(B, 128, 1, 256).to(bf16), \
+        randn(B, 128, 1, 256).to(bf16)
+    cot = (randn(B, 128, 10, 256),)
+    kd, vd = deq(*q8(kk)), deq(*q8(vv))
+    want = grads_of(lambda *t: R.flash_attention_ref(*t, causal=True, window=2048),
+                    (q, kd, vd), cot)
+    grad_check(torch, ("ops.flash_attention_q8 D=256", "qkv"),
+               grads_of(lambda *t: ops.flash_attention_q8(*t, causal=True, window=2048),
+                        (q, kk, vv), cot), [g.to(bf16) for g in want], 2 ** -7)
+    del q, kk, vv, cot, kd, vd, want, scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1412,7 +1691,8 @@ def main() -> int:
     cross_device_train(torch, ops, train_session_factory, dev)
     # the main paths: counts are reset before and read after each run
     serve_totals, decode_ms = full_width(torch, ops, get_model, get_config, ServeSession, dev)
-    train_totals, train_ms = full_width_train(torch, ops, train_session_factory, dev)
+    train_totals, train_ms = full_width_train(torch, ops, train_session_factory, get_config,
+                                              dev)
     # MoE serving: the dense model's state is gone with its phases' locals
     torch.cuda.empty_cache()
     print(f"[moe] before the MoE phases: {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB "
@@ -1425,6 +1705,16 @@ def main() -> int:
     cross_device_recurrent(torch, ops, get_model, smoke_config, ServeSession, dev)
     rec_totals, rec_ms = full_width_recurrent(torch, ops, get_model, get_config, ServeSession,
                                               dev)
+    # recurrent training
+    records += recurrent_train_kernel_checks(torch, ops, R, F, dev)
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        cross_device_train(torch, ops, train_session_factory, dev, arch)
+    rec_train_totals = {name: 0 for name in ops.LAUNCHES}
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        totals, ms = full_width_train(torch, ops, train_session_factory, get_config, dev, arch)
+        train_ms.update(ms)
+        for name, c in totals.items():
+            rec_train_totals[name] += c
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)
@@ -1432,7 +1722,7 @@ def main() -> int:
     profile_moe_serving(torch, get_model, get_config, dev, moe_ms)
     profile_recurrent_serving(torch, get_model, get_config, dev, rec_ms)
     totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
-              "recurrent_serving": rec_totals}
+              "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

@@ -20,8 +20,8 @@
 // FMA units, not the tensor cores: moving them to wgmma is a later change.
 //
 // Head dims 16, 32, 128 and 256 (the smoke configs, deepseek-7b and qwen3,
-// recurrentgemma-2b).  At D = 256 a block takes 137 KiB of shared memory, so
-// one block runs per SM.
+// recurrentgemma-2b), in both kernels.  At D = 256 a block takes 137 KiB of
+// shared memory, so one block runs per SM.
 //
 // Layouts follow the JAX package: q/o (B, Sq, H, D), k/v (B, Skv, Hkv, D),
 // contiguous; the kv head of query head h is h / (H / Hkv), any group size
@@ -412,8 +412,12 @@ cudaError_t dispatch_d_int8(const void* q, const void* k, const void* ks, const 
   switch (D) {
     case 16:
       return launch_int8<T, 16>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 32:
+      return launch_int8<T, 32>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
     case 128:
       return launch_int8<T, 128>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 256:
+      return launch_int8<T, 256>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

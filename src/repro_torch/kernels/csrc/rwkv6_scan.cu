@@ -2,11 +2,16 @@
 //
 // Replaces: src/repro/kernels/rwkv6_scan.py::rwkv6_scan (the Pallas TPU
 //   kernel _wkv6_kernel/_wkv6_body), the time-mixing recurrence of the RWKV-6
-//   prefill on the recurrent serving path:
+//   prefill and of f32/bf16 training:
 //     out_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T)
 //     S_t   = diag(w_t) S_{t-1} + k_t v_t^T,   S_0 = 0,
 //   per (batch, head), with a (D, D) float32 state S; returns every out_t and
-//   the final state.
+//   the final state.  And src/repro/kernels/rwkv6_scan.py::rwkv6_scan_int8
+//   (_wkv6_int8_kernel), the same recurrence in int8-fused training: r/k/v
+//   arrive as int8 with (B, S, H, 1) f32 row scales and are dequantized
+//   (int8 -> f32, times the row scale, as the TPU kernel does) as a chunk
+//   enters shared memory; the decay w stays float.  One kernel template
+//   serves both: only the chunk load differs (FloatRKV / Int8RKV).
 //
 // What bounds it on this card: float32 operations.  Each step of each (b, h)
 // needs 5 D^2 of them (D^2 multiply-adds for r_t @ S, D^2 products k v^T and
@@ -35,9 +40,12 @@
 // steps: a chunk of r, k, w, v is loaded into shared memory with coalesced
 // reads of the (B, S, H, D) layout in place (no transposed copy), r/k/w padded
 // so each thread's float4 reads are free of bank conflicts.  A ragged S ends
-// the last chunk early, which is what the TPU kernel's padding (lw = 0,
-// r = k = v = 0) does to the state.  At full width there are only 512 blocks
-// of 128 threads for 132 SMs, all resident at once (86 registers a thread,
+// the last chunk early, which is what the TPU kernels' padding (lw = 0,
+// r = k = v = 0; zero row scales in the int8 kernel) does to the state.
+// In int8-fused training (B 60, S 256, H 64, D 64) the int8 load reads a
+// quarter of bf16's r/k/v bytes, but the bound is the same 2.0e10 f32
+// operations (0.30 ms at 67 TFLOP/s).  At full width there are only 512 blocks
+// of 128 threads for 132 SMs, all resident at once (80 registers a thread,
 // 35 KB of shared memory a block), 3 or 4 a SM: the time is set by the 512
 // serial steps of a block, not by the card's width.  Two threads a column
 // ran 1.7x faster on the H100 than four (chip_smoke.py: 0.335 against 0.555
@@ -62,12 +70,46 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 constexpr int NP = 2;              // threads per column of the state
 
-// T: dtype of r/k/v/w and out.  D: head dim.
-template <typename T, int D>
+// How r/k/v reach float32 as a chunk enters shared memory: element g of the
+// (B, S, H, D) layout, whose row (b, t, h) has row scale index sr.  The
+// loads take the read-only path (__ldg): through plain struct members the
+// float kernel ran slower at the serving shape on the H100 than with its
+// pointers as const __restrict__ kernel arguments; through __ldg, as fast
+// (scripts/wkv6_ab.py).
+template <typename T>
+struct FloatRKV {                  // r/k/v in T (the float kernel)
+  const T* __restrict__ r; const T* __restrict__ k; const T* __restrict__ v;
+  __device__ __forceinline__ float r_at(int64_t g, int64_t) const {
+    return to_f32(__ldg(r + g));
+  }
+  __device__ __forceinline__ float k_at(int64_t g, int64_t) const {
+    return to_f32(__ldg(k + g));
+  }
+  __device__ __forceinline__ float v_at(int64_t g, int64_t) const {
+    return to_f32(__ldg(v + g));
+  }
+};
+
+struct Int8RKV {                   // int8 r/k/v + (B, S, H, 1) f32 row scales
+  const int8_t* __restrict__ r; const int8_t* __restrict__ k; const int8_t* __restrict__ v;
+  const float* __restrict__ rs; const float* __restrict__ ks; const float* __restrict__ vs;
+  __device__ __forceinline__ float r_at(int64_t g, int64_t sr) const {
+    return (float)__ldg(r + g) * __ldg(rs + sr);
+  }
+  __device__ __forceinline__ float k_at(int64_t g, int64_t sr) const {
+    return (float)__ldg(k + g) * __ldg(ks + sr);
+  }
+  __device__ __forceinline__ float v_at(int64_t g, int64_t sr) const {
+    return (float)__ldg(v + g) * __ldg(vs + sr);
+  }
+};
+
+// In: how r/k/v are read (FloatRKV<T> or Int8RKV).  TW: dtype of w.
+// TO: dtype of out.  D: head dim.
+template <typename In, typename TW, typename TO, int D>
 __global__ void __launch_bounds__(D * NP)
-wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ w, const float* __restrict__ u, T* __restrict__ out,
-            float* __restrict__ state, int S, int H) {
+wkv6_kernel(In in, const TW* __restrict__ w, const float* __restrict__ u,
+            TO* __restrict__ out, float* __restrict__ state, int S, int H) {
   constexpr int NT = D * NP;          // threads
   constexpr int RPT = D / NP;         // state rows per thread
   constexpr int PS = RPT + 4;         // padded stride of one thread's rows
@@ -85,6 +127,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
   const int h = blockIdx.x, b = blockIdx.y;
   const int64_t row = (int64_t)H * D;
   const int64_t base = (int64_t)b * S * row + (int64_t)h * D;
+  const int64_t sbase = (int64_t)b * S * H + h;     // row scale of (b, t = 0, h)
   const float* uh = u + (int64_t)h * D;
 
   float st[RPT];
@@ -98,11 +141,12 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     for (int i = tid; i < n * D; i += NT) {
       const int t = i / D, d = i % D;
       const int64_t g = base + (int64_t)(t0 + t) * row + d;
+      const int64_t sr = sbase + (int64_t)(t0 + t) * H;
       const int pd = (d / RPT) * PS + d % RPT;
-      r_s[t][pd] = to_f32(r[g]);
-      k_s[t][pd] = to_f32(k[g]);
+      r_s[t][pd] = in.r_at(g, sr);
+      k_s[t][pd] = in.k_at(g, sr);
       w_s[t][pd] = fmaxf(to_f32(w[g]), 1e-30f);
-      v_s[t][d] = to_f32(v[g]);
+      v_s[t][d] = in.v_at(g, sr);
     }
     __syncthreads();
     // the bonus term's scalar per step: sum_d r_t[d] u[d] k_t[d]
@@ -138,7 +182,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
       }
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);   // the other half of column e
       if (p == 0)
-        out[base + (int64_t)(t0 + t) * row + e] = from_f32<T>(fmaf(ve, bonus_s[t], acc));
+        out[base + (int64_t)(t0 + t) * row + e] = from_f32<TO>(fmaf(ve, bonus_s[t], acc));
     }
   }
 
@@ -147,40 +191,75 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
   for (int i = 0; i < RPT; ++i) sb[(int64_t)(p * RPT + i) * D + e] = st[i];
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* r, const void* k, const void* v, const void* w,
-                   const float* u, void* out, float* state, int B, int S, int H,
-                   cudaStream_t stream) {
+template <typename In, typename TW, typename TO>
+cudaError_t launch(const In& in, const void* w, const float* u, void* out, float* state,
+                   int B, int S, int H, int D, cudaStream_t stream) {
   dim3 grid(H, B);
-  wkv6_kernel<T, D><<<grid, D * NP, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(w), u, static_cast<T*>(out), state, S, H);
+  const TW* wp = static_cast<const TW*>(w);
+  TO* op = static_cast<TO*>(out);
+  switch (D) {
+    case 16:
+      wkv6_kernel<In, TW, TO, 16><<<grid, 16 * NP, 0, stream>>>(in, wp, u, op, state, S, H);
+      break;
+    case 64:
+      wkv6_kernel<In, TW, TO, 64><<<grid, 64 * NP, 0, stream>>>(in, wp, u, op, state, S, H);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* r, const void* k, const void* v, const void* w,
-                       const float* u, void* out, float* state, int B, int S, int H,
-                       int D, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(r, k, v, w, u, out, state, B, S, H, stream);
-    case 64: return launch<T, 64>(r, k, v, w, u, out, state, B, S, H, stream);
-    default: return cudaErrorInvalidValue;
-  }
+// dtype codes: 0 = float32, 1 = bfloat16
+template <typename In, typename TO>
+cudaError_t dispatch_w(const In& in, const void* w, int w_dtype, const float* u, void* out,
+                       float* state, int B, int S, int H, int D, cudaStream_t stream) {
+  if (w_dtype == 0) return launch<In, float, TO>(in, w, u, out, state, B, S, H, D, stream);
+  if (w_dtype == 1)
+    return launch<In, __nv_bfloat16, TO>(in, w, u, out, state, B, S, H, D, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// r/k/v/w (B, S, H, D) of dtype (0 = float32, 1 = bfloat16), u (H, D) f32;
-// out (B, S, H, D) of the same dtype, state (B, H, D, D) f32.  Returns the
+// r/k/v (B, S, H, D) and out of dtype, w (B, S, H, D) of w_dtype (0 =
+// float32, 1 = bfloat16), u (H, D) f32; state (B, H, D, D) f32.  Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int repro_rwkv6_scan(const void* r, const void* k, const void* v, const void* w,
                                 const float* u, void* out, float* state, int B, int S,
-                                int H, int D, int dtype, void* stream) {
+                                int H, int D, int dtype, int w_dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(r, k, v, w, u, out, state, B, S, H, D, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(r, k, v, w, u, out, state, B, S, H, D, s);
+  if (dtype == 0) {
+    const FloatRKV<float> in{static_cast<const float*>(r), static_cast<const float*>(k),
+                             static_cast<const float*>(v)};
+    return (int)dispatch_w<FloatRKV<float>, float>(in, w, w_dtype, u, out, state, B, S, H,
+                                                   D, s);
+  }
+  if (dtype == 1) {
+    using BF = __nv_bfloat16;
+    const FloatRKV<BF> in{static_cast<const BF*>(r), static_cast<const BF*>(k),
+                          static_cast<const BF*>(v)};
+    return (int)dispatch_w<FloatRKV<BF>, BF>(in, w, w_dtype, u, out, state, B, S, H, D, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 entry (replaces _wkv6_int8_kernel): r/k/v (B, S, H, D) int8 with
+// (B, S, H, 1) f32 row scales, w (B, S, H, D) of w_dtype, u (H, D) f32; out
+// (B, S, H, D) of out_dtype, state (B, H, D, D) f32.
+extern "C" int repro_rwkv6_scan_int8(const void* r, const float* r_scale, const void* k,
+                                     const float* k_scale, const void* v,
+                                     const float* v_scale, const void* w, const float* u,
+                                     void* out, float* state, int B, int S, int H, int D,
+                                     int out_dtype, int w_dtype, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Int8RKV in{static_cast<const int8_t*>(r), static_cast<const int8_t*>(k),
+                   static_cast<const int8_t*>(v), r_scale, k_scale, v_scale};
+  if (out_dtype == 0)
+    return (int)dispatch_w<Int8RKV, float>(in, w, w_dtype, u, out, state, B, S, H, D, s);
+  if (out_dtype == 1)
+    return (int)dispatch_w<Int8RKV, __nv_bfloat16>(in, w, w_dtype, u, out, state, B, S, H,
+                                                   D, s);
   return (int)cudaErrorInvalidValue;
 }

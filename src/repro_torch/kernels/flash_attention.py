@@ -17,8 +17,6 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 128, 256)   # the smoke configs, deepseek-7b and qwen3, recurrentgemma-2b
-# int8 K/V flash runs only in int8-fused training, which the dense family alone has
-INT8_HEAD_DIMS = (16, 128)
 
 
 def check_attention_inputs(q: torch.Tensor, tensors, what: str) -> None:
@@ -87,9 +85,6 @@ def flash_attention_int8_fwd(
     _check_qkv(q, k, v, window, what)
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError(f"{what}: k and v must be int8")
-    if q.shape[-1] not in INT8_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{what}: head dim {q.shape[-1]} not implemented (have {INT8_HEAD_DIMS})")
     sshape = tuple(k.shape[:3]) + (1,)
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         if tuple(s.shape) != sshape or s.dtype != torch.float32:

@@ -8,11 +8,11 @@ Each op picks its path from where its tensors lie:
 
 The training ops are ``torch.autograd.Function``s with the reference's
 ``custom_vjp`` semantics: the forward runs the kernel (or, on the CPU, its
-plain version) and saves only its inputs — int8 K/V and their scales for the
-int8-fused op — and the backward recomputes through the plain attention or
-MoE math (``repro/kernels/ops.py:60-69, 142-153, 271-289``).  That
-recompute is the reference's backward, not a fallback: the JAX package has
-no backward kernel either.
+plain version) and saves only its inputs — int8 activations and their
+scales for the int8-fused ops — and the backward recomputes through the
+plain attention, MoE or scan math (``repro/kernels/ops.py:60-69, 142-153,
+271-289, 316-475``).  That recompute is the reference's backward, not a
+fallback: the JAX package has no backward kernel either.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, CUDA path
 only), so a run can show that it went through the kernels.
@@ -29,7 +29,9 @@ from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
 from repro_torch.kernels.quantize import quantize_rows
 from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_scan_cuda
+from repro_torch.kernels.rglru_scan import rglru_scan_int8 as _rglru_scan_int8_cuda
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_scan_cuda
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_int8 as _rwkv6_scan_int8_cuda
 
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
@@ -40,7 +42,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_moe_gemm": 0,
     "fused_moe_combine": 0,
     "rwkv6_scan": 0,
+    "rwkv6_scan_q8": 0,
     "rglru_scan": 0,
+    "rglru_scan_q8": 0,
 }
 
 # public ops made only of counted ops: no kernel, so no counter of their own
@@ -261,9 +265,64 @@ def fused_moe_mlp(
 
 
 # ---------------------------------------------------------------------------
-# linear recurrences (forward only: the serving path; the reference's
-# recompute backward comes with the recurrent training slice)
+# linear recurrences (differentiable)
 # ---------------------------------------------------------------------------
+
+WKV_CHUNK = 32    # the TPU kernel's chunk: the plain backward recomputes this many steps at once
+
+
+def _rwkv6_vjp(r, k, v, w, u, g_out, g_state):
+    """Gradients of the plain WKV-6 scan at (r, k, v, w, u), the reference's
+    backward (``repro/kernels/ops.py:403-410``), recomputed ``WKV_CHUNK``
+    steps at a time: one plain forward keeps the state at each chunk
+    boundary, then each chunk is recomputed with autograd in reverse order,
+    carrying dS.  The same function and per-step arithmetic as one vjp of
+    the whole scan, with one chunk's intermediates alive at a time instead
+    of every step's.  The output is cast to ``g_out.dtype`` before the vjp,
+    as the int8-fused op's backward does; each gradient comes back in its
+    input's dtype."""
+    S = r.shape[1]
+    starts = list(range(0, S, WKV_CHUNK))
+    states = [None]
+    with torch.no_grad():
+        for c0 in starts[:-1]:
+            c1 = c0 + WKV_CHUNK
+            states.append(R.rwkv6_scan_ref(r[:, c0:c1], k[:, c0:c1], v[:, c0:c1],
+                                           w[:, c0:c1], u, s0=states[-1])[1])
+    grads = [torch.empty_like(t) for t in (r, k, v, w)]
+    du = torch.zeros_like(u)
+    ds = g_state.float()
+    for c0, s0 in zip(reversed(starts), reversed(states)):
+        c1 = min(c0 + WKV_CHUNK, S)
+        with torch.enable_grad():
+            leaves = [t[:, c0:c1].detach().requires_grad_() for t in (r, k, v, w)]
+            ul = u.detach().requires_grad_()
+            sl = None if s0 is None else s0.requires_grad_()
+            out, s = R.rwkv6_scan_ref(*leaves, ul, s0=sl)
+            inputs = (*leaves, ul) if sl is None else (*leaves, ul, sl)
+            got = torch.autograd.grad((out.to(g_out.dtype), s), inputs,
+                                      (g_out[:, c0:c1], ds))
+        for dst, g in zip(grads, got[:4]):
+            dst[:, c0:c1] = g
+        du += got[4]
+        if sl is not None:
+            ds = got[5]
+    return (*grads, du)
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        if not r.is_cuda:
+            return R.rwkv6_scan_ref(r, k, v, w, u)
+        out = _rwkv6_scan_cuda(r, k, v, w, u)
+        LAUNCHES["rwkv6_scan"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        return _rwkv6_vjp(*ctx.saved_tensors, g_out, g_state)
 
 
 def rwkv6_scan(
@@ -272,19 +331,98 @@ def rwkv6_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV-6 from a zero state: ``out_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T)``,
     ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``.  -> (out (B, S, H, D) in r.dtype,
-    final state (B, H, D, D) f32)."""
-    if not r.is_cuda:
-        return R.rwkv6_scan_ref(r, k, v, w, u)
-    out = _rwkv6_scan_cuda(r, k, v, w, u)
-    LAUNCHES["rwkv6_scan"] += 1
-    return out
+    final state (B, H, D, D) f32); the backward recomputes through the plain
+    scan (:func:`_rwkv6_vjp`)."""
+    return _RWKV6Scan.apply(r, k, v, w, u)
+
+
+class _RWKV6ScanQ8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        (rq, rs), (kq, ks), (vq, vs) = (_quantize_q8(t) for t in (r, k, v))
+        ctx.save_for_backward(rq, rs, kq, ks, vq, vs, w, u)
+        ctx.dtypes = r.dtype, k.dtype, v.dtype
+        if not r.is_cuda:
+            out, s = R.rwkv6_scan_ref(R.dequantize_int8_ref(rq, rs), R.dequantize_int8_ref(kq, ks),
+                                      R.dequantize_int8_ref(vq, vs), w.float(), u)
+            return out.to(r.dtype), s
+        out = _rwkv6_scan_int8_cuda(rq, rs, kq, ks, vq, vs, w, u, r.dtype)
+        LAUNCHES["rwkv6_scan_q8"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        # straight-through across the rounding: the plain scan's gradients at
+        # the dequantized r/k/v, cast back to their primal dtypes
+        rq, rs, kq, ks, vq, vs, w, u = ctx.saved_tensors
+        dr, dk, dv, dw, du = _rwkv6_vjp(
+            R.dequantize_int8_ref(rq, rs), R.dequantize_int8_ref(kq, ks),
+            R.dequantize_int8_ref(vq, vs), w, u, g_out, g_state)
+        return (*(g.to(dt) for g, dt in zip((dr, dk, dv), ctx.dtypes)), dw, du)
+
+
+def rwkv6_scan_q8(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,  # (B, S, H, D)
+    u: torch.Tensor,                                                    # (H, D) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8-fused WKV-6: r/k/v are quantized per row (round half up), the scan
+    runs over int8 + row scales with the decay and the bonus in float, and
+    the backward residuals are the int8 r/k/v + scales.  -> (out in r.dtype,
+    final state f32)."""
+    return _RWKV6ScanQ8.apply(r, k, v, w, u)
+
+
+def _rglru_vjp(a, x, g):
+    """Gradients of the plain RG-LRU scan at (a, x), output cast to g's dtype."""
+    with torch.enable_grad():
+        ad, xd = a.detach().requires_grad_(), x.detach().requires_grad_()
+        y = R.rglru_scan_ref(ad, xd).to(g.dtype)
+        return torch.autograd.grad(y, (ad, xd), g)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, x):
+        ctx.save_for_backward(a, x)
+        if not x.is_cuda:
+            return R.rglru_scan_ref(a, x)
+        y = _rglru_scan_cuda(a, x)
+        LAUNCHES["rglru_scan"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rglru_vjp(*ctx.saved_tensors, g)
 
 
 def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t * h_{t-1} + x_t`` from ``h_0 = 0`` with a float32 carry.
-    a, x (B, S, W) -> every h_t (B, S, W) in x.dtype."""
-    if not x.is_cuda:
-        return R.rglru_scan_ref(a, x)
-    y = _rglru_scan_cuda(a, x)
-    LAUNCHES["rglru_scan"] += 1
-    return y
+    a, x (B, S, W) -> every h_t (B, S, W) in x.dtype; the backward recomputes
+    through the plain scan."""
+    return _RGLRUScan.apply(a, x)
+
+
+class _RGLRUScanQ8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, x):
+        xq, xs = _quantize_q8(x)
+        ctx.save_for_backward(a, xq, xs)
+        ctx.x_dtype = x.dtype
+        if not x.is_cuda:
+            return R.rglru_scan_ref(a, R.dequantize_int8_ref(xq, xs)).to(x.dtype)
+        y = _rglru_scan_int8_cuda(a, xq, xs)
+        LAUNCHES["rglru_scan_q8"] += 1
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, xq, xs = ctx.saved_tensors
+        da, dx = _rglru_vjp(a, R.dequantize_int8_ref(xq, xs), g)
+        return da.to(a.dtype), dx.to(ctx.x_dtype)
+
+
+def rglru_scan_q8(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Int8-fused RG-LRU: the gated input is quantized per row of W (round
+    half up) and dequantized inside the scan; the decay stays float32 and the
+    backward residual is the int8 input + scales.  -> (B, S, W) in x.dtype."""
+    return _RGLRUScanQ8.apply(a, x)

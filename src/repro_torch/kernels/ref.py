@@ -123,6 +123,11 @@ def dequantize_int8_ref(
     return (q.float() * scale).to(dtype)
 
 
+def _q8_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """Through the training quantizer (per row, round half up) and back, in f32."""
+    return dequantize_int8_ref(*quantize_int8_ref(x, 0.5))
+
+
 def flash_attention_q8_ref(
     q: torch.Tensor,               # (B, Sq, H, D)
     k: torch.Tensor,               # (B, Skv, Hkv, D) float
@@ -133,9 +138,7 @@ def flash_attention_q8_ref(
 ) -> torch.Tensor:
     """Flash attention with K/V squeezed through per-row int8, round half up
     (constant noise 0.5): the int8-fused training attention."""
-    kq, ks = quantize_int8_ref(k, 0.5)
-    vq, vs = quantize_int8_ref(v, 0.5)
-    return flash_attention_ref(q, dequantize_int8_ref(kq, ks), dequantize_int8_ref(vq, vs),
+    return flash_attention_ref(q, _q8_roundtrip(k), _q8_roundtrip(v),
                                causal=causal, window=window)
 
 
@@ -295,3 +298,22 @@ def rwkv6_scan_ref(
         s = wf[:, t, :, :, None] * s + kv
     out = torch.stack(outs, dim=1) if S else torch.zeros_like(rf)
     return out.to(r.dtype), s
+
+
+def rwkv6_scan_q8_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,  # (B, S, H, D)
+    u: torch.Tensor,                                                    # (H, D)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV-6 with r/k/v squeezed through per-row int8; the decay stays
+    float.  -> (out in ``r.dtype``, final state f32)."""
+    out, s = rwkv6_scan_ref(_q8_roundtrip(r), _q8_roundtrip(k), _q8_roundtrip(v),
+                            w.float(), u)
+    return out.to(r.dtype), s
+
+
+def rglru_scan_q8_ref(
+    a: torch.Tensor,               # (B, S, W) decay in (0, 1)
+    x: torch.Tensor,               # (B, S, W) gated input
+) -> torch.Tensor:
+    """RG-LRU with the gated input squeezed through per-row int8 (rows of W)."""
+    return rglru_scan_ref(a.float(), _q8_roundtrip(x)).to(x.dtype)

@@ -7,6 +7,8 @@ devices.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --full-config --layers 8 \\
       --seq 256 --precision int8-fused --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+      --full-config --seq 128 --steps 5
 
 ``--full-config`` runs the published dims (random weights from ``--seed``);
 ``--layers`` cuts the depth, the one cut a single card may need.

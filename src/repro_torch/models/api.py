@@ -2,8 +2,8 @@
 recurrent (rwkv6, rglru) families.
 
 ``get_model(cfg)`` returns a :class:`Model` whose methods dispatch to the
-family module.  Families the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item.
+family module.  Families the port does not run yet, and the MoE training
+forward, raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,8 +21,6 @@ _FAMILIES = {"dense": dense, "moe": moe, "rglru": rglru, "rwkv6": rwkv6}
 _NO_FORWARD = {
     # the router's load-balance loss must reach the training loss
     "moe": "ROADMAP item 10, MoE training",
-    "rglru": "ROADMAP item 11, recurrent training",
-    "rwkv6": "ROADMAP item 11, recurrent training",
 }
 _NOT_YET = {
     "encdec": "ROADMAP 'Encoder-decoder and vision-language'",
@@ -41,7 +39,8 @@ class Model:
                                     dtype=dtype, device=device)
 
     def forward(self, params, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Training forward -> (logits, aux loss); aux is 0 for the dense family."""
+        """Training forward -> (logits, aux loss); aux is 0 for every family
+        that trains here (the router's aux loss is MoE's)."""
         if self.cfg.family in _NO_FORWARD:
             raise NotImplementedError(
                 f"the {self.cfg.family} training forward is not ported yet "

@@ -87,12 +87,17 @@ def _scan_blocks(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
     ``cfg.remat`` each layer keeps only its input and recomputes its forward
     in the backward (the reference's ``jax.checkpoint`` per layer)."""
     for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        if cfg.remat:
-            x = checkpoint(body, lp, x, use_reentrant=False)
-        else:
-            x = body(lp, x)
+        x = _run_layer(cfg, body, _layer(params["blocks"], i), x)
     return x
+
+
+def _run_layer(cfg: ModelConfig, body: Callable[[PyTree, torch.Tensor], torch.Tensor],
+               lp: PyTree, x: torch.Tensor) -> torch.Tensor:
+    """One layer of a training forward: under ``cfg.remat`` only its input is
+    kept and its forward recomputed in the backward (``jax.checkpoint``)."""
+    if cfg.remat:
+        return checkpoint(body, lp, x, use_reentrant=False)
+    return body(lp, x)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """RecurrentGemma / Griffin-style hybrid (arXiv:2402.19427), port of
 :mod:`repro.models.rglru`: RG-LRU recurrent blocks and local attention in a
-repeating (R, R, A) pattern, serving path.
+repeating (R, R, A) pattern.
 
 RG-LRU recurrence (per channel, c = 8):
     r_t = sigmoid(x_t W_a + b_a)                      (recurrence gate)
@@ -12,12 +12,12 @@ The recurrent block is linear-in (two branches) -> [causal conv1d(4) ->
 RG-LRU] * gelu-gate -> linear-out; each layer is that block (or local
 attention) plus a GeGLU MLP, both pre-norm residual.
 
-Entry points as :mod:`repro_torch.models.dense`.  ``prefill`` runs the
-RG-LRU through :func:`repro_torch.kernels.ops.rglru_scan` and the A layers
-through the flash attention op; ``decode_step`` steps the recurrence in plain
-PyTorch and attends through the decode op over each A layer's rotating
-window.  Training (``forward``) comes with the recurrent training slice
-(ROADMAP item 11).
+Entry points as :mod:`repro_torch.models.dense`.  ``forward`` and
+``prefill`` run the RG-LRU through :func:`repro_torch.kernels.ops.rglru_scan`
+(or, under ``train_precision="int8-fused"``,
+:func:`~repro_torch.kernels.ops.rglru_scan_q8`) and the A layers through the
+flash attention ops; ``decode_step`` steps the recurrence in plain PyTorch and
+attends through the decode op over each A layer's rotating window.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.dense import _final, _layer
+from repro_torch.models.dense import _final, _layer, _run_layer
 from repro_torch.models.param import (
     ParamBuilder, build, normal_init, stacked, uniform_init, zeros_init,
 )
@@ -68,14 +68,14 @@ def _rglru_gates(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def rglru_scan(p: Dict, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
     """The whole sequence through the scan op. x: (B, S, W) -> y (B, S, W) in x.dtype."""
-    if precision == "int8-fused":
-        raise NotImplementedError(
-            "the int8-fused RG-LRU scan is not ported yet (ROADMAP item 11, recurrent "
-            "training)")
     log_a, gated = _rglru_gates(p, x)
+    a = torch.exp(log_a)
+    if precision == "int8-fused":
+        # the gated input streams as int8 + row scales; the decay stays f32
+        return kops.rglru_scan_q8(a, gated).to(x.dtype)
     if precision == "bf16":
         gated = gated.to(torch.bfloat16).float()
-    return kops.rglru_scan(torch.exp(log_a), gated).to(x.dtype)
+    return kops.rglru_scan(a, gated).to(x.dtype)
 
 
 def rglru_step(p: Dict, x: torch.Tensor, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -197,6 +197,32 @@ def init_params(
             L.init_embedding(b, "lm_head", cfg.vocab, cfg.d_model)
 
     return build(f, seed=seed, abstract=abstract, dtype=dtype or cfg.dtype, device=dev)
+
+
+def _layer_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(lp["ln1"], x)
+    if kind == "A":
+        h = L.attention_train(
+            lp["attn"], h, positions=positions, causal=True, window=cfg.window,
+            rope_theta=cfg.rope_theta, precision=cfg.train_precision)
+    else:
+        h, _ = recurrent_block(lp, h, cfg)
+    x = x + h
+    return x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x))
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Training forward. tokens: (B, S) int -> logits (B, S, V).  The layers
+    run in pattern order, each a view of its kind's stacked group."""
+    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    idx = {"R": 0, "A": 0}
+    for kind in layer_kinds(cfg):
+        x = _run_layer(cfg, lambda lp, h, kind=kind: _layer_train(lp, h, cfg, kind, positions),
+                       _layer(params["groups"][kind], idx[kind]), x)
+        idx[kind] += 1
+    return _final(params, x, cfg)
 
 
 def _attn_len(cfg: ModelConfig, cache_len: int) -> int:

@@ -1,6 +1,6 @@
 """RWKV-6 "Finch" (arXiv:2404.05892), port of :mod:`repro.models.rwkv6`:
 attention-free LM with data-dependent decay and a matrix-valued state per
-head, serving path.
+head.
 
 Per layer, time mixing carries S in R^{H x D x D}:
 
@@ -13,14 +13,16 @@ squared-ReLU MLP.  Both mix each input with the previous token's (token shift).
 
 Entry points:
   * ``init_params(cfg, seed=..., device=...)``         -> (params, logical_axes)
+  * ``forward(params, cfg, tokens)``                   -> logits (train)
   * ``init_cache(cfg, batch, cache_len, device=...)``  -> zeroed O(1) state
   * ``prefill(params, cfg, tokens, cache_len)``        -> (last logits, state)
   * ``decode_step(params, cfg, token, cache, pos)``    -> (logits, state)
 
-``prefill`` runs the WKV recurrence through :func:`repro_torch.kernels.ops.rwkv6_scan`
-(the CUDA kernel on the card); ``decode_step`` through the plain one-token
-step, as the reference does.  Training (``forward``) comes with the
-recurrent training slice (ROADMAP item 11).
+``forward`` and ``prefill`` run the WKV recurrence through
+:func:`repro_torch.kernels.ops.rwkv6_scan`, or under
+``train_precision="int8-fused"`` through
+:func:`~repro_torch.kernels.ops.rwkv6_scan_q8` (the CUDA kernels on the card);
+``decode_step`` through the plain one-token step, as the reference does.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.dense import _layer
+from repro_torch.models.dense import _layer, _scan_blocks
 from repro_torch.models.param import (
     ParamBuilder, build, normal_init, ones_init, scaled_init, stacked, zeros_init,
 )
@@ -127,14 +129,12 @@ def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     r4, k4, v4, w4 = (t.reshape(B, S, H, hd) for t in (r, k, v, w.to(x.dtype)))
     u = p["u"].float().reshape(H, hd)
     if state is None:
-        if cfg.train_precision == "int8-fused":
-            raise NotImplementedError(
-                "the int8-fused WKV scan is not ported yet (ROADMAP item 11, "
-                "recurrent training)")
         if cfg.train_precision == "bf16":
             r4, k4, v4 = (t.to(torch.bfloat16) for t in (r4, k4, v4))
-        out, s_new = kops.rwkv6_scan(r4.contiguous(), k4.contiguous(), v4.contiguous(),
-                                     w4.contiguous(), u)
+        # int8-fused: r/k/v stream as int8 + row scales, the decay stays float
+        scan = kops.rwkv6_scan_q8 if cfg.train_precision == "int8-fused" else kops.rwkv6_scan
+        out, s_new = scan(r4.contiguous(), k4.contiguous(), v4.contiguous(),
+                          w4.contiguous(), u)
     else:
         out, s_new = wkv6_step(r4[:, 0], k4[:, 0], v4[:, 0], w4[:, 0], u, state["wkv"])
         out = out[:, None]
@@ -201,6 +201,20 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.layer_norm(params["ln_f"], x)
     head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
     return L.logits(head, x)
+
+
+def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h, _ = time_mix(lp["tmix"], L.layer_norm(lp["ln1"], x), cfg)
+    x = x + h
+    return x + channel_mix(lp["cmix"], L.layer_norm(lp["ln2"], x))
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Training forward. tokens: (B, S) int -> logits (B, S, V)."""
+    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    x = L.layer_norm(params["ln0"], x)
+    x = _scan_blocks(params, x, cfg, lambda lp, h: _block_train(lp, h, cfg))
+    return _logits(params, cfg, x)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, dtype=None,

@@ -376,15 +376,19 @@ def test_uniform_init_draws_one_layer_slice_at_a_time(monkeypatch):
     assert not torch.equal(lam[0], lam[1])
 
 
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_training_forward_raises_naming_its_roadmap_item(arch):
-    model = get_model(smoke_config(arch))
-    params, _ = model.init_params(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11, recurrent training"):
-        model.forward(params, torch.zeros((1, 4), dtype=torch.long))
-    fused = get_model(smoke_config(arch).with_(train_precision="int8-fused"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        fused.prefill(params, torch.zeros((1, 4), dtype=torch.long), 8)
+def test_only_the_moe_training_forward_raises():
+    """The recurrent families train (tests/test_torch_recurrent_train.py);
+    the MoE training forward still raises, naming its ROADMAP item."""
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    for arch in ARCHS:
+        model = get_model(smoke_config(arch))
+        params, _ = model.init_params(seed=0, device="cpu")
+        if model.cfg.family == "moe":
+            with pytest.raises(NotImplementedError, match="ROADMAP item 10, MoE training"):
+                model.forward(params, tokens)
+        else:
+            logits, aux = model.forward(params, tokens)
+            assert tuple(logits.shape) == (1, 4, model.cfg.vocab) and float(aux) == 0.0
 
 
 @pytest.mark.parametrize("arch", RECURRENT)
