@@ -53,10 +53,11 @@ MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
  12. profiles, after every timed run (a generate timed after the profiler ran
      measured slower decode steps): one training step per model of phases 8
      and 19 and precision, the
-     decode step of phase 5, the MoE decode step of phase 11 and the
-     recurrent decode steps of phase 15 (``torch.profiler``, device time by
-     kind, busy ms, idle share; the MoE step split into matmul, attention,
-     fused_moe, routing and other).
+     decode step of phase 5, the MoE decode step of phase 11, the
+     recurrent decode steps of phase 15 and a decode-only engine step of
+     phase 22's cell (8 requests in 8 slots, native KV)
+     (``torch.profiler``, device time by kind, busy ms, idle share; the MoE
+     step split into matmul, attention, fused_moe, routing and other).
 
 Recurrent serving (rwkv6-7b, recurrentgemma-2b; after the MoE state is freed):
  13. the WKV-6 and RG-LRU scan kernels at the prefill shapes (B 8, S 512;
@@ -103,9 +104,45 @@ Recurrent training (``launch/train.py``'s session, as phases 6-8):
      ``int8-fused``, reported as phase 8.  Phase 12 profiles one step of
      each.
 
+The serve engine (``repro_torch.serve.ServeEngine``: continuous batching,
+chunked prefill stepped through ``decode_step``, a prefix cache over a page
+pool; after recurrent training):
+ 20. the paged decode kernels, native and int8, against their plain versions
+     and, bit for bit, against the contiguous decode kernel on the gathered
+     rows: at deepseek-7b's shape (B 8, 32 heads of 128, pages of 8, 577-row
+     tables over a scattered pool, ragged valid lengths incl. 0 and 1; f32
+     and bf16), qwen3's GQA-8 (32 heads over 4), a window of 256, ragged
+     smoke-size cases with pages of 16 (D 32, 16, 256), and three rows
+     sharing their first pages; times and bounds as in phase 3, the
+     contiguous kernel's time on the same rows beside them;
+ 21. ServeEngine on the smoke configs (dense, both MoE, rwkv6, recurrentgemma;
+     f32; tests/test_serve_engine.py's engine config): greedy tokens from the
+     plain path on the CPU and the kernels on the card identical, native and
+     int8 cache, and equal to ``ServeSession.generate``'s on the card where
+     both routes agree by construction (native cache, or recurrentgemma
+     whose generate also steps its prompt: with an int8 cache the two
+     prefill routes may round K/V to different int8 rows, and the
+     reference's own engine and generate part at qwen3-moe);
+     ``benchmarks/serve_smoke.py``'s three checks (admit mid-decode, prefix
+     cache hit, streaming order) on the card; a masked decode step keeps an
+     inactive slot's cache bit for bit;
+ 22. deepseek-7b at its published size (30 layers, bf16, seed-0 weights)
+     through ``run_load``: 12 requests submitted at once, prompt 64 of which
+     32 are a shared prefix, 32 greedy tokens, 8 slots of 128 rows, a pool of
+     128 blocks of 8, chunks of 16 under a budget of 64, native and int8 KV:
+     the load report (wall, req/s, tok/s, latency and TTFT p50/p99, steps,
+     prefix hit rate; a smoke reading, not a cell: the lengths are set, not
+     drawn from a trace, and a p99 of 12 requests is their maximum), peak
+     memory, launches, the share of tokens equal to
+     ``generate``'s (a reading); then the paged kernels over the engine's own
+     pool and block tables for every layer, against the contiguous kernel on
+     the same rows gathered and the plain version.  The engine's own decode
+     runs the contiguous kernel over its slots, as the reference's does, so
+     the paged launches of this path are those of the pool check.
+
 Each record of the kernels line carries the main path (``serving``,
-``training``, ``moe_serving``, ``recurrent_serving`` or
-``recurrent_training``) whose shapes it was
+``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``
+or ``engine_serving``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -377,7 +414,8 @@ def full_width(torch, ops, get_model, get_config, ServeSession, dev):
 
 
 def profile_serving(torch, get_model, get_config, dev, ms_per_step):
-    """Phase 12, serving: the decode step of phase 5."""
+    """Phase 12, serving: the decode step of phase 5 and the engine decode
+    step of phase 22."""
     B, P, N = 8, 512, 64
     cfg = get_config("deepseek-7b")
     params, _ = get_model(cfg).init_params(seed=0, device=dev)
@@ -392,6 +430,7 @@ def profile_serving(torch, get_model, get_config, dev, ms_per_step):
         if busy is not None:
             print(f"[profile] {kv}: device busy {busy:.3f} ms of {step_ms:.3f} ms "
                   f"per decode step: idle share {1 - busy / step_ms:.3f}")
+    profile_engine_step(torch, get_model, get_config, params, dev)
 
 
 def profile_decode(torch, model, params, cache, logits, pos0, steps=6, moe=False):
@@ -1647,6 +1686,457 @@ def recurrent_train_kernel_checks(torch, ops, R, F, dev):
     return records
 
 
+# ---------------------------------------------------------------------------
+# The serve engine (continuous batching) and the paged decode kernels
+# ---------------------------------------------------------------------------
+
+# tests/test_serve_engine.py's SMOKE_CONFIG
+ENGINE_SMOKE = dict(max_slots=2, max_len=48, block_size=4, num_blocks=32, prefill_chunk=8,
+                    token_budget=16)
+# phase 22's load, engine_deepseek7b_shared_prefix: a smoke reading of the
+# engine path, not yet a cell (its lengths are set here, not drawn from a
+# public trace; prompts are short because the stepped prefill takes a
+# batch-1 decode step a token; a p99 over 12 requests is their maximum)
+ENGINE_FULL = dict(max_slots=8, max_len=128, block_size=8, num_blocks=128, prefill_chunk=16,
+                   token_budget=64)
+ENGINE_LOAD = dict(n_requests=12, prompt_len=64, max_new_tokens=32, shared_prefix_len=32, seed=0)
+ENGINE_CASES = (("deepseek-7b", "native"), ("deepseek-7b", "int8"),
+                ("qwen3-moe-30b-a3b", "native"), ("qwen3-moe-30b-a3b", "int8"),
+                ("dbrx-132b", "native"), ("dbrx-132b", "int8"), ("rwkv6-7b", "native"),
+                ("recurrentgemma-2b", "native"), ("recurrentgemma-2b", "int8"))
+
+
+def paged_kernel_checks(torch, R, dev):
+    """Phase 20: the paged decode kernels against their plain versions, and
+    against the contiguous kernel on the gathered rows."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_int8, paged_decode_attention,
+        paged_decode_attention_int8,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2020)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # as phase 3
+    records = []
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    def check(label, got, want, t):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = math.isfinite(err) and err <= t
+        print(f"[check] {label}: max_abs_err={err:.3e} tol={t:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} disagrees with its plain version: {err} > {t}")
+        return err
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"{label}: paged and contiguous kernels differ by {err}")
+        print(f"[check] {label}: paged == contiguous on the gathered rows, bit for bit")
+
+    valid577 = [576, 1, 300, 513, 576, 0, 450, 520]
+    cases = [
+        # label, B, H, Hkv, D, page, rows, valid, window, dtypes, record
+        ("deepseek-7b MHA", 8, 32, 32, 128, 8, 577, valid577, None,
+         (torch.float32, torch.bfloat16), True),
+        ("qwen3 GQA-8", 8, 32, 4, 128, 8, 577, valid577, None, (torch.bfloat16,), True),
+        ("MHA window 256", 8, 32, 32, 128, 8, 577, valid577, 256, (torch.bfloat16,), False),
+        ("smoke D=32 GQA-2", 3, 4, 2, 32, 16, 45, [45, 0, 17], None,
+         (torch.float32, torch.bfloat16), False),
+        ("smoke D=16 MQA window 12", 3, 2, 1, 16, 16, 40, [40, 1, 23], 12,
+         (torch.float32,), False),
+        ("smoke D=256 MQA-10", 2, 10, 1, 256, 16, 70, [70, 33], None, (torch.bfloat16,), False),
+    ]
+    for label, B, H, Hkv, D, page, rows, valid_l, window, dtypes, record in cases:
+        NP = -(-rows // page)
+        valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+        live = int(valid.sum())
+        P = B * NP + 5                   # the rows' pages scattered over a pool
+        table = torch.randperm(P, generator=gen, device=dev)[:B * NP].reshape(B, NP).to(
+            torch.int32)
+        for dtype in dtypes:
+            name = f"{label} {str(dtype).split('.')[-1]}"
+            q = rand(B, 1, H, D, dtype=dtype)
+            kp, vp = rand(P, page, Hkv, D, dtype=dtype), rand(P, page, Hkv, D, dtype=dtype)
+            run = lambda: paged_decode_attention(q, kp, vp, table, valid, window=window)
+            plain = lambda: R.paged_decode_attention_ref(q, kp, vp, table, valid, window=window)
+            err = check(f"paged_decode_attention {name}", run(), plain(), tol[dtype])
+            kc, vc = R.gather_pages(kp, table), R.gather_pages(vp, table)
+            contiguous = lambda: decode_attention(q, kc, vc, valid, window=window)
+            same(f"paged_decode_attention {name}", run(), contiguous())
+            (kq, ks), (vq, vs) = R.quantize_int8_ref(kp), R.quantize_int8_ref(vp)
+            run8 = lambda: paged_decode_attention_int8(q, kq, ks, vq, vs, table, valid,
+                                                       window=window)
+            plain8 = lambda: R.paged_decode_attention_int8_ref(q, kq, ks, vq, vs, table, valid,
+                                                               window=window)
+            err8 = check(f"paged_decode_attention_int8 {name}", run8(), plain8(), tol[dtype])
+            gq = [R.gather_pages(t, table) for t in (kq, ks, vq, vs)]
+            contiguous8 = lambda: decode_attention_int8(q, *gq, valid, window=window)
+            same(f"paged_decode_attention_int8 {name}", run8(), contiguous8())
+            if record and dtype == torch.bfloat16:
+                # bytes: each live row's K and V once (per sequence, as the TPU
+                # kernel reads shared pages), q and out, the live pages' table
+                # entries and valid_len
+                pages_read = sum(-(-v // page) for v in valid_l)
+                small = 2 * q.numel() * 2 + 4 * pages_read + 4 * B
+                for nm, fn, pl, cf, nbytes, e in (
+                        ("paged_decode_attention", run, plain, contiguous,
+                         2 * live * Hkv * D * 2 + small, err),
+                        ("paged_decode_attention_int8", run8, plain8, contiguous8,
+                         2 * live * Hkv * (D + 4) + small, err8)):
+                    b_ms, b_by = bound(nbytes, 4 * D * H * live, "bfloat16")
+                    rec = dict(
+                        name=nm, path="engine_serving", via="engine pool check",
+                        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                        replaces=("src/repro/kernels/decode_attention.py:265"
+                                  if nm.endswith("int8") else
+                                  "src/repro/kernels/decode_attention.py:202"),
+                        launches=0, max_abs_err=e, ms=timed_ms(fn, flush),
+                        plain_ms=timed_ms(pl, flush), bound_ms=b_ms, bound_by=b_by,
+                        # no one PyTorch call computes a paged decode: a gather
+                        # and then SDPA is two
+                        library_ms=None, contiguous_ms=timed_ms(cf, flush))
+                    if label != "deepseek-7b MHA":
+                        rec["shape"] = label
+                    records.append(rec)
+            del q, kp, vp, kc, vc, kq, ks, vq, vs, gq
+
+    # three rows sharing their first pages (a cached prefix)
+    B, H, Hkv, D, page = 3, 32, 32, 128, 8
+    P = 8
+    table = torch.tensor([[0, 1, 2, 3], [0, 1, 4, 5], [0, 1, 6, 7]], dtype=torch.int32,
+                         device=dev)
+    valid = torch.tensor([32, 25, 17], dtype=torch.int32, device=dev)
+    q = rand(B, 1, H, D, dtype=torch.bfloat16)
+    kp, vp = (rand(P, page, Hkv, D, dtype=torch.bfloat16) for _ in range(2))
+    got = paged_decode_attention(q, kp, vp, table, valid)
+    same("paged_decode_attention shared prefix", got,
+         decode_attention(q, R.gather_pages(kp, table), R.gather_pages(vp, table), valid))
+    check("paged_decode_attention shared prefix", got,
+          R.paged_decode_attention_ref(q, kp, vp, table, valid), tol[torch.bfloat16])
+    (kq, ks), (vq, vs) = R.quantize_int8_ref(kp), R.quantize_int8_ref(vp)
+    got8 = paged_decode_attention_int8(q, kq, ks, vq, vs, table, valid)
+    same("paged_decode_attention_int8 shared prefix", got8,
+         decode_attention_int8(q, *(R.gather_pages(t, table) for t in (kq, ks, vq, vs)), valid))
+    check("paged_decode_attention_int8 shared prefix", got8,
+          R.paged_decode_attention_int8_ref(q, kq, ks, vq, vs, table, valid),
+          tol[torch.bfloat16])
+    del scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
+def _engine_tokens(engine, prompts, n):
+    return [o.tokens for o in engine.generate_batch(prompts, max_new_tokens=n)]
+
+
+def serve_smoke_checks(make, vocab, what):
+    """``benchmarks/serve_smoke.py``'s three checks, on engines from ``make()``."""
+    rng = np.random.default_rng(0)
+    p0, p1 = rng.integers(0, vocab, 6).tolist(), rng.integers(0, vocab, 6).tolist()
+    solo = [_engine_tokens(make(), [p], 6)[0] for p in (p0, p1)]
+    eng = make()
+    r0 = eng.submit(p0, max_new_tokens=6)
+    eng.step()                                   # r0 prefills and starts decoding
+    r1 = eng.submit(p1, max_new_tokens=3)        # lands mid-decode
+    first_r1 = r0_done = None
+    step = 1
+    while eng.has_work():
+        for ev in eng.step():
+            if ev.request_id == r1 and first_r1 is None:
+                first_r1 = step
+            if ev.request_id == r0 and ev.done:
+                r0_done = step
+        step += 1
+    if first_r1 is None or r0_done is None or not first_r1 < r0_done:
+        raise AssertionError(f"{what}: r1 first token at {first_r1}, r0 done at {r0_done}")
+    if eng.output(r0).tokens != solo[0] or eng.output(r1).tokens != solo[1][:3]:
+        raise AssertionError(f"{what}: interleaving changed the tokens")
+    print(f"[serve-smoke] {what} admit-mid-decode: r1 first token at step {first_r1}, r0 "
+          f"done at step {r0_done}, outputs equal the solo runs")
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, vocab, 12).tolist()
+    prompts = [prefix + rng.integers(0, vocab, 4).tolist() for _ in range(3)]
+    cold = [_engine_tokens(make(), [p], 4)[0] for p in prompts]
+    eng = make()
+    warm = _engine_tokens(eng, prompts, 4)
+    stats = eng.prefix_cache_stats
+    if stats.hit_blocks <= 0 or warm != cold:
+        raise AssertionError(f"{what}: prefix cache hits {stats.hit_blocks}, warm == cold "
+                             f"{warm == cold}")
+    print(f"[serve-smoke] {what} prefix cache: hit rate {stats.hit_rate:.3f} "
+          f"({stats.hit_blocks}/{stats.queries} block probes), hits equal the cold runs")
+
+    eng = make()
+    rng = np.random.default_rng(2)
+    rids = [eng.submit(rng.integers(0, vocab, 5).tolist(), max_new_tokens=4) for _ in range(3)]
+    events = {r: [] for r in rids}
+    while eng.has_work():
+        for ev in eng.step():
+            events[ev.request_id].append(ev)
+    for rid in rids:
+        evs = events[rid]
+        if ([e.index for e in evs] != list(range(len(evs))) or sum(e.done for e in evs) != 1
+                or not evs[-1].done or [e.token for e in evs] != eng.output(rid).tokens):
+            raise AssertionError(f"{what}: request {rid}'s stream is out of order: {evs}")
+    print(f"[serve-smoke] {what} streaming: {len(rids)} requests, consecutive indices, "
+          f"one terminal event each")
+
+
+def _slot_copy(tree, slot):
+    return {k: _slot_copy(v, slot) if isinstance(v, dict) else v[:, slot].clone()
+            for k, v in tree.items()}
+
+
+def masked_step_check(torch, model, params, dev, stale_pos, what):
+    """One masked decode step on the card: the inactive slot (its stale
+    position inside rows it holds) is kept bit for bit, the active one moves."""
+    from repro_torch.serve.runner import StepRunner
+
+    cache = model.init_cache(2, 24, device=dev)
+    runner = StepRunner(model)
+    prompt = torch.from_numpy(np.random.default_rng(9).integers(0, model.cfg.vocab, (2, 16)))
+    runner.extend(params, prompt.to(dev), cache, 0)
+    before = [_slot_copy(cache, s) for s in (0, 1)]
+    tok, _ = runner.decode(params, torch.tensor([[3], [4]], dtype=torch.int32, device=dev),
+                           cache, np.asarray([16, stale_pos], np.int32),
+                           np.asarray([True, False]), [None, None], np.zeros(2, np.float32),
+                           np.zeros(2, np.int32))
+    idle_same = all(torch.equal(a, b) for a, b in zip(_leaves(_slot_copy(cache, 1)),
+                                                        _leaves(before[1])))
+    active_moved = any(not torch.equal(a, b) for a, b in zip(_leaves(_slot_copy(cache, 0)),
+                                                               _leaves(before[0])))
+    if not (idle_same and active_moved and int(tok[1]) == 0):
+        raise AssertionError(f"{what}: masked step: idle slot kept {idle_same}, active "
+                             f"slot moved {active_moved}")
+    print(f"[masked-step] {what}: the inactive slot (stale pos {stale_pos}) is bit-identical "
+          f"after the step, the active one moved")
+
+
+def cross_device_engine(torch, ops, get_model, smoke_config, ServeSession, dev):
+    """Phase 21: ServeEngine on the smoke configs in f32, plain path on the
+    CPU vs kernels on the card, and the serve-smoke checks on the card."""
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    config = EngineConfig(**ENGINE_SMOKE)
+    weights = {}
+    for arch, kv in ENGINE_CASES:
+        base = smoke_config(arch)
+        model = get_model(base.with_(kv_cache_dtype=kv))
+        if arch not in weights:
+            cpu_params, _ = model.init_params(seed=0, device="cpu")
+            weights[arch] = (cpu_params, _to(cpu_params, dev))
+        cpu_params, gpu_params = weights[arch]
+        prompts = np.random.default_rng(1).integers(0, base.vocab, (3, 11))
+        plist = [p.tolist() for p in prompts]
+        want = _engine_tokens(ServeEngine(model=model, params=cpu_params, config=config,
+                                          device="cpu"), plist, 6)
+        ops.reset_launches()
+        got = _engine_tokens(ServeEngine(model=model, params=gpu_params, config=config,
+                                         device=dev), plist, 6)
+        counts = {k: c for k, c in ops.LAUNCHES.items() if c}
+        print(f"[engine] {arch} {kv}: cpu={want} gpu={got} launches={counts}")
+        if want != got:
+            raise AssertionError(f"{arch} {kv}: engine greedy tokens differ between CPU and card")
+        decode_op = "decode_attention_int8" if kv == "int8" else "decode_attention"
+        needed = {"dense": (decode_op,), "moe": (decode_op, "fused_moe_gemm", "fused_moe_combine"),
+                  "rglru": (decode_op,), "rwkv6": ()}[base.family]
+        if any(counts.get(k, 0) == 0 for k in needed) or counts.get("flash_attention", 0):
+            raise AssertionError(f"{arch} {kv}: the engine's steps missed a kernel: {counts}")
+        # generate prefills attention families in one batch, the engine steps
+        # the prompt: in float32 they agree on the smoke configs; with an int8
+        # cache the two routes' K/V may round to different int8 rows and the
+        # tokens part (the reference's own engine and generate do at qwen3-moe)
+        if kv == "native" or base.family == "rglru":
+            oracle = ServeSession(model=model, params=gpu_params, device=dev).generate(
+                torch.from_numpy(prompts), max_new_tokens=5).tokens.cpu().tolist()
+            if oracle != got:
+                raise AssertionError(f"{arch} {kv}: engine {got} != generate {oracle} on the card")
+            print(f"[engine] {arch} {kv}: engine tokens equal ServeSession.generate's on the card")
+    for arch in ("deepseek-7b", "rwkv6-7b", "recurrentgemma-2b"):
+        model, gpu_params = get_model(smoke_config(arch)), weights[arch][1]
+        serve_smoke_checks(lambda: ServeEngine(model=model, params=gpu_params, config=config,
+                                               device=dev), model.cfg.vocab, arch)
+    for arch, kv, stale in (("deepseek-7b", "native", 5), ("deepseek-7b", "int8", 5),
+                            ("qwen3-moe-30b-a3b", "native", 5), ("rwkv6-7b", "native", 5),
+                            ("recurrentgemma-2b", "native", 3),
+                            ("recurrentgemma-2b", "int8", 12)):
+        model = get_model(smoke_config(arch).with_(kv_cache_dtype=kv))
+        masked_step_check(torch, model, weights[arch][1], dev, stale, f"{arch} {kv}")
+
+
+def _load_prompts(vocab):
+    """The prompts ``run_load`` draws for ENGINE_LOAD (the same calls, in order)."""
+    rng = np.random.default_rng(ENGINE_LOAD["seed"])
+    P, S = ENGINE_LOAD["prompt_len"], ENGINE_LOAD["shared_prefix_len"]
+    prefix = rng.integers(0, vocab, size=(S,)).tolist()
+    return [prefix + rng.integers(0, vocab, size=(P - S,)).tolist()
+            for _ in range(ENGINE_LOAD["n_requests"])]
+
+
+def engine_pool_check(torch, ops, R, engine, prompts, dev, what):
+    """The paged kernels over the engine's own page pool and block tables:
+    for every request whose prompt blocks are still resident, each layer's
+    paged decode against the contiguous kernel over the same rows gathered
+    (bit for bit) and against the plain version."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
+    from repro_torch.serve import hash_chain
+
+    alloc, pool = engine.adapter.allocator, engine.adapter.pool
+    bs = alloc.block_size
+    rows = []
+    for p in prompts:
+        chain = hash_chain(p, bs)
+        if all(alloc.contains(h) for h in chain):
+            rows.append([alloc.lookup(h) for h in chain])
+    if not rows:
+        raise AssertionError(f"{what}: no request's blocks are resident in the pool")
+    table = torch.tensor(rows, dtype=torch.int32, device=dev)
+    n = table.shape[1] * bs
+    cfg = engine.model.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    q = torch.randn(len(rows), 1, cfg.n_heads, cfg.resolved_head_dim(), generator=gen,
+                    device=dev).to(cfg.dtype)
+    valid = torch.full((len(rows),), n, dtype=torch.int32, device=dev)
+    int8 = "k_scale" in pool
+    got_all, plain_all = [], []
+    for layer in range(cfg.n_layers):
+        pages = [pool[k][layer] for k in (("k", "k_scale", "v", "v_scale") if int8 else ("k", "v"))]
+        gathered = [R.gather_pages(t, table) for t in pages]
+        if int8:
+            got = ops.paged_decode_attention_int8(q, *pages, table, valid)
+            contiguous = decode_attention_int8(q, *gathered, valid)
+            plain = R.paged_decode_attention_int8_ref(q, *pages, table, valid)
+        else:
+            got = ops.paged_decode_attention(q, *pages, table, valid)
+            contiguous = decode_attention(q, *gathered, valid)
+            plain = R.paged_decode_attention_ref(q, *pages, table, valid)
+        torch.cuda.synchronize()
+        if not torch.equal(got, contiguous):
+            raise AssertionError(f"{what} layer {layer}: paged != contiguous on the pool's rows")
+        got_all.append(got)
+        plain_all.append(plain)
+    # bf16 outputs of |O(10)|: hold each row to 2 bf16 ulps of its largest
+    # value, as phase 13 does (both sides compute in f32 and round once)
+    worst = row_ulp_check(torch, f"paged decode over the engine pool {what}, all layers",
+                          torch.stack(got_all), torch.stack(plain_all))
+    print(f"[engine-pool] {what}: {len(rows)} requests' {table.shape[1]} resident pages each, "
+          f"{cfg.n_layers} layers: paged == contiguous bit for bit, max_abs_err vs plain "
+          f"{worst:.3e}")
+
+
+def full_width_engine(torch, ops, R, get_model, get_config, ServeSession, dev):
+    """Phase 22: deepseek-7b at its published size through ServeEngine +
+    run_load (the engine_deepseek7b_shared_prefix smoke reading), native and
+    int8."""
+    from repro_torch.serve import EngineConfig, ServeEngine, run_load
+
+    cfg = get_config("deepseek-7b")
+    params, _ = get_model(cfg).init_params(seed=0, device=dev)
+    torch.cuda.synchronize()
+    prompts = _load_prompts(cfg.vocab)
+    N = ENGINE_LOAD["max_new_tokens"]
+    totals = {name: 0 for name in ops.LAUNCHES}
+    for kv in ("native", "int8"):
+        model = get_model(cfg.with_(kv_cache_dtype=kv))
+        engine = ServeEngine(model=model, params=params, config=EngineConfig(**ENGINE_FULL),
+                             device=dev)
+        held = sum(t.numel() * t.element_size()
+                   for t in _leaves(engine.adapter.cache)) + sum(
+                       t.numel() * t.element_size() for t in _leaves(engine.adapter.pool))
+        print(f"[engine-full] {kv}: slots + pool {held / 2**30:.3f} GiB, "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated before the run")
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        report = run_load(engine, **ENGINE_LOAD)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[engine-full] {kv}: {json.dumps(report.to_json())}")
+        print(f"[engine-full] {kv}: wall {wall:.3f} s (run_load's clock {report.wall_s} s), "
+              f"peak memory {peak / 2**30:.3f} GiB, decoded {engine.tokens_decoded}")
+        engine_pool_check(torch, ops, R, engine, prompts, dev, f"deepseek-7b {kv}")
+        counts = dict(ops.LAUNCHES)
+        print(f"[engine-full] {kv}: launches {counts}")
+        outs = [engine.output(r) for r in range(ENGINE_LOAD["n_requests"])]
+        decode_op = "decode_attention_int8" if kv == "int8" else "decode_attention"
+        paged_op = "paged_decode_attention_int8" if kv == "int8" else "paged_decode_attention"
+        if any(len(o.tokens) != N or min(o.tokens) < 0 or max(o.tokens) >= cfg.vocab
+               for o in outs):
+            raise AssertionError(f"{kv}: engine outputs out of range")
+        if report.prefix_hit_rate <= 0:
+            raise AssertionError(f"{kv}: the shared prefix produced no cache hits")
+        if (counts[decode_op] == 0 or counts[decode_op] % cfg.n_layers or counts["flash_attention"]
+                or counts[paged_op] != cfg.n_layers):
+            raise AssertionError(f"{kv}: launches {counts}")
+        # the engine's greedy tokens beside generate's (batched prefill): a reading
+        gen_out = ServeSession(model=model, params=params, device=dev).generate(
+            torch.tensor(prompts, device=dev), max_new_tokens=N - 1).tokens.cpu()
+        agree = (gen_out == torch.tensor([o.tokens for o in outs])).float().mean().item()
+        print(f"[engine-full] {kv}: {agree:.3f} of the engine's tokens equal generate's")
+        for name, c in counts.items():
+            totals[name] += c
+        del engine, gen_out
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
+def profile_engine_step(torch, get_model, get_config, params, dev, steps=4):
+    """Phase 12, the engine: decode-only engine steps of phase 22's load
+    (native KV; 8 requests in the 8 slots, every prompt prefilled), timed on
+    the host clock and then profiled.  The first request prefills alone and
+    publishes the shared prefix, so the other seven step only their own 32
+    prompt tokens."""
+    from repro_torch.serve import EngineConfig, ServeEngine
+    from repro_torch.serve.scheduler import RequestStatus
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("deepseek-7b")
+    engine = ServeEngine(model=get_model(cfg), params=params, config=EngineConfig(**ENGINE_FULL),
+                         device=dev)
+    prompts = _load_prompts(cfg.vocab)[:ENGINE_FULL["max_slots"]]
+
+    def prefill(ps):
+        for p in ps:
+            engine.submit(p, max_new_tokens=ENGINE_LOAD["max_new_tokens"])
+        while any(r.status is not RequestStatus.RUNNING
+                  for r in engine.scheduler.requests.values()):
+            engine.step()
+
+    prefill(prompts[:1])
+    prefill(prompts[1:])
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    busy = device_time_by_kind(torch, prof, steps, "engine decode step")
+    if busy is not None:
+        print(f"[profile] engine native: device busy {busy:.3f} ms of {step_ms:.3f} ms "
+              f"per engine decode step (8 slots): idle share {1 - busy / step_ms:.3f}")
+    del engine
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1715,6 +2205,11 @@ def main() -> int:
         train_ms.update(ms)
         for name, c in totals.items():
             rec_train_totals[name] += c
+    # the serve engine: paged decode kernels, smoke engines, deepseek-7b engine load
+    torch.cuda.empty_cache()
+    records += paged_kernel_checks(torch, R, dev)
+    cross_device_engine(torch, ops, get_model, smoke_config, ServeSession, dev)
+    engine_totals = full_width_engine(torch, ops, R, get_model, get_config, ServeSession, dev)
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)
@@ -1722,7 +2217,8 @@ def main() -> int:
     profile_moe_serving(torch, get_model, get_config, dev, moe_ms)
     profile_recurrent_serving(torch, get_model, get_config, dev, rec_ms)
     totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
-              "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals}
+              "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals,
+              "engine_serving": engine_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Time one of the port's kernels in several source trees, in turn, on one
+card: an A/B of two versions of a ``csrc/`` source within one run.
+
+    mkdir -p chip_scratch/base && git archive <base> src/repro_torch | tar -x -C chip_scratch/base
+    python3 scripts/kernel_ab.py KERNEL chip_scratch/base/src src src chip_scratch/base/src
+
+Each tree is imported and its kernels are built in a process of its own.
+For each tree it prints the median of 25 launches (CUDA events, L2 flushed
+before each) at the shapes of the chosen KERNEL; first the card's name and
+power limit.  KERNEL is one of:
+
+  wkv6    ``rwkv6_scan`` on bf16 inputs at the recurrent serving prefill
+          shape (8, 512, 64, 64) and the recurrent training shape
+          (60, 256, 64, 64);
+  decode  ``decode_attention`` and ``decode_attention_int8`` (bf16 q) at the
+          shapes ``chip_smoke.py`` times them at: MHA (8 rows, 32 heads of
+          128, 577-row cache), GQA-8 (32 heads over 4) and MQA-10 at D = 256
+          (10 heads over 1, 2048-row cache), with ragged valid lengths.
+"""
+import statistics
+import subprocess
+import sys
+
+WKV6_SHAPES = ((8, 512, 64, 64), (60, 256, 64, 64))
+VALID_577 = [576, 1, 300, 513, 576, 0, 450, 520]
+VALID_2048 = [2048, 1, 1000, 2047, 577, 0, 1500, 2048]
+# label: (B, H, Hkv, D, cache rows, valid lengths)
+DECODE_SHAPES = {
+    "MHA": (8, 32, 32, 128, 577, VALID_577),
+    "GQA-8": (8, 32, 4, 128, 577, VALID_577),
+    "D=256": (8, 10, 1, 256, 2048, VALID_2048),
+}
+
+
+def time_wkv6(torch, median_ms, gen, dev):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    out = []
+    for shape in WKV6_SHAPES:
+        r, k, v = (torch.randn(*shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(*shape, generator=gen, device=dev) * 0.5)).bfloat16()
+        u = torch.randn(shape[2], shape[3], generator=gen, device=dev)
+        out.append(f"{shape}: {median_ms(lambda: rwkv6_scan(r, k, v, w, u)):.4f} ms")
+    return out
+
+
+def time_decode(torch, median_ms, gen, dev):
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
+
+    out = []
+    for label, (B, H, Hkv, D, rows, valid) in DECODE_SHAPES.items():
+        q = torch.randn(B, 1, H, D, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(B, rows, Hkv, D, generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+        (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+        native = median_ms(lambda: decode_attention(q, k, v, vl))
+        int8 = median_ms(lambda: decode_attention_int8(q, kq, ks, vq, vs, vl))
+        out.append(f"{label} {native:.4f} / int8 {int8:.4f} ms")
+    return out
+
+
+KERNELS = {"wkv6": time_wkv6, "decode": time_decode}
+
+
+def time_tree(kernel: str, tree: str) -> None:
+    sys.path.insert(0, tree)
+    import torch
+
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    _build.KERNELS.build()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def median_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(25):
+            scratch.zero_()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    print(f"{tree}: " + "; ".join(KERNELS[kernel](torch, median_ms, gen, dev)), flush=True)
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[0] == "--one":
+        time_tree(argv[1], argv[2])
+        return 0
+    if len(argv) < 2 or argv[0] not in KERNELS:
+        raise SystemExit(__doc__)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for tree in argv[1:]:
+        subprocess.run([sys.executable, __file__, "--one", argv[0], tree], check=True,
+                       timeout=600)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

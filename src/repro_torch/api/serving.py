@@ -10,18 +10,23 @@ the reference's ``_prefill_recurrent`` does with its compiled scan.
 
 The decode loop updates the KV cache in place (the JAX package donates it).
 Times are taken on the host clock after ``torch.cuda.synchronize()``.
-``engine()`` and ``generate_many()`` come with the engine slice of the port.
+
+One-shot ``generate`` is self-contained: it is the independent oracle the
+engine-parity tests compare against.  For queued, continuously batched
+serving, ``engine()`` and ``generate_many()`` hand off to
+:class:`repro_torch.serve.ServeEngine`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
+from repro_torch.serve.engine import EngineConfig, GenOutput, ServeEngine
 from repro_torch.serve.sampling import (
     GREEDY, SamplingParams, make_sample_fn, request_generator,
 )
@@ -120,4 +125,32 @@ class ServeSession:
             decode_time=dt,
             decode_tok_s=max_new_tokens * B / dt,
             ms_per_step=dt / max(1, max_new_tokens) * 1e3,
+        )
+
+    # -- continuous batching (delegates to repro_torch.serve) -----------------
+
+    def engine(self, config: Optional[EngineConfig] = None) -> ServeEngine:
+        """A :class:`ServeEngine` over this session's model, params and device."""
+        return ServeEngine(model=self.model, params=self.params,
+                           config=config or EngineConfig(), device=self.device)
+
+    def generate_many(
+        self,
+        prompts: Sequence[Sequence[int]],
+        *,
+        max_new_tokens: int = 16,
+        sampling: SamplingParams = GREEDY,
+        config: Optional[EngineConfig] = None,
+    ) -> List[GenOutput]:
+        """Queue many variable-length prompts through the engine."""
+        if config is None:
+            need = max(len(p) for p in prompts) + max_new_tokens
+            base = EngineConfig()
+            config = dataclasses.replace(
+                base, max_len=max(base.max_len, need),
+                max_slots=min(base.max_slots, len(prompts)),
+            )
+        eng = self.engine(config)
+        return eng.generate_batch(
+            prompts, max_new_tokens=max_new_tokens, sampling=sampling
         )

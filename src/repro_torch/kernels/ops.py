@@ -39,6 +39,8 @@ LAUNCHES: Dict[str, int] = {
     "quantize_int8": 0,
     "decode_attention": 0,
     "decode_attention_int8": 0,
+    "paged_decode_attention": 0,
+    "paged_decode_attention_int8": 0,
     "fused_moe_gemm": 0,
     "fused_moe_combine": 0,
     "rwkv6_scan": 0,
@@ -197,6 +199,42 @@ def decode_attention_int8(
             q, k, k_scale, v, v_scale, valid_len, window=window)
     out = DA.decode_attention_int8(q, k, k_scale, v, v_scale, valid_len, window=window)
     LAUNCHES["decode_attention_int8"] += 1
+    return out
+
+
+def paged_decode_attention(
+    q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    block_table: torch.Tensor, valid_len: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`decode_attention` over the pages of a shared pool: row ``r`` of
+    sequence ``b`` is row ``r % page_size`` of page ``block_table[b, r //
+    page_size]``.  q (B, 1, H, D), pages (P, page_size, Hkv, D), table (B, NP)."""
+    if not q.is_cuda:
+        return R.paged_decode_attention_ref(
+            q, k_pages, v_pages, block_table, valid_len, window=window)
+    out = DA.paged_decode_attention(q, k_pages, v_pages, block_table, valid_len,
+                                    window=window)
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention_int8(
+    q: torch.Tensor, k_pages: torch.Tensor, k_scales: torch.Tensor,
+    v_pages: torch.Tensor, v_scales: torch.Tensor,
+    block_table: torch.Tensor, valid_len: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`paged_decode_attention` over int8 pages + per-row f32 scales,
+    dequantized inside the kernel."""
+    if not q.is_cuda:
+        return R.paged_decode_attention_int8_ref(
+            q, k_pages, k_scales, v_pages, v_scales, block_table, valid_len, window=window)
+    out = DA.paged_decode_attention_int8(q, k_pages, k_scales, v_pages, v_scales,
+                                         block_table, valid_len, window=window)
+    LAUNCHES["paged_decode_attention_int8"] += 1
     return out
 
 

@@ -89,6 +89,47 @@ def decode_attention_int8_ref(
     return decode_attention_ref(q, kf, vf, valid_len, window=window)
 
 
+def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """(P, page_size, Hkv, X) pages, (B, NP) table -> (B, NP*page_size, Hkv, X)."""
+    B, NP = block_table.shape
+    rows = pages[block_table.long()]                 # (B, NP, page_size, Hkv, X)
+    return rows.reshape(B, NP * pages.shape[1], *pages.shape[2:])
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,               # (B, 1, H, D)
+    k_pages: torch.Tensor,         # (P, page_size, Hkv, D) shared page pool
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,     # (B, NP) int page ids per sequence
+    valid_len: torch.Tensor,       # (B,) int
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Gather each row's pages into a contiguous cache, then dense decode."""
+    return decode_attention_ref(q, gather_pages(k_pages, block_table),
+                                gather_pages(v_pages, block_table), valid_len,
+                                window=window)
+
+
+def paged_decode_attention_int8_ref(
+    q: torch.Tensor,               # (B, 1, H, D)
+    k_pages: torch.Tensor,         # (P, page_size, Hkv, D) int8
+    k_scales: torch.Tensor,        # (P, page_size, Hkv, 1) f32
+    v_pages: torch.Tensor,
+    v_scales: torch.Tensor,
+    block_table: torch.Tensor,     # (B, NP) int
+    valid_len: torch.Tensor,       # (B,) int
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Gather int8 pages + scales, dequantize, then dense decode."""
+    k = dequantize_int8_ref(gather_pages(k_pages, block_table),
+                            gather_pages(k_scales, block_table))
+    v = dequantize_int8_ref(gather_pages(v_pages, block_table),
+                            gather_pages(v_scales, block_table))
+    return decode_attention_ref(q, k, v, valid_len, window=window)
+
+
 def quantize_int8_ref(
     x: torch.Tensor,                                  # (..., N) float
     noise: Union[torch.Tensor, float, None] = None,   # same shape (or one value), in [0, 1)

@@ -54,6 +54,11 @@ class Model:
     def decode_step(self, params, token, cache, pos):
         return self.mod.decode_step(params, self.cfg, token, cache, pos)
 
+    def decode_writes(self, cache, pos, rows):
+        """(leaf, index) pairs that cover everything ``decode_step`` writes
+        for the batch ``rows`` (ints) at host positions ``pos``."""
+        return self.mod.decode_writes(self.cfg, cache, pos, rows)
+
     def init_cache(self, batch: int, cache_len: int, dtype=None, device: DeviceLike = "cuda"):
         return self.mod.init_cache(self.cfg, batch, cache_len, dtype=dtype, device=device)
 

@@ -10,7 +10,7 @@ Entry points:
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -187,3 +187,14 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
     """token (B, 1), pos (B,) -> logits (B, 1, V).  ``cache`` is updated in
     place (the JAX package donates it) and returned."""
     return decode_step_with(_mlp, params, cfg, token, cache, pos)
+
+
+def decode_writes(cfg: ModelConfig, cache: Dict[str, torch.Tensor], pos: Sequence[int],
+                  rows: Sequence[int]) -> List[Tuple[torch.Tensor, Tuple[Any, ...]]]:
+    """(leaf, index) pairs that cover everything ``decode_step`` writes for
+    the batch ``rows`` at host positions ``pos``: the row at ``pos`` of every
+    KV leaf (``layers.attention_decode`` writes at ``slot=pos``)."""
+    dev = cache["k"].device
+    at = (slice(None), torch.tensor(list(rows), dtype=torch.long, device=dev),
+          torch.tensor([int(pos[r]) for r in rows], dtype=torch.long, device=dev))
+    return [(leaf, at) for leaf in cache.values()]

@@ -119,3 +119,6 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
     """token (B, 1), pos (B,) -> logits (B, 1, V); ``cache`` is updated in
     place and returned."""
     return dense.decode_step_with(_moe_ffn, params, cfg, token, cache, pos)
+
+
+decode_writes = dense.decode_writes

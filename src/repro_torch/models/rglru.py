@@ -21,7 +21,7 @@ attends through the decode op over each A layer's rotating window.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -318,7 +318,7 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
         h = L.rms_norm(lp["ln1"], x)
         if kind == "A":
             kv = {n: c[idx["A"]] for n, c in cache["A"].items()}
-            win = min(cfg.window or kv["k"].shape[1], kv["k"].shape[1])
+            win = _window(cfg, kv["k"].shape[1])
             full = (pos >= win)[:, None, None, None]
             for c in kv.values():
                 c.copy_(torch.where(full, torch.roll(c, -1, dims=1), c))
@@ -334,3 +334,32 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
         x = x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x))
         idx[kind] += 1
     return _final(params, x, cfg), cache
+
+
+def _window(cfg: ModelConfig, rows: int) -> int:
+    """Rows an A layer's rotating window holds before it rolls."""
+    return min(cfg.window or rows, rows)
+
+
+def decode_writes(cfg: ModelConfig, cache: Dict[str, Dict[str, torch.Tensor]],
+                  pos: Sequence[int], rows: Sequence[int]
+                  ) -> List[Tuple[torch.Tensor, Tuple[Any, ...]]]:
+    """(leaf, index) pairs that cover everything ``decode_step`` writes for
+    the batch ``rows`` at host positions ``pos``: the R layers' state of each
+    row; in the A layers the row at ``pos``, or the whole window of a row
+    whose ``pos`` has reached it (the window rolls)."""
+    dev = cache["A"]["k"].device
+
+    def idx(xs):
+        return torch.tensor(list(xs), dtype=torch.long, device=dev)
+
+    out = [(leaf, (slice(None), idx(rows))) for leaf in cache["R"].values()]
+    win = _window(cfg, cache["A"]["k"].shape[2])
+    rolled = [r for r in rows if pos[r] >= win]
+    still = [r for r in rows if pos[r] < win]
+    for leaf in cache["A"].values():
+        if rolled:
+            out.append((leaf, (slice(None), idx(rolled))))
+        if still:
+            out.append((leaf, (slice(None), idx(still), idx(int(pos[r]) for r in still))))
+    return out

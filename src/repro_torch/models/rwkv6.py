@@ -26,7 +26,7 @@ Entry points:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -274,3 +274,11 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
         cache["wkv"][i] = st["wkv"]
         cache["cshift"][i] = xn[:, -1]
     return _logits(params, cfg, x), cache
+
+
+def decode_writes(cfg: ModelConfig, cache: Dict[str, torch.Tensor], pos: Sequence[int],
+                  rows: Sequence[int]) -> List[Tuple[torch.Tensor, Tuple[Any, ...]]]:
+    """(leaf, index) pairs that cover everything ``decode_step`` writes for
+    the batch ``rows``: the whole state of each (``pos`` is unused)."""
+    at = (slice(None), torch.tensor(list(rows), dtype=torch.long, device=cache["wkv"].device))
+    return [(leaf, at) for leaf in cache.values()]

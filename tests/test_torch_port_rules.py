@@ -14,6 +14,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.launch import serve as serve_driver
 from repro_torch.launch import train as train_driver
+from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -59,6 +60,7 @@ def test_every_public_op_has_a_ref_and_a_parity_test():
 def test_entry_points_default_to_cuda():
     assert serve_driver.build_parser().parse_args([]).device == "cuda"
     assert inspect.signature(ServeSession).parameters["device"].default == "cuda"
+    assert inspect.signature(ServeEngine).parameters["device"].default == "cuda"
     assert train_driver.build_parser().parse_args([]).device == "cuda"
     assert inspect.signature(Session).parameters["device"].default == "cuda"
     assert inspect.signature(train_driver.train_session_factory).parameters[
