@@ -5,13 +5,20 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc):
+     each kernel's registers and spill stores (``-Xptxas -v``), and the
+     tensor-core instructions (HMMA, HGMMA) its SASS holds (``cuobjdump``);
+     the bf16 flash kernel must hold some;
   3. each kernel at the serving path's shapes against its plain PyTorch
      version on the card, with its time (CUDA events, median of 25, L2
      flushed before each run), the plain version's time, the
      ``F.scaled_dot_product_attention`` yardstick where one call computes the
      same function, and the least time the card could take (bytes over
-     3.35 TB/s or operations over the peak rate of their type);
+     3.35 TB/s or operations over the peak rate of their type); then the
+     tiles' edges, bf16 outputs to 2 bf16 ulps of each row: flash at
+     lengths 1, 63, 65, 129 (and 100, 200, 77), windows of 8 and 100, GQA-8,
+     10 over 1 and head dims 16 and 32; decode (native and int8) at lengths
+     around the split's chunk, 0 and 1, with windows starting inside a chunk;
   4. the smoke config in float32: greedy tokens from the plain path on the CPU
      and the kernel path on the card must be identical, native and int8 cache;
   5. deepseek-7b at its published size (30 layers, d_model 4096, bf16, random
@@ -112,9 +119,11 @@ pool; after recurrent training):
      rows: at deepseek-7b's shape (B 8, 32 heads of 128, pages of 8, 577-row
      tables over a scattered pool, ragged valid lengths incl. 0 and 1; f32
      and bf16), qwen3's GQA-8 (32 heads over 4), a window of 256, ragged
-     smoke-size cases with pages of 16 (D 32, 16, 256), and three rows
-     sharing their first pages; times and bounds as in phase 3, the
-     contiguous kernel's time on the same rows beside them;
+     smoke-size cases with pages of 16 (D 32, 16, 256), three rows
+     sharing their first pages, and lengths around the decode split's chunk
+     (0, 1, chunk - 1, chunk, chunk + 1; windows starting inside a chunk;
+     pages of 8 and 16); times and bounds as in phase 3, the contiguous
+     kernel's time on the same rows beside them;
  21. ServeEngine on the smoke configs (dense, both MoE, rwkv6, recurrentgemma;
      f32; tests/test_serve_engine.py's engine config): greedy tokens from the
      plain path on the CPU and the kernels on the card identical, native and
@@ -233,6 +242,34 @@ def build_report(log: str):
     return lines
 
 
+def sass_report(lib_dir: Path, nvcc: str):
+    """Tensor-core instructions in each compiled kernel's SASS
+    (``cuobjdump --dump-sass`` on the built libraries): ``{kernel: (HMMA,
+    HGMMA)}`` with demangled, shortened names."""
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    counts = {}
+    for lib in sorted(lib_dir.glob("lib*.so")):
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                counts[name] = [0, 0]
+            elif name is not None:
+                counts[name][0] += len(re.findall(r"\bHMMA\.", line))
+                counts[name][1] += len(re.findall(r"\bHGMMA\.", line))
+    mangled = sorted(counts)
+    short = mangled
+    if mangled and shutil.which("c++filt"):
+        plain = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        short = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                 for n in plain]
+    return {s: tuple(counts[m]) for s, m in zip(short, mangled)}
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOP_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -339,6 +376,55 @@ def kernel_checks(torch, ops, R, F, dev):
     for rec in records:
         print(json.dumps(rec))
     return records
+
+
+def tile_edge_checks(torch, R, dev):
+    """Phase 3, the tiles' edges: the bf16 flash kernel at lengths that are
+    not a multiple of its tiles, windows that end inside a tile, GQA-8,
+    10-over-1 and every head dim; the decode kernels at lengths around the
+    split's chunk, 0 and 1, and a window that starts inside a chunk; each
+    against its plain version, bf16 outputs to 2 bf16 ulps of each row."""
+    from repro_torch.kernels.decode_attention import (
+        chunk_rows, decode_attention, decode_attention_int8,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    # B, S, H, Hkv, D, causal, window
+    flash_cases = [(2, S, 4, 4, 128, True, None) for S in (1, 63, 65, 129)]
+    flash_cases += [(2, 200, 4, 4, 128, True, 8), (2, 200, 4, 4, 128, True, 100),
+                    (2, 129, 32, 4, 128, True, None), (2, 129, 10, 1, 256, True, 100),
+                    (3, 65, 4, 2, 16, True, None), (3, 65, 4, 2, 32, True, 8),
+                    (2, 100, 8, 8, 128, False, None), (2, 77, 10, 1, 256, False, 8)]
+    for B, S, H, Hkv, D, causal, window in flash_cases:
+        q, k, v = randn(B, S, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        row_ulp_check(torch, f"flash_attention edge S={S} H={H}/{Hkv} D={D} "
+                             f"causal={causal} window={window} bf16",
+                      flash_attention_fwd(q, k, v, causal=causal, window=window),
+                      R.flash_attention_ref(q, k, v, causal=causal, window=window))
+    for H, Hkv, D in ((32, 4, 128), (10, 1, 256), (32, 32, 128), (4, 2, 16), (4, 1, 32)):
+        ch = chunk_rows(D, bf16)
+        rows = 2 * ch + 8
+        valid = torch.tensor([ch - 1, ch, ch + 1, 0, 1, ch + ch // 2, rows, 2 * ch + 1],
+                             dtype=torch.int32, device=dev)
+        q = randn(8, 1, H, D)
+        k, v = randn(8, rows, Hkv, D), randn(8, rows, Hkv, D)
+        (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+        for window in (None, 100, 20):
+            tag = f"H={H}/{Hkv} D={D} valid {valid.tolist()} window={window} bf16"
+            row_ulp_check(torch, f"decode_attention edge {tag}",
+                          decode_attention(q, k, v, valid, window=window),
+                          R.decode_attention_ref(q, k, v, valid, window=window))
+            row_ulp_check(torch, f"decode_attention_int8 edge {tag}",
+                          decode_attention_int8(q, kq, ks, vq, vs, valid, window=window),
+                          R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid, window=window))
+    torch.cuda.empty_cache()
 
 
 def cross_device(torch, ops, get_model, smoke_config, ServeSession, dev):
@@ -471,7 +557,7 @@ def device_time_by_kind(torch, prof, steps, what, moe=False):
     for start, end, name in spans:
         low = name.lower()
         kind = ("flash_attention" if "flash_fwd" in name else
-                "decode_attention" if "decode_kernel" in name else
+                "decode_attention" if "decode_kernel" in name or "decode_tc_kernel" in name else
                 "quantize" if "quantize_rows_kernel" in name else
                 "wkv6_scan" if "wkv6_kernel" in name else
                 "rglru_scan" if "rglru_kernel" in name else
@@ -1710,7 +1796,7 @@ def paged_kernel_checks(torch, R, dev):
     """Phase 20: the paged decode kernels against their plain versions, and
     against the contiguous kernel on the gathered rows."""
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_int8, paged_decode_attention,
+        chunk_rows, decode_attention, decode_attention_int8, paged_decode_attention,
         paged_decode_attention_int8,
     )
 
@@ -1721,7 +1807,7 @@ def paged_kernel_checks(torch, R, dev):
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # as phase 3
     records = []
 
-    def rand(*shape, dtype):
+    def rand(*shape, dtype, gen=gen):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     def check(label, got, want, t):
@@ -1753,59 +1839,78 @@ def paged_kernel_checks(torch, R, dev):
          (torch.float32,), False),
         ("smoke D=256 MQA-10", 2, 10, 1, 256, 16, 70, [70, 33], None, (torch.bfloat16,), False),
     ]
-    for label, B, H, Hkv, D, page, rows, valid_l, window, dtypes, record in cases:
-        NP = -(-rows // page)
-        valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
-        live = int(valid.sum())
-        P = B * NP + 5                   # the rows' pages scattered over a pool
-        table = torch.randperm(P, generator=gen, device=dev)[:B * NP].reshape(B, NP).to(
-            torch.int32)
-        for dtype in dtypes:
-            name = f"{label} {str(dtype).split('.')[-1]}"
-            q = rand(B, 1, H, D, dtype=dtype)
-            kp, vp = rand(P, page, Hkv, D, dtype=dtype), rand(P, page, Hkv, D, dtype=dtype)
-            run = lambda: paged_decode_attention(q, kp, vp, table, valid, window=window)
-            plain = lambda: R.paged_decode_attention_ref(q, kp, vp, table, valid, window=window)
-            err = check(f"paged_decode_attention {name}", run(), plain(), tol[dtype])
-            kc, vc = R.gather_pages(kp, table), R.gather_pages(vp, table)
-            contiguous = lambda: decode_attention(q, kc, vc, valid, window=window)
-            same(f"paged_decode_attention {name}", run(), contiguous())
-            (kq, ks), (vq, vs) = R.quantize_int8_ref(kp), R.quantize_int8_ref(vp)
-            run8 = lambda: paged_decode_attention_int8(q, kq, ks, vq, vs, table, valid,
-                                                       window=window)
-            plain8 = lambda: R.paged_decode_attention_int8_ref(q, kq, ks, vq, vs, table, valid,
-                                                               window=window)
-            err8 = check(f"paged_decode_attention_int8 {name}", run8(), plain8(), tol[dtype])
-            gq = [R.gather_pages(t, table) for t in (kq, ks, vq, vs)]
-            contiguous8 = lambda: decode_attention_int8(q, *gq, valid, window=window)
-            same(f"paged_decode_attention_int8 {name}", run8(), contiguous8())
-            if record and dtype == torch.bfloat16:
-                # bytes: each live row's K and V once (per sequence, as the TPU
-                # kernel reads shared pages), q and out, the live pages' table
-                # entries and valid_len
-                pages_read = sum(-(-v // page) for v in valid_l)
-                small = 2 * q.numel() * 2 + 4 * pages_read + 4 * B
-                for nm, fn, pl, cf, nbytes, e in (
-                        ("paged_decode_attention", run, plain, contiguous,
-                         2 * live * Hkv * D * 2 + small, err),
-                        ("paged_decode_attention_int8", run8, plain8, contiguous8,
-                         2 * live * Hkv * (D + 4) + small, err8)):
-                    b_ms, b_by = bound(nbytes, 4 * D * H * live, "bfloat16")
-                    rec = dict(
-                        name=nm, path="engine_serving", via="engine pool check",
-                        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
-                        replaces=("src/repro/kernels/decode_attention.py:265"
-                                  if nm.endswith("int8") else
-                                  "src/repro/kernels/decode_attention.py:202"),
-                        launches=0, max_abs_err=e, ms=timed_ms(fn, flush),
-                        plain_ms=timed_ms(pl, flush), bound_ms=b_ms, bound_by=b_by,
-                        # no one PyTorch call computes a paged decode: a gather
-                        # and then SDPA is two
-                        library_ms=None, contiguous_ms=timed_ms(cf, flush))
-                    if label != "deepseek-7b MHA":
-                        rec["shape"] = label
-                    records.append(rec)
-            del q, kp, vp, kc, vc, kq, ks, vq, vs, gq
+    # lengths around the decode split's chunk, 0 and 1; windows starting
+    # inside a chunk; pages of 8 and 16
+    def edge(ch):
+        return [ch - 1, ch, ch + 1, 0, 1, ch + ch // 2, 2 * ch + 8, 2 * ch + 1]
+
+    c64, c256 = chunk_rows(128, torch.bfloat16), chunk_rows(256, torch.bfloat16)
+    edge_cases = [
+        ("edge lengths GQA-4", 8, 8, 2, 128, 8, 2 * c64 + 8, edge(c64), None,
+         (torch.float32, torch.bfloat16), False),
+        ("edge lengths MHA window 100", 8, 4, 4, 128, 16, 2 * c64 + 8, edge(c64), 100,
+         (torch.bfloat16,), False),
+        ("edge lengths MQA-10 D=256 window 20", 8, 10, 1, 256, 8, 2 * c256 + 8, edge(c256), 20,
+         (torch.bfloat16,), False),
+        ("edge lengths D=16 window 70", 8, 2, 1, 16, 16, 2 * c64 + 16, edge(c64), 70,
+         (torch.float32,), False),
+    ]
+    def run_cases(cases, gen):
+        for label, B, H, Hkv, D, page, rows, valid_l, window, dtypes, record in cases:
+            NP = -(-rows // page)
+            valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+            live = int(valid.sum())
+            P = B * NP + 5                   # the rows' pages scattered over a pool
+            table = torch.randperm(P, generator=gen, device=dev)[:B * NP].reshape(B, NP).to(
+                torch.int32)
+            for dtype in dtypes:
+                name = f"{label} {str(dtype).split('.')[-1]}"
+                q = rand(B, 1, H, D, dtype=dtype, gen=gen)
+                kp, vp = (rand(P, page, Hkv, D, dtype=dtype, gen=gen) for _ in range(2))
+                run = lambda: paged_decode_attention(q, kp, vp, table, valid, window=window)
+                plain = lambda: R.paged_decode_attention_ref(q, kp, vp, table, valid, window=window)
+                err = check(f"paged_decode_attention {name}", run(), plain(), tol[dtype])
+                kc, vc = R.gather_pages(kp, table), R.gather_pages(vp, table)
+                contiguous = lambda: decode_attention(q, kc, vc, valid, window=window)
+                same(f"paged_decode_attention {name}", run(), contiguous())
+                (kq, ks), (vq, vs) = R.quantize_int8_ref(kp), R.quantize_int8_ref(vp)
+                run8 = lambda: paged_decode_attention_int8(q, kq, ks, vq, vs, table, valid,
+                                                           window=window)
+                plain8 = lambda: R.paged_decode_attention_int8_ref(q, kq, ks, vq, vs, table, valid,
+                                                                   window=window)
+                err8 = check(f"paged_decode_attention_int8 {name}", run8(), plain8(), tol[dtype])
+                gq = [R.gather_pages(t, table) for t in (kq, ks, vq, vs)]
+                contiguous8 = lambda: decode_attention_int8(q, *gq, valid, window=window)
+                same(f"paged_decode_attention_int8 {name}", run8(), contiguous8())
+                if record and dtype == torch.bfloat16:
+                    # bytes: each live row's K and V once (per sequence, as the TPU
+                    # kernel reads shared pages), q and out, the live pages' table
+                    # entries and valid_len
+                    pages_read = sum(-(-v // page) for v in valid_l)
+                    small = 2 * q.numel() * 2 + 4 * pages_read + 4 * B
+                    for nm, fn, pl, cf, nbytes, e in (
+                            ("paged_decode_attention", run, plain, contiguous,
+                             2 * live * Hkv * D * 2 + small, err),
+                            ("paged_decode_attention_int8", run8, plain8, contiguous8,
+                             2 * live * Hkv * (D + 4) + small, err8)):
+                        b_ms, b_by = bound(nbytes, 4 * D * H * live, "bfloat16")
+                        rec = dict(
+                            name=nm, path="engine_serving", via="engine pool check",
+                            route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                            replaces=("src/repro/kernels/decode_attention.py:265"
+                                      if nm.endswith("int8") else
+                                      "src/repro/kernels/decode_attention.py:202"),
+                            launches=0, max_abs_err=e, ms=timed_ms(fn, flush),
+                            plain_ms=timed_ms(pl, flush), bound_ms=b_ms, bound_by=b_by,
+                            # no one PyTorch call computes a paged decode: a gather
+                            # and then SDPA is two
+                            library_ms=None, contiguous_ms=timed_ms(cf, flush))
+                        if label != "deepseek-7b MHA":
+                            rec["shape"] = label
+                        records.append(rec)
+                del q, kp, vp, kc, vc, kq, ks, vq, vs, gq
+
+    run_cases(cases, gen)
 
     # three rows sharing their first pages (a cached prefix)
     B, H, Hkv, D, page = 3, 32, 32, 128, 8
@@ -1827,6 +1932,9 @@ def paged_kernel_checks(torch, R, dev):
     check("paged_decode_attention_int8 shared prefix", got8,
           R.paged_decode_attention_int8_ref(q, kq, ks, vq, vs, table, valid),
           tol[torch.bfloat16])
+    edge_gen = torch.Generator(device=dev)
+    edge_gen.manual_seed(2121)
+    run_cases(edge_cases, edge_gen)
     del scratch
     torch.cuda.empty_cache()
     for rec in records:
@@ -2174,8 +2282,15 @@ def main() -> int:
     print(f"[build] {_build.KERNELS.build_seconds:.1f} s")
     for line in build_report(_build.KERNELS.build_log):
         print(f"[build] {line}")
+    tensor_ops = sass_report(_build.KERNELS.out_dir, _build.nvcc_path())
+    for name, (hmma, hgmma) in tensor_ops.items():
+        print(f"[sass] {name}: {hmma} HMMA, {hgmma} HGMMA")
+    tc = [n for n in tensor_ops if "flash_fwd_tc_kernel" in n]
+    if not tc or any(sum(tensor_ops[n]) == 0 for n in tc):
+        raise AssertionError(f"the bf16 flash kernel holds no tensor-core instruction: {tc}")
 
     records = kernel_checks(torch, ops, R, F, dev)
+    tile_edge_checks(torch, R, dev)
     records += train_kernel_checks(torch, ops, R, F, dev)
     cross_device(torch, ops, get_model, smoke_config, ServeSession, dev)
     cross_device_train(torch, ops, train_session_factory, dev)

@@ -16,7 +16,13 @@ power limit.  KERNEL is one of:
   decode  ``decode_attention`` and ``decode_attention_int8`` (bf16 q) at the
           shapes ``chip_smoke.py`` times them at: MHA (8 rows, 32 heads of
           128, 577-row cache), GQA-8 (32 heads over 4) and MQA-10 at D = 256
-          (10 heads over 1, 2048-row cache), with ragged valid lengths.
+          (10 heads over 1, 2048-row cache), with ragged valid lengths;
+  flash   ``flash_attention_fwd`` on bf16 inputs at the five shapes
+          ``chip_smoke.py`` times it at: dense prefill (8, 512, 32, 128),
+          MoE prefill GQA-8 (32 heads over 4), training (60, 256, 32, 128),
+          all causal; recurrent training (60, 128, 10 over 1, 256) and
+          recurrentgemma's prompt of 3072 (8 rows, 10 over 1, 256), causal
+          with a window of 2048.
 """
 import statistics
 import subprocess
@@ -62,7 +68,30 @@ def time_decode(torch, median_ms, gen, dev):
     return out
 
 
-KERNELS = {"wkv6": time_wkv6, "decode": time_decode}
+# label: (B, S, H, Hkv, D, window); all causal
+FLASH_SHAPES = {
+    "dense": (8, 512, 32, 32, 128, None),
+    "MoE GQA-8": (8, 512, 32, 4, 128, None),
+    "training": (60, 256, 32, 32, 128, None),
+    "RT D=256": (60, 128, 10, 1, 256, 2048),
+    "RS D=256 S=3072": (8, 3072, 10, 1, 256, 2048),
+}
+
+
+def time_flash(torch, median_ms, gen, dev):
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    out = []
+    for label, (B, S, H, Hkv, D, window) in FLASH_SHAPES.items():
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        ms = median_ms(lambda: flash_attention_fwd(q, k, v, causal=True, window=window))
+        out.append(f"{label} {ms:.4f} ms")
+    return out
+
+
+KERNELS = {"wkv6": time_wkv6, "decode": time_decode, "flash": time_flash}
 
 
 def time_tree(kernel: str, tree: str) -> None:

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them through ctypes.
 
-Each source under ``csrc/`` becomes its own shared library with a plain C
+Each source under ``csrc/`` (``*.cu``; the ``*.cuh`` headers they share
+are included, not built) becomes its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  All sources are
 compiled at once, one ``nvcc`` process each, at first use, into
 ``kernels/_build/<hash>/`` next to this file; the hash covers the sources and
@@ -36,13 +37,13 @@ SIGNATURES = {
         "flash_attention", [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
     "repro_quantize_rows": ("quantize", [P, P, F, P, P, I, I, I, P]),
     "repro_decode_attention": (
-        "decode_attention", [P, P, P, P, P, I, I, I, I, I, I, I, P]),
+        "decode_attention", [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]),
     "repro_decode_attention_int8": (
-        "decode_attention", [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]),
+        "decode_attention", [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]),
     "repro_paged_decode_attention": (
-        "decode_attention", [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]),
+        "decode_attention", [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
     "repro_paged_decode_attention_int8": (
-        "decode_attention", [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]),
+        "decode_attention", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
     "repro_fused_moe_gemm": ("fused_moe", [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]),
     "repro_fused_moe_combine": ("fused_moe", [P, P, P, P, P, I, I, I, I, P]),
     "repro_rwkv6_scan": ("rwkv6_scan", [P, P, P, P, P, P, P, I, I, I, I, I, I, P]),
@@ -73,8 +74,9 @@ def sources() -> List[Path]:
 
 
 def source_hash() -> str:
+    """Of the flags, the sources and the headers they share."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -87,6 +89,7 @@ class _Kernels:
         self._libs: Optional[Dict[str, ctypes.CDLL]] = None
         self.build_seconds: Optional[float] = None
         self.build_log: str = ""
+        self.out_dir: Optional[Path] = None     # where the libraries are
 
     def build(self) -> Dict[str, ctypes.CDLL]:
         if self._libs is not None:
@@ -121,6 +124,7 @@ class _Kernels:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         self._libs = libs
+        self.out_dir = out_dir
         self.build_seconds = time.perf_counter() - t0
         return libs
 

@@ -10,35 +10,65 @@
 // D=128, causal needs about 17 GFLOP for about 0.5 GB moved, so the bf16
 // tensor cores (989 TFLOP/s) and not the 3.35 TB/s memory set the bound.
 //
-// What this design does about it: this first version is the simple, correct
-// one.  It keeps every intermediate on chip -- one block per (batch, head,
-// 64-row query tile), K/V tiles of 32 rows staged in shared memory as f32, the
-// running (m, l, acc) in f32 registers/shared memory -- so device memory sees
-// each Q, K, V byte about once per query tile and never the S x S scores.  It
-// skips whole K/V tiles that the causal or window mask removes, as the TPU
-// kernel does, which halves the causal work.  The products run on the f32
-// FMA units, not the tensor cores: moving them to wgmma is a later change.
+// What the bf16 kernel (flash_fwd_tc_kernel) does about it: both products
+// run on the tensor cores, S = Q K^T and O += P V as bf16 operands with f32
+// accumulation (mma.sync.m16n8k16, operands read from shared memory with
+// ldmatrix).  One block per (64-row query tile, head, batch), four warps of
+// 16 query rows each.  The Q tile stays resident in shared memory (and, at
+// D <= 128, in registers); K/V tiles of 64 rows (32 at D = 256) stream
+// through a two-stage cp.async ring in bf16, so the next tile's copy overlaps
+// this tile's products (one barrier a tile); rows past Skv are zero-filled by
+// the copy (src-size 0) and masked, not padded in memory.  The online softmax runs on the
+// accumulator fragments, (m, l) per row in registers: S is scaled in f32
+// after the product, as the plain version does, masked entries are -inf so
+// their p is exactly 0 (a row with no live key so far keeps m = -1e30, finite),
+// and l sums the f32 p.  P enters the second product as bf16 split in two,
+// a high part and the low part's remainder (two products, both on the tensor
+// cores), so P V keeps about 16 of p's bits and the output rounds as the f32
+// plain version does (with P in one bf16 part the outputs missed the plain
+// version by up to 1.6e-2 at the GQA-8 prefill shape, for 15% less time).  Whole K/V tiles that the causal or window mask removes
+// are skipped; only tiles on the diagonal, the window edge or the ragged end
+// pay for the per-element mask.  The query tiles are taken last-first, so the
+// long causal rows start first.
+//
+// Route: mma.sync, not wgmma.  wgmma's shared-memory descriptors and
+// swizzles are checked only by running on the card (a wrong layout reads
+// garbage silently), and mma.sync.m16n8k16 with ldmatrix is the tensor-core
+// route whose fragment layouts are fixed by the PTX ISA; moving the products
+// to wgmma is queued (ROADMAP).
+//
+// The float32 kernel (flash_fwd_kernel) keeps the FMA sweep on purpose: it
+// serves the float32 parity runs, which hold greedy tokens identical and
+// losses within 1e-4 of the CPU; TF32 tensor cores keep about three digits
+// and would break them.  That is a choice of dtype, not a fallback.  It
+// stages 32-row K/V tiles as f32 in shared memory.
 //
 // Head dims 16, 32, 128 and 256 (the smoke configs, deepseek-7b and qwen3,
-// recurrentgemma-2b), in both kernels.  At D = 256 a block takes 137 KiB of
-// shared memory, so one block runs per SM.
+// recurrentgemma-2b), in every kernel.
 //
 // Layouts follow the JAX package: q/o (B, Sq, H, D), k/v (B, Skv, Hkv, D),
 // contiguous; the kv head of query head h is h / (H / Hkv), any group size
 // (recurrentgemma's 10 query heads over one kv head included).  Ragged edges are
 // masked by bounds checks, not padded copies.  A row with no live key gives 0
-// (acc / max(l, 1e-30)).
+// (acc / max(l, 1e-30)).  The bf16 kernel needs 16-byte-aligned q, k, v, o
+// (the wrapper checks).
 //
 // The int8 kernel takes K/V as int8 plus (B, Skv, Hkv, 1) f32 row scales: a
 // K/V tile and its scales are loaded together and dequantized on chip, so
 // float K/V never exist in device memory and the K/V bytes read are a
 // quarter of bf16's.  Rows past Skv dequantize to 0 (the TPU kernel's
 // zero-scale padding rows): a clamped row index and a zero scale, not a pad.
+// It still runs the FMA sweep of the first design; moving it onto the bf16
+// kernel's tensor-core sweep is queued (ROADMAP).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -360,6 +390,242 @@ flash_fwd_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core sweep
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace tcore;
+
+constexpr int NW = 4;                  // warps a block, 16 query rows each
+constexpr int NT = NW * 32;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = D >= 256 ? 32 : 64;   // key rows a K/V stage
+  static constexpr int LD = D + 8;                // shared row stride in bf16: 16 B pad,
+                                                  // so ldmatrix's 8 rows hit 8 bank groups
+  static constexpr bool Q_REGS = D <= 128;        // Q fragments held in registers
+  static constexpr int MIN_BLOCKS = D >= 256 ? 1 : 2;   // blocks an SM, for the registers
+  static constexpr int SMEM = (BQ + 4 * BK) * LD * 2;   // Q, then 2 stages of K and V
+};
+
+// 2^x on the MUFU (flushes results below 2^-126 to 0); 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ROWS rows of D bf16 from g (row r at g + r * stride) into shared rows of
+// Cfg<D>::LD; rows at or past n_in are zero-filled, not read
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* g,
+                                          int64_t stride, int n_in) {
+  constexpr int CPR = D / 8;           // 16-byte pieces a row
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = i % CPR;
+    const bool in = r < n_in;
+    cp_async16(dst + (r * Cfg<D>::LD + c * 8) * 2, g + (in ? r * stride : 0) + c * 8, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, Cfg<D>::MIN_BLOCKS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                    int Sq, int Skv, int H, int Hkv, int causal, int window, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, LD = C::LD;
+  constexpr int NS = BK / 8;           // S n-tiles (8 keys each)
+  constexpr int NO = D / 8;            // O n-tiles (8 columns each)
+  constexpr int KD = D / 16;           // k-steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* KVs = Qs + BQ * LD;   // stage s: K at KVs + 2s*BK*LD, V after it
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;    // long causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int64_t q_row = (int64_t)H * D, kv_row = (int64_t)Hkv * D;
+  const __nv_bfloat16* qb = q + (int64_t)b * Sq * q_row + (int64_t)h * D;
+  const __nv_bfloat16* kb = k + (int64_t)b * Skv * kv_row + (int64_t)hk * D;
+  const __nv_bfloat16* vb = v + (int64_t)b * Skv * kv_row + (int64_t)hk * D;
+
+  // the K/V tiles some query of this block sees (flash_attention.py:90-99)
+  const int q_last = min(q0 + BQ - 1, Sq - 1);
+  int t_hi = (Skv + BK - 1) / BK;
+  if (causal) t_hi = min(t_hi, q_last / BK + 1);
+  const int t_lo = window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
+
+  const uint32_t qs_u = smem_u32(Qs), kv_u = smem_u32(KVs);
+  constexpr uint32_t STAGE = 2 * BK * LD * 2, VOFF = BK * LD * 2;   // bytes
+  load_rows<D, BQ>(qs_u, qb + (int64_t)q0 * q_row, q_row, Sq - q0);
+  cp_async_commit();
+  if (t_lo < t_hi) {
+    const int k0 = t_lo * BK;
+    load_rows<D, BK>(kv_u, kb + k0 * kv_row, kv_row, Skv - k0);
+    load_rows<D, BK>(kv_u + VOFF, vb + k0 * kv_row, kv_row, Skv - k0);
+    cp_async_commit();
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};   // rows g and g + 8 of the warp
+  uint32_t qf[C::Q_REGS ? KD : 1][4];
+
+  // ldmatrix lane addresses (bytes, before the tile's base)
+  const int r16 = warp * 16;
+  const uint32_t q_lane = ((r16 + (lane & 15)) * LD + (lane >> 4) * 8) * 2;
+  const uint32_t k_lane = ((((lane >> 4) << 3) + (lane & 7)) * LD + ((lane >> 3) & 1) * 8) * 2;
+  const uint32_t v_lane = ((((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8) * 2;
+  const int row0 = q0 + r16 + g, row1 = row0 + 8;
+
+  for (int tt = t_lo; tt < t_hi; ++tt) {
+    const uint32_t cur = kv_u + ((tt - t_lo) & 1) * STAGE;
+    // one barrier a tile: tile tt has landed for every thread, and every
+    // warp is done with tile tt - 1, whose stage the next copy refills
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tt + 1 < t_hi) {
+      const uint32_t nxt = kv_u + ((tt + 1 - t_lo) & 1) * STAGE;
+      const int k1 = (tt + 1) * BK;
+      load_rows<D, BK>(nxt, kb + k1 * kv_row, kv_row, Skv - k1);
+      load_rows<D, BK>(nxt + VOFF, vb + k1 * kv_row, kv_row, Skv - k1);
+      cp_async_commit();
+    }
+    const int k0 = tt * BK;
+    if (C::Q_REGS && tt == t_lo) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[C::Q_REGS ? kk : 0], qs_u + q_lane + kk * 32);
+    }
+
+    // S = Q K^T
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if (C::Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[C::Q_REGS ? kk : 0][e];
+      } else {
+        ldsm_x4(qa, qs_u + q_lane + kk * 32);
+      }
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t kf[4];
+        ldsm_x4(kf, cur + k_lane + (jp * 16 * LD + kk * 16) * 2);
+        mma16816(s[2 * jp], qa, kf[0], kf[1]);
+        mma16816(s[2 * jp + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // scale in f32 after the product; mask only where the tile needs it
+    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q_last - window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int key = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          bool live = key < Skv;
+          if (causal) live = live && key <= row;
+          if (window > 0) live = live && key > row - window;
+          x = live ? x : -INFINITY;     // ex2(-inf) = 0: a masked p is exactly 0
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m_r[i];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[i] = ex2((m_r[i] - mx) * LOG2E);
+      m_r[i] = mx;
+      const float mb = mx * LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float p0 = ex2(fmaf(s[j][2 * i], LOG2E, -mb));
+        const float p1 = ex2(fmaf(s[j][2 * i + 1], LOG2E, -mb));
+        s[j][2 * i] = p0;
+        s[j][2 * i + 1] = p1;
+        sum += p0 + p1;
+      }
+      l_r[i] = l_r[i] * corr[i] + sum;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // O += P V: the S fragments of keys 16 ks .. 16 ks + 15 are P's A fragment
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t pa[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a[e]: rows g (e even) or g + 8 (e odd), keys of S tile 2 ks + e / 2
+        const float x = s[2 * ks + (e >> 1)][(e & 1) * 2];
+        const float y = s[2 * ks + (e >> 1)][(e & 1) * 2 + 1];
+        pa[e] = split_bf16(x, y, pl[e]);
+      }
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, cur + VOFF + v_lane + (ks * 16 * LD + np * 16) * 2);
+        mma16816(acc[2 * np], pa, vf[0], vf[1]);         // P's high part
+        mma16816(acc[2 * np + 1], pa, vf[2], vf[3]);
+        mma16816(acc[2 * np], pl, vf[0], vf[1]);         // and its low part
+        mma16816(acc[2 * np + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();   // no tile: the Q copy may still be in flight
+
+  // out = acc / l, l summed over the quad that shares a row
+  __nv_bfloat16* ob = o + (int64_t)b * Sq * q_row + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int row = i ? row1 : row0;
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow = ob + (int64_t)row * q_row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+}  // namespace tc
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
@@ -376,15 +642,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                      int Skv, int H, int Hkv, int causal, int window, cudaStream_t stream) {
+  const auto kernel = tc::flash_fwd_tc_kernel<D>;
+  const int smem = tc::Cfg<D>::SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, tc::NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, H, Hkv,
+      causal, window, (float)(1.0 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+// float32: the FMA sweep; bfloat16: the tensor-core sweep
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                        int Sq, int Skv, int H, int Hkv, int D, int causal,
                        int window, cudaStream_t stream) {
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 16:
+      return TC ? launch_tc<16>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch<float, 16>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 32:
+      return TC ? launch_tc<32>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch<float, 32>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 128:
+      return TC ? launch_tc<128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch<float, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 256:
+      return TC ? launch_tc<256>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch<float, 256>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,15 +6,92 @@ Replace ``repro/kernels/decode_attention.py::decode_attention``,
 ``::decode_attention_int8``, ``::paged_decode_attention`` and
 ``::paged_decode_attention_int8``.  Callers go through
 :mod:`repro_torch.kernels.ops`.
+
+Every entry splits a sequence's cache rows over blocks by one plan
+(:func:`split_plan`): chunks of :func:`chunk_rows` rows counted from row 0.  Each
+block leaves its partial softmax state in an f32 scratch allocated here, and
+the last block of a (batch, kv head) merges them, found through a counter
+buffer that the kernel leaves at 0 (one launch per call).  Scratch and
+counters are kept per device and grown when a call needs more, so calls that
+share them must run on one stream, as the port's do.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, check_attention_inputs
+from repro_torch.kernels.flash_attention import DTYPES, check_aligned, check_attention_inputs
+
+CHUNK = 64         # cache rows a block: a multiple of 16 and of the engine's page sizes 8 and 16
+LONG_CHUNK = 128   # at head dim 256 with bf16 queries (see chunk_rows)
+
+
+def chunk_rows(head_dim: int, dtype: torch.dtype) -> int:
+    """Rows a block reads, fixed by the kernel that runs: 128 for the bf16
+    (tensor-core) kernel at head dim 256, where a sequence of 2048 rows in 64
+    chunks left 32 partials a head to merge and the merge dominated (0.060 ms
+    against 0.027 at 128 on the H100); else 64, which keeps more blocks in
+    flight (and fits the float32 kernel's shared memory).  Both routes take
+    it from the same (head dim, dtype), so they cut alike."""
+    return LONG_CHUNK if head_dim == 256 and dtype == torch.bfloat16 else CHUNK
+
+
+class SplitPlan(NamedTuple):
+    """How the decode kernels cut one sequence's cache rows over blocks."""
+
+    capacity: int    # rows a sequence can hold
+    chunk: int       # rows a block, counted from row 0
+    n_chunks: int    # blocks along the rows: the grid's first axis
+
+    def live(self, valid: int, window: Optional[int] = None) -> List[Tuple[int, int, int]]:
+        """``(chunk, first row, end row)`` of every block that reads a row,
+        in ascending order (the order of the merge), for a sequence of
+        ``valid`` rows (clamped to ``[0, capacity]``): the kernel's own
+        arithmetic, row ``r`` live iff ``r < valid`` and, with a window,
+        ``r >= valid - window``."""
+        valid = min(max(int(valid), 0), self.capacity)
+        lo = max(0, valid - window) if window else 0
+        return [(c, max(c * self.chunk, lo), min((c + 1) * self.chunk, valid))
+                for c in range(lo // self.chunk, -(-valid // self.chunk))]
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(capacity: int, page_size: int = 1, chunk: int = CHUNK) -> SplitPlan:
+    """The split of a cache of ``capacity`` rows a sequence: the contiguous
+    route passes ``(Skv, 1)``, the paged route ``(NP * page_size,
+    page_size)``.  The cut is a fixed run of ``chunk`` rows from row 0, never
+    a share of the capacity, and does not depend on the page size, so both
+    routes cut a sequence at the same rows and sum it in the same order (their
+    outputs agree bit for bit); at page sizes that divide ``chunk`` a block
+    reads whole pages."""
+    if page_size <= 0 or capacity <= 0 or capacity % page_size:
+        raise ValueError(f"split_plan: capacity {capacity} is not a positive number of "
+                         f"pages of {page_size}")
+    if chunk <= 0 or chunk % 16:
+        raise ValueError(f"split_plan: chunk {chunk} is not a positive multiple of 16")
+    return SplitPlan(capacity, chunk, -(-capacity // chunk))
+
+
+_BUFFERS: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_buffers(q: torch.Tensor, Hkv: int, plan: SplitPlan):
+    """The kernel's scratch, B * H * n_chunks * (D + 2) f32 values for the
+    chunks' partial states (written before they are read in every call), and
+    B * Hkv int32 counters, 0 between calls (the kernel's last block of each
+    (batch, kv head) resets its own); one pair a device, grown on demand."""
+    B, _, H, D = q.shape
+    n_part, n_count = B * H * plan.n_chunks * (D + 2), B * Hkv
+    part, counters = _BUFFERS.get(q.device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    if counters is None or counters.numel() < n_count:
+        counters = torch.zeros(max(n_count, 1024), dtype=torch.int32, device=q.device)
+    _BUFFERS[q.device] = (part, counters)
+    return part, counters
 
 
 def _check_cache(q, k, v, valid_len, what):
@@ -51,10 +128,14 @@ def decode_attention(
         raise TypeError(f"{what}: q, k, v must share one dtype")
     B, _, H, D = q.shape
     out = torch.empty_like(q)
+    check_aligned((("q", q), ("k", k), ("v", v), ("out", out)), what)
+    plan = split_plan(k.shape[1], 1, chunk_rows(D, q.dtype))
+    part, counters = _split_buffers(q, k.shape[2], plan)
     _build.call(
         "repro_decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        valid_len.data_ptr(), out.data_ptr(), B, k.shape[1], H, k.shape[2], D,
-        _window(window), DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        valid_len.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        B, k.shape[1], H, k.shape[2], D, plan.chunk, _window(window), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out
 
@@ -82,11 +163,15 @@ def decode_attention_int8(
             raise ValueError(f"{what}: {name} must be {sshape} float32")
     B, _, H, D = q.shape
     out = torch.empty_like(q)
+    check_aligned((("q", q), ("k", k), ("k_scale", k_scale), ("v", v), ("v_scale", v_scale),
+                   ("out", out)), what)
+    plan = split_plan(k.shape[1], 1, chunk_rows(D, q.dtype))
+    part, counters = _split_buffers(q, k.shape[2], plan)
     _build.call(
         "repro_decode_attention_int8", q.data_ptr(), k.data_ptr(), k_scale.data_ptr(),
         v.data_ptr(), v_scale.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-        B, k.shape[1], H, k.shape[2], D, _window(window), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        part.data_ptr(), counters.data_ptr(), B, k.shape[1], H, k.shape[2], D, plan.chunk,
+        _window(window), DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out
 
@@ -119,10 +204,9 @@ def paged_decode_attention(
     *,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Entries of ``block_table`` for pages that hold rows below
-    ``valid_len[b]`` must lie in ``[0, P)``; the others are never read.  The
-    kernel refuses a table row wider than its shared-memory copy holds
-    (``MAX_PAGES`` in ``csrc/decode_attention.cu``)."""
+    """Entries of ``block_table`` for pages that hold live rows (below
+    ``valid_len[b]``, and inside the window) must lie in ``[0, P)``; the
+    others are never read."""
     what = "paged_decode_attention"
     check_attention_inputs(
         q, (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
@@ -132,11 +216,16 @@ def paged_decode_attention(
         raise TypeError(f"{what}: q, k_pages, v_pages must share one dtype")
     B, _, H, D = q.shape
     out = torch.empty_like(q)
+    check_aligned((("q", q), ("k_pages", k_pages), ("v_pages", v_pages), ("out", out)), what)
+    NP, page = block_table.shape[1], k_pages.shape[1]
+    plan = split_plan(NP * page, page, chunk_rows(D, q.dtype))
+    part, counters = _split_buffers(q, k_pages.shape[2], plan)
     _build.call(
         "repro_paged_decode_attention", q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-        B, block_table.shape[1], k_pages.shape[1], H, k_pages.shape[2], D,
-        _window(window), DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        part.data_ptr(), counters.data_ptr(), B, NP, page, H, k_pages.shape[2], D,
+        plan.chunk, _window(window), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out
 
@@ -166,11 +255,17 @@ def paged_decode_attention_int8(
             raise ValueError(f"{what}: {name} must be {sshape} float32")
     B, _, H, D = q.shape
     out = torch.empty_like(q)
+    check_aligned((("q", q), ("k_pages", k_pages), ("k_scales", k_scales),
+                   ("v_pages", v_pages), ("v_scales", v_scales), ("out", out)), what)
+    NP, page = block_table.shape[1], k_pages.shape[1]
+    plan = split_plan(NP * page, page, chunk_rows(D, q.dtype))
+    part, counters = _split_buffers(q, k_pages.shape[2], plan)
     _build.call(
         "repro_paged_decode_attention_int8", q.data_ptr(), k_pages.data_ptr(),
         k_scales.data_ptr(), v_pages.data_ptr(), v_scales.data_ptr(),
         block_table.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-        B, block_table.shape[1], k_pages.shape[1], H, k_pages.shape[2], D,
-        _window(window), DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        part.data_ptr(), counters.data_ptr(), B, NP, page, H, k_pages.shape[2], D,
+        plan.chunk, _window(window), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out

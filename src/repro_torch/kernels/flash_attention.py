@@ -33,6 +33,16 @@ def check_attention_inputs(q: torch.Tensor, tensors, what: str) -> None:
             f"{what}: head dim {q.shape[-1]} not implemented (have {HEAD_DIMS})")
 
 
+def check_aligned(tensors, what: str) -> None:
+    """The kernels copy rows in 16-byte pieces (cp.async, ldmatrix): every
+    base pointer must be 16-byte aligned (a row of D >= 16 values is a
+    multiple of 16 bytes, so every row then is)."""
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary "
+                             f"(data_ptr {t.data_ptr():#x})")
+
+
 def _check_qkv(q, k, v, window, what):
     B, Sq, H, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
@@ -59,6 +69,8 @@ def flash_attention_fwd(
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:     # the tensor-core kernel's cp.async / ldmatrix
+        check_aligned((("q", q), ("k", k), ("v", v), ("out", out)), "flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.call(
         "repro_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),

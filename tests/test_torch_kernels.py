@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as JR
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 
@@ -117,6 +118,63 @@ def test_decode_attention_int8_matches_jax(case):
     got = ops.decode_attention_int8(*targs, window=window)
     _close(got, want)
     assert torch.equal(got, R.decode_attention_int8_ref(*targs, window=window))
+
+
+# ---------------------------------------------------------------------------
+# the decode kernels' split of a sequence's rows over blocks
+# ---------------------------------------------------------------------------
+
+def _split_lengths():
+    for chunk in sorted({DA.chunk_rows(128, torch.bfloat16), DA.chunk_rows(256, torch.bfloat16)}):
+        for valid in (0, 1, chunk - 1, chunk, chunk + 1):
+            for window in (None, 12, chunk + 3):
+                yield chunk, valid, window
+
+
+SPLIT_CASES = list(_split_lengths())
+
+
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[str(c) for c in SPLIT_CASES])
+def test_decode_split_plan_cuts_contiguous_and_paged_alike(case, page):
+    """The contiguous route (capacity Skv, page 1) and the paged route
+    (capacity NP * page) cut a sequence at the same rows, so their sums run
+    in the same order; the cut never depends on the capacity."""
+    chunk, valid, window = case
+    Skv = 3 * chunk + 5
+    NP = -(-Skv // page)
+    contiguous = DA.split_plan(Skv, 1, chunk)
+    paged = DA.split_plan(NP * page, page, chunk)
+    assert contiguous.live(valid, window) == paged.live(valid, window)
+    assert DA.split_plan(10 * Skv, 1, chunk).live(valid, window) == contiguous.live(valid, window)
+    for c, start, end in contiguous.live(valid, window):
+        assert c * chunk <= start < end <= (c + 1) * chunk      # fixed boundaries from row 0
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[str(c) for c in SPLIT_CASES])
+def test_decode_split_plan_rows_are_the_ref_mask(case):
+    """The rows the plan reads are exactly those decode_attention_ref's mask
+    keeps: with q = 0 every live row weighs alike, and V = one-hot rows
+    shows which rows got weight."""
+    chunk, valid, window = case
+    Skv = 2 * chunk + 7
+    q = torch.zeros(1, 1, 1, Skv)
+    k = torch.zeros(1, Skv, 1, Skv)
+    v = torch.eye(Skv).reshape(1, Skv, 1, Skv)
+    out = R.decode_attention_ref(q, k, v, torch.tensor([valid], dtype=torch.int32),
+                                 window=window)
+    kept = set(torch.nonzero(out.reshape(-1) > 0).reshape(-1).tolist())
+    plan = DA.split_plan(Skv, 1, chunk)
+    read = [r for _, start, end in plan.live(valid, window) for r in range(start, end)]
+    assert len(read) == len(set(read))                         # each row read once
+    assert set(read) == kept
+
+
+def test_decode_split_plan_refuses_bad_chunks():
+    with pytest.raises(ValueError):
+        DA.split_plan(64, 1, 24)        # not a multiple of 16
+    with pytest.raises(ValueError):
+        DA.split_plan(100, 8, 64)       # not whole pages
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ import pytest
 
 from repro_torch.api.serving import ServeSession
 from repro_torch.api.session import Session
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as R
 from repro_torch.launch import serve as serve_driver
 from repro_torch.launch import train as train_driver
@@ -65,3 +65,35 @@ def test_entry_points_default_to_cuda():
     assert inspect.signature(Session).parameters["device"].default == "cuda"
     assert inspect.signature(train_driver.train_session_factory).parameters[
         "device"].default == "cuda"
+
+
+def _c_entries():
+    """(name, [P/I/F per argument]) of every ``extern "C"`` entry in csrc/*.cu."""
+    for src in _build.sources():
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            args = [a.strip() for a in m.group(2).split(",")]
+            kinds = ["P" if "*" in a else "F" if a.split()[0] in ("float", "double") else "I"
+                     for a in args]
+            yield src.stem, m.group(1), kinds
+
+
+C_ENTRIES = list(_c_entries())
+
+
+@pytest.mark.parametrize("entry", C_ENTRIES, ids=[e[1] for e in C_ENTRIES])
+def test_ctypes_signature_matches_the_c_entry(entry):
+    """A ctypes signature that drifts from its C entry passes arguments into
+    the wrong slots silently: each entry's source, argument count and kinds
+    (pointer, int, float) are read from the C source and held to
+    ``_build.SIGNATURES``."""
+    stem, name, kinds = entry
+    assert name in _build.SIGNATURES, f"{name} has no ctypes signature"
+    sig_stem, argtypes = _build.SIGNATURES[name]
+    code = {_build.P: "P", _build.I: "I", _build.F: "F"}
+    assert sig_stem == stem
+    assert [code[t] for t in argtypes] == kinds
+
+
+def test_every_ctypes_signature_has_a_c_entry():
+    assert {e[1] for e in C_ENTRIES} == set(_build.SIGNATURES)
