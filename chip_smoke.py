@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc):
      each kernel's registers and spill stores (``-Xptxas -v``), and the
      tensor-core instructions (HMMA, HGMMA) its SASS holds (``cuobjdump``);
-     the bf16 flash kernel must hold some;
+     the bf16 flash kernel and the bf16 MoE gate/up and down kernels (both
+     routes) must hold some;
   3. each kernel at the serving path's shapes against its plain PyTorch
      version on the card, with its time (CUDA events, median of 25, L2
      flushed before each run), the plain version's time, the
@@ -48,9 +49,14 @@ MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
      slot tables from ``moe_routing`` of random activations through a random
      router: the expert GEMM and the combine at the prefill shape (T 4096,
      C 384) and the decode shape (T 8, C 8), plus a capacity-overflow case
-     (C 128), and the flash and decode kernels (native and int8) at qwen3's
-     GQA-8 shapes (32 query heads over 4 kv heads); times and bounds as in
-     phase 3, the combine's yardstick ``index_add_`` over the kept rows;
+     (C 128), each with the route it took and the GEMM's gate/up and down
+     kernels timed apart (``torch.profiler``), then the routes' edges (ragged
+     f and d, one token, dbrx's widths, 300 experts; the combine on both
+     routes and a token past MAX_K slots), and the flash and decode kernels
+     (native and int8) at qwen3's GQA-8 shapes (32 query heads over 4 kv
+     heads); times and bounds as in phase 3, the combine's yardstick
+     ``index_add_`` over the kept rows, the GEMM's three products as
+     ``torch.bmm`` on gathered rows as a note;
  10. both MoE smoke configs (qwen3-moe-30b-a3b, dbrx-132b) in float32: greedy
      tokens from the plain path on the CPU and the kernels on the card must be
      identical, native and int8 cache, every MoE layer through both kernels;
@@ -176,8 +182,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12                      # H100 SXM device memory rate
 PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor-core bf16; f32 FMA
 N_TIMED = 25
-MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel", "moe_invert_kernel",
-               "moe_combine_kernel")
+MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel", "moe_gate_up_tc_kernel",
+               "moe_down_tc_kernel", "moe_gate_up_skinny_kernel", "moe_down_skinny_kernel",
+               "moe_invert_kernel", "moe_combine_kernel", "moe_combine_scan_kernel")
+# the bf16 kernels that must run on the tensor cores (phase 2)
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel",) + MOE_KERNELS[2:6]
 # the MoE routing's top-k, stable sort, slot scatters, count scan and softmax
 # (its elementwise ops fall in "other")
 ROUTING_KERNELS = ("sort", "topk", "scan", "scatter", "softmax")
@@ -212,6 +221,29 @@ def timed_ms(fn, flush) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(torch, fn, flush, groups):
+    """Device ms per call of ``fn()`` spent in each group of kernels (``{label:
+    name substrings}``), from ``torch.profiler`` over N_TIMED calls, L2 flushed
+    before each: the mean; None where the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(N_TIMED):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    sums = {label: None for label in groups}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, names in groups.items():
+            if any(n in e.name for n in names):
+                sums[label] = (sums[label] or 0.0) + (e.time_range.end - e.time_range.start)
+    return {k: (None if v is None else v / N_TIMED / 1e3) for k, v in sums.items()}
 
 
 def build_report(log: str):
@@ -880,6 +912,7 @@ def moe_kernel_checks(torch, R, F, dev):
         live = slot_tok[:, 0] < T
         n_live = int(live.sum())
         n_exp = int(live.view(E, C).any(dim=1).sum())     # experts holding a token
+        route, croute = FM.gemm_route(T, d, f, E, C, x.dtype), FM.combine_route(E * C, T, d)
         y = FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
         want = R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate)
         torch.cuda.synchronize()
@@ -888,18 +921,25 @@ def moe_kernel_checks(torch, R, F, dev):
         # up to summation order, then round once to bf16
         tol = want.float().abs().max().item() * 2.0 ** -7
         ok = math.isfinite(err) and err <= tol
-        print(f"[check] fused_moe_gemm {label} T={T} C={C}: {n_live} of {E * C} slots live "
-              f"({n_exp} experts), {int((~keep).sum())} copies dropped; max_abs_err="
-              f"{err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+        print(f"[check] fused_moe_gemm {label} T={T} C={C} (route {route}): {n_live} of "
+              f"{E * C} slots live ({n_exp} experts), {int((~keep).sum())} copies dropped; "
+              f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"fused_moe_gemm ({label}) disagrees with its plain version")
         out = FM.fused_moe_combine(y, slot_tok, T)
         same = torch.equal(out, R.fused_moe_combine_ref(y, slot_tok, T))
-        print(f"[check] fused_moe_combine {label}: {'bit-equal' if same else 'DIFFERS'}")
+        print(f"[check] fused_moe_combine {label} (route {croute}): "
+              f"{'bit-equal' if same else 'DIFFERS'}")
         if not same:
             raise AssertionError(f"fused_moe_combine ({label}) differs from its plain version")
         if label == "overflow":
             continue
+        gemm = lambda: FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)  # noqa: E731
+        split = kernel_ms(torch, gemm, flush, {"gate/up": ("moe_gate_up",),
+                                               "down": ("moe_down",)})
+        gu, dn = ("not measured" if v is None else f"{v:.4f} ms" for v in split.values())
+        print(f"[time] fused_moe_gemm {label} (route {route}): gate/up {gu}, down {dn} "
+              f"(profiler, mean of 25)")
         esz = x.element_size()
         nbytes = n_exp * w_bytes + x.numel() * esz + y.numel() * esz + slot_tok.numel() * 8
         b_ms, b_by = bound(nbytes, 6.0 * n_live * d * f, "bfloat16")
@@ -908,13 +948,22 @@ def moe_kernel_checks(torch, R, F, dev):
             source="src/repro_torch/kernels/csrc/fused_moe.cu",
             replaces="src/repro/kernels/fused_moe.py:140",
             launches=0, max_abs_err=err,
-            ms=timed_ms(lambda: FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate), flush),
+            ms=timed_ms(gemm, flush),
             plain_ms=timed_ms(lambda: R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate),
                               flush),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ))
         kept = live.nonzero()[:, 0]
         tok_kept, y_kept = slot_tok[kept, 0].long(), y[kept]
+        # a note, not a library time (no one call computes the whole
+        # function): the three products as torch.bmm on rows gathered beforehand
+        xs = torch.where(live[:, None], x[slot_tok[:, 0].long().clamp(max=T - 1)], 0)
+        xs = xs.view(E, C, d)
+        bmm_ms = timed_ms(
+            lambda: torch.bmm(F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu), wo), flush)
+        print(f"[time] fused_moe_gemm {label}: the three products as torch.bmm on gathered "
+              f"rows {bmm_ms:.4f} ms (h in bf16: a yardstick, not the same function)")
+        del xs
         nbytes = n_live * d * esz + T * d * esz + slot_tok.numel() * 4
         b_ms, b_by = bound(nbytes, float(n_live * d), "float32")
         records.append(dict(
@@ -930,6 +979,7 @@ def moe_kernel_checks(torch, R, F, dev):
         ))
         del x, slot_tok, slot_gate, keep, live, y, want, out, kept, tok_kept, y_kept
     del wg, wu, wo, router
+    moe_edge_checks(torch, R, dev)
 
     # -- attention at qwen3's GQA-8 shapes: 32 query heads over 4 kv heads -----
     B, S, H, Hkv, D, CACHE = 8, 512, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(), 577
@@ -1005,6 +1055,67 @@ def moe_kernel_checks(torch, R, F, dev):
     for rec in records:
         print(json.dumps(rec))
     return records
+
+
+def moe_edge_checks(torch, R, dev):
+    """Phase 9, the routes' edges: the expert GEMM against its plain version
+    (bf16 to one bf16 ulp of the largest output, float32 to 1e-5 of it) at a
+    ragged f (96 over 64-column tiles) and d (48 over 32-deep stages), one
+    token, dbrx's d 6144 x f 10,752 at C 4 (tc_decode) and C 160
+    (tc_prefill), and 300 experts at C 8 (more than tc_decode lists:
+    tc_prefill); the combine on both routes bit for bit against its plain
+    version, and a token with more than MAX_K slots (a NaN row on both)."""
+    from repro_torch.kernels import fused_moe as FM
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    def combine_both(label, y, slot_tok, T, nan_rows=()):
+        want = R.fused_moe_combine_ref(y, slot_tok, T)
+        keep = [t for t in range(T) if t not in nan_rows]
+        for route in FM.COMBINE_ROUTES:
+            out = FM.fused_moe_combine(y, slot_tok, T, route=route)
+            same = torch.equal(out[keep], want[keep]) and all(
+                bool(out[t].isnan().all()) for t in nan_rows)
+            print(f"[check] fused_moe_combine edge {label} (route {route}): "
+                  f"{'bit-equal' if same else 'DIFFERS'}"
+                  + (f", NaN rows {list(nan_rows)}" if nan_rows else ""))
+            if not same:
+                raise AssertionError(f"fused_moe_combine edge {label} ({route}) differs")
+
+    # T, d, f, E, k, C, dtype
+    cases = [(8, 64, 96, 8, 2, 8, bf16), (100, 48, 96, 4, 2, 64, bf16),
+             (1, 2048, 768, 128, 8, 8, bf16), (8, 6144, 10752, 16, 4, 4, bf16),
+             (512, 6144, 10752, 16, 4, 160, bf16), (8, 256, 128, 300, 2, 8, bf16),
+             (8, 64, 96, 8, 2, 8, f32), (100, 48, 96, 4, 2, 64, f32)]
+    for T, d, f, E, k, C, dt in cases:
+        x = randn(T, d, dtype=dt)
+        router = randn(d, E, std=d ** -0.5, dtype=f32)
+        wg, wu = randn(E, d, f, std=d ** -0.5, dtype=dt), randn(E, d, f, std=d ** -0.5, dtype=dt)
+        wo = randn(E, f, d, std=f ** -0.5, dtype=dt)
+        slot_tok, slot_gate = FM.moe_routing(x, router, k, C)[:2]
+        route = FM.gemm_route(T, d, f, E, C, dt)
+        y = FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
+        want = R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate).float()
+        err = (y.float() - want).abs().max().item()
+        tol = want.abs().max().item() * (2.0 ** -7 if dt == bf16 else 1e-5)
+        ok = math.isfinite(err) and err <= tol
+        label = f"T={T} d={d} f={f} E={E} C={C} {str(dt).split('.')[-1]}"
+        print(f"[check] fused_moe_gemm edge {label} (route {route}): max_abs_err={err:.3e} "
+              f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_moe_gemm edge {label} disagrees with its plain version")
+        combine_both(label, y, slot_tok, T)
+        del x, wg, wu, wo, y, want
+    # token 0 keeps 40 slots (> MAX_K), token 1 ten, the rest are empty
+    slot_tok = torch.full((64, 1), 2, dtype=torch.int32, device=dev)
+    slot_tok[:40], slot_tok[40:50] = 0, 1
+    combine_both("T=2 S=64, 40 slots of token 0", randn(64, 32), slot_tok, 2, nan_rows=(0,))
+    torch.cuda.empty_cache()
 
 
 def cross_device_moe(torch, ops, get_model, smoke_config, ServeSession, dev):
@@ -2285,9 +2396,10 @@ def main() -> int:
     tensor_ops = sass_report(_build.KERNELS.out_dir, _build.nvcc_path())
     for name, (hmma, hgmma) in tensor_ops.items():
         print(f"[sass] {name}: {hmma} HMMA, {hgmma} HGMMA")
-    tc = [n for n in tensor_ops if "flash_fwd_tc_kernel" in n]
-    if not tc or any(sum(tensor_ops[n]) == 0 for n in tc):
-        raise AssertionError(f"the bf16 flash kernel holds no tensor-core instruction: {tc}")
+    for kernel in TENSOR_CORE_KERNELS:
+        tc = [n for n in tensor_ops if kernel in n]
+        if not tc or any(sum(tensor_ops[n]) == 0 for n in tc):
+            raise AssertionError(f"{kernel} holds no tensor-core instruction: {tc}")
 
     records = kernel_checks(torch, ops, R, F, dev)
     tile_edge_checks(torch, R, dev)

@@ -22,11 +22,20 @@ power limit.  KERNEL is one of:
           MoE prefill GQA-8 (32 heads over 4), training (60, 256, 32, 128),
           all causal; recurrent training (60, 128, 10 over 1, 256) and
           recurrentgemma's prompt of 3072 (8 rows, 10 over 1, 256), causal
-          with a window of 2048.
+          with a window of 2048;
+  moe     ``fused_moe_gemm`` and ``fused_moe_combine`` (bf16) at
+          ``chip_smoke.py`` phase 9's prefill (T 4096, C 384) and decode
+          (T 8, C 8) shapes of qwen3-moe-30b-a3b, one layer's experts and
+          router and the slot tables (``moe_routing``) from seed 0: each op's
+          time, the GEMM's gate/up and down kernels apart (``torch.profiler``,
+          mean of 25), the route the tree's wrappers name where they name one,
+          and the GEMM's error against its plain version over seeds 0-5 as a
+          share of phase 9's tolerance (one bf16 ulp of the largest output).
 """
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 WKV6_SHAPES = ((8, 512, 64, 64), (60, 256, 64, 64))
 VALID_577 = [576, 1, 300, 513, 576, 0, 450, 520]
@@ -91,7 +100,64 @@ def time_flash(torch, median_ms, gen, dev):
     return out
 
 
-KERNELS = {"wkv6": time_wkv6, "decode": time_decode, "flash": time_flash}
+def time_moe(torch, median_ms, gen, dev):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import kernel_ms
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_moe as FM
+    from repro_torch.kernels import ref as R
+    from repro_torch.models.moe import expert_capacity
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.experts_per_token
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev).zero_
+    groups = {"gate/up": ("moe_gate_up",), "down": ("moe_down",)}
+
+    def layer(seed, T, C):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+
+        def rand(*shape, std=1.0):
+            return (torch.randn(*shape, generator=g, device=dev) * std).bfloat16()
+
+        wg, wu = rand(E, d, f, std=d ** -0.5), rand(E, d, f, std=d ** -0.5)
+        wo = rand(E, f, d, std=f ** -0.5)
+        router = torch.randn(d, E, generator=g, device=dev) * d ** -0.5
+        x = rand(T, d)
+        slot_tok, slot_gate = FM.moe_routing(x, router, k, C)[:2]
+        return x, wg, wu, wo, slot_tok, slot_gate
+
+    out = []
+    for label, T in (("prefill", 4096), ("decode", 8)):
+        C = expert_capacity(T, E, k, cfg.capacity_factor)
+        x, wg, wu, wo, slot_tok, slot_gate = layer(0, T, C)
+        gemm = lambda: FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)  # noqa: E731
+        y = gemm()
+        live = slot_tok[:, 0] < T
+        n_exp = int(live.view(E, C).any(dim=1).sum())
+        split = kernel_ms(torch, gemm, flush, groups)
+        route = (FM.gemm_route(T, d, f, E, C, x.dtype) if hasattr(FM, "gemm_route")
+                 else "-")
+        croute = (FM.combine_route(E * C, T, d) if hasattr(FM, "combine_route") else "-")
+        shares = []
+        for seed in range(6):
+            args = layer(seed, T, C) if seed else (x, wg, wu, wo, slot_tok, slot_gate)
+            want = R.fused_moe_gemm_ref(*args).float()
+            err = (FM.fused_moe_gemm(*args).float() - want).abs().max().item()
+            shares.append(err / (want.abs().max().item() * 2.0 ** -7))
+            del args, want
+        out.append(
+            f"{label} ({int(live.sum())} live slots, {n_exp} experts) gemm "
+            f"{median_ms(gemm):.4f} ms (route {route}; gate/up "
+            f"{split['gate/up']:.4f}, down {split['down']:.4f}; err/tol over seeds "
+            f"{' '.join(f'{r:.3f}' for r in shares)}), combine "
+            f"{median_ms(lambda: FM.fused_moe_combine(y, slot_tok, T)):.4f} ms (route {croute})")
+        del x, wg, wu, wo, slot_tok, slot_gate, y, live
+    return out
+
+
+KERNELS = {"wkv6": time_wkv6, "decode": time_decode, "flash": time_flash, "moe": time_moe}
 
 
 def time_tree(kernel: str, tree: str) -> None:

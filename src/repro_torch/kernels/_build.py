@@ -44,8 +44,8 @@ SIGNATURES = {
         "decode_attention", [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
     "repro_paged_decode_attention_int8": (
         "decode_attention", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
-    "repro_fused_moe_gemm": ("fused_moe", [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]),
-    "repro_fused_moe_combine": ("fused_moe", [P, P, P, P, P, I, I, I, I, P]),
+    "repro_fused_moe_gemm": ("fused_moe", [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]),
+    "repro_fused_moe_combine": ("fused_moe", [P, P, P, P, P, I, I, I, I, I, P]),
     "repro_rwkv6_scan": ("rwkv6_scan", [P, P, P, P, P, P, P, I, I, I, I, I, I, P]),
     "repro_rwkv6_scan_int8": (
         "rwkv6_scan", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]),

@@ -109,6 +109,12 @@ GEMM_CASES = [
     (256, 64, 128, 16, 4, 256, "float32"),      # two capacity blocks per expert
     (100, 48, 96, 4, 2, 64, "float32"),         # ragged T; dbrx smoke's f
     (64, 32, 64, 8, 2, 32, "bfloat16"),
+    # decode-like (the tc_decode route's shapes): few tokens, most experts
+    # empty, ~1 live row a live expert, C <= 16
+    (8, 32, 64, 32, 2, 8, "bfloat16"),
+    (4, 48, 96, 64, 4, 16, "bfloat16"),         # dbrx smoke's f over 64-column tiles
+    (1, 32, 64, 16, 2, 8, "bfloat16"),          # one token
+    (8, 32, 64, 32, 2, 8, "float32"),
 ]
 
 
@@ -148,6 +154,10 @@ COMBINE_CASES = [
     (100, 48, 4, 1, 16),           # ragged T against the kernel's block of 128
     (200, 16, 8, 2, 16),           # ragged T over two token blocks, overflow
     (200, 16, 8, 4, 128),          # ragged T over two token blocks, k = 4
+    # decode-like (the scan route's shapes): few tokens over many experts
+    (8, 32, 32, 2, 8),
+    (3, 16, 64, 4, 8),
+    (8, 32, 16, 8, 16),            # k = 8: every token keeps 8 rows
 ]
 
 
