@@ -8,8 +8,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc):
      each kernel's registers and spill stores (``-Xptxas -v``), and the
      tensor-core instructions (HMMA, HGMMA) its SASS holds (``cuobjdump``);
-     the bf16 flash kernel and the bf16 MoE gate/up and down kernels (both
-     routes) must hold some;
+     the bf16 flash kernel, the bf16-query int8-K/V flash kernel, the bf16
+     MoE gate/up and down kernels (both routes) and the chunked WKV-6 kernel
+     must hold some;
   3. each kernel at the serving path's shapes against its plain PyTorch
      version on the card, with its time (CUDA events, median of 25, L2
      flushed before each run), the plain version's time, the
@@ -18,7 +19,8 @@ Phases (any failure raises and the script exits non-zero):
      3.35 TB/s or operations over the peak rate of their type); then the
      tiles' edges, bf16 outputs to 2 bf16 ulps of each row: flash at
      lengths 1, 63, 65, 129 (and 100, 200, 77), windows of 8 and 100, GQA-8,
-     10 over 1 and head dims 16 and 32; decode (native and int8) at lengths
+     10 over 1 and head dims 16 and 32, with bf16 K/V and with int8 K/V;
+     decode (native and int8) at lengths
      around the split's chunk, 0 and 1, with windows starting inside a chunk;
   4. the smoke config in float32: greedy tokens from the plain path on the CPU
      and the kernel path on the card must be identical, native and int8 cache;
@@ -78,6 +80,9 @@ Recurrent serving (rwkv6-7b, recurrentgemma-2b; after the MoE state is freed):
      shapes, and the flash (S 3072, window 2048) and decode (2048-row cache,
      native and int8) kernels at recurrentgemma's 10 query heads over one kv
      head of 256, against their plain versions; times and bounds as in phase 3;
+     then WKV-6 cases of their own (bf16 at S 45 and 300, not multiples of
+     the chunked kernel's 16 steps, bf16 at head dim 16, decays near 1e-30
+     and near 1);
  14. both recurrent smoke configs in float32 (recurrentgemma with native and
      int8 cache, prompt 13 > its window 8): greedy tokens from the plain path
      on the CPU and the kernels on the card must be identical, through
@@ -103,7 +108,8 @@ Recurrent training (``launch/train.py``'s session, as phases 6-8):
      rows, seq 128, width 2560, f32), the quantizer at rows of 2560 bit for
      bit, flash attention with float and int8 K/V at D = 256 (10 query heads
      over one kv head, window 2048) and at D = 32, each also at a ragged
-     smoke-size shape; then the gradients of ``ops.rwkv6_scan``,
+     smoke-size shape, and the WKV-6 cases of phase 13 for both entries;
+     then the gradients of ``ops.rwkv6_scan``,
      ``rwkv6_scan_q8``, ``rglru_scan``, ``rglru_scan_q8`` and
      ``flash_attention_q8`` (D = 256) on the card against the plain ops'
      autograd gradients, for every input, at 4 rows; times and bounds as in
@@ -185,8 +191,10 @@ N_TIMED = 25
 MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel", "moe_gate_up_tc_kernel",
                "moe_down_tc_kernel", "moe_gate_up_skinny_kernel", "moe_down_skinny_kernel",
                "moe_invert_kernel", "moe_combine_kernel", "moe_combine_scan_kernel")
-# the bf16 kernels that must run on the tensor cores (phase 2)
-TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel",) + MOE_KERNELS[2:6]
+# the kernels that must run on the tensor cores (phase 2)
+TENSOR_CORE_KERNELS = (("flash_fwd_tc_kernel", "flash_fwd_int8_tc_kernel") + MOE_KERNELS[2:6]
+                       + ("wkv6_chunk_kernel",))
+WKV6_CHUNK = 16                            # csrc/rwkv6_scan.cu's chunk of steps
 # the MoE routing's top-k, stable sort, slot scatters, count scan and softmax
 # (its elementwise ops fall in "other")
 ROUTING_KERNELS = ("sort", "topk", "scan", "scatter", "softmax")
@@ -307,6 +315,14 @@ def bound(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def wkv6_ops(B, S, H, D):
+    """The WKV-6 scan's least operations, the chunked form's (on the bf16
+    tensor cores): per step of a (b, h), 2 D^2 for r (.) decay times the
+    carried state, 2 D^2 for the state's update and 2 L D for the
+    intra-chunk term and its product with v (its triangle, L = 16)."""
+    return (4.0 * D * D + 2.0 * WKV6_CHUNK * D) * B * H * S
+
+
 def kernel_checks(torch, ops, R, F, dev):
     """Phase 3: every kernel against its plain version at the main path's shapes."""
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
@@ -411,15 +427,16 @@ def kernel_checks(torch, ops, R, F, dev):
 
 
 def tile_edge_checks(torch, R, dev):
-    """Phase 3, the tiles' edges: the bf16 flash kernel at lengths that are
-    not a multiple of its tiles, windows that end inside a tile, GQA-8,
-    10-over-1 and every head dim; the decode kernels at lengths around the
+    """Phase 3, the tiles' edges: the bf16 flash kernel, over bf16 and over
+    int8 K/V, at lengths that are not a multiple of its tiles, windows that
+    end inside a tile, GQA-8, 10-over-1 and every head dim; the decode
+    kernels at lengths around the
     split's chunk, 0 and 1, and a window that starts inside a chunk; each
     against its plain version, bf16 outputs to 2 bf16 ulps of each row."""
     from repro_torch.kernels.decode_attention import (
         chunk_rows, decode_attention, decode_attention_int8,
     )
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
@@ -436,10 +453,17 @@ def tile_edge_checks(torch, R, dev):
                     (2, 100, 8, 8, 128, False, None), (2, 77, 10, 1, 256, False, 8)]
     for B, S, H, Hkv, D, causal, window in flash_cases:
         q, k, v = randn(B, S, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
-        row_ulp_check(torch, f"flash_attention edge S={S} H={H}/{Hkv} D={D} "
-                             f"causal={causal} window={window} bf16",
+        tag = f"S={S} H={H}/{Hkv} D={D} causal={causal} window={window} bf16"
+        row_ulp_check(torch, f"flash_attention edge {tag}",
                       flash_attention_fwd(q, k, v, causal=causal, window=window),
                       R.flash_attention_ref(q, k, v, causal=causal, window=window))
+        # the same cases over int8 K/V (the bf16-query tensor-core route)
+        (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+        row_ulp_check(torch, f"flash_attention_q8 edge {tag}",
+                      flash_attention_int8_fwd(q, kq, ks, vq, vs, causal=causal, window=window),
+                      R.flash_attention_ref(q, R.dequantize_int8_ref(kq, ks),
+                                            R.dequantize_int8_ref(vq, vs), causal=causal,
+                                            window=window))
     for H, Hkv, D in ((32, 4, 128), (10, 1, 256), (32, 32, 128), (4, 2, 16), (4, 1, 32)):
         ch = chunk_rows(D, bf16)
         rows = 2 * ch + 8
@@ -591,7 +615,7 @@ def device_time_by_kind(torch, prof, steps, what, moe=False):
         kind = ("flash_attention" if "flash_fwd" in name else
                 "decode_attention" if "decode_kernel" in name or "decode_tc_kernel" in name else
                 "quantize" if "quantize_rows_kernel" in name else
-                "wkv6_scan" if "wkv6_kernel" in name else
+                "wkv6_scan" if "wkv6_kernel" in name or "wkv6_chunk_kernel" in name else
                 "rglru_scan" if "rglru_kernel" in name else
                 "fused_moe" if any(w in name for w in MOE_KERNELS) else
                 "matmul" if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")) else
@@ -1262,6 +1286,62 @@ def row_ulp_check(torch, label, got, want, ulps=2):
     return err
 
 
+def wkv6_edge_checks(torch, R, dev, int8):
+    """Phases 13 and 17: WKV-6 cases of their own generator (the phases'
+    other cases draw what they drew before) against the plain version, for
+    the float entry or (``int8``) the int8 entry at the training quantizer's
+    rows: bf16 at S 45 and 300 (not multiples of the chunked kernel's 16
+    steps), at head dim 16, and with decays near 1e-30 (the floor) and near 1
+    (a long memory)."""
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_int8
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9191)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def q8(x):
+        q, s = quantize_rows(x.reshape(-1, x.shape[-1]), 0.5)
+        return q.view(x.shape), s.view(x.shape[:-1] + (1,))
+
+    for label, (B, S, H, D), decay in (("S=45", (2, 45, 4, 64), "model"),
+                                       ("S=300", (2, 300, 4, 64), "model"),
+                                       ("D=16", (2, 45, 4, 16), "model"),
+                                       ("decay ~1e-30", (2, 300, 4, 64), "floor"),
+                                       ("decay ~1", (2, 300, 4, 64), "one")):
+        r, k, v = (randn(B, S, H, D).to(bf16) for _ in range(3))
+        if decay == "model":
+            w = torch.exp(-torch.exp(randn(B, S, H, D) * 0.5))
+        elif decay == "floor":
+            w = 1e-30 * (1 + torch.rand(B, S, H, D, generator=gen, device=dev))
+        else:
+            w = 1 - 0.01 * torch.rand(B, S, H, D, generator=gen, device=dev)
+        w, u = w.to(bf16), randn(H, D)
+        if int8:
+            (rq, rs), (kq, ks), (vq, vs) = q8(r), q8(k), q8(v)
+            out, state = rwkv6_scan_int8(rq, rs, kq, ks, vq, vs, w, u, bf16)
+            want_out, want_state = R.rwkv6_scan_ref(
+                R.dequantize_int8_ref(rq, rs), R.dequantize_int8_ref(kq, ks),
+                R.dequantize_int8_ref(vq, vs), w, u)
+            name = "rwkv6_scan_q8"
+        else:
+            out, state = rwkv6_scan(r, k, v, w, u)
+            want_out, want_state = R.rwkv6_scan_ref(r, k, v, w, u)
+            name = "rwkv6_scan"
+        torch.cuda.synchronize()
+        # as the phases hold the bf16 kernels: one bf16 ulp of the largest
+        # |out|; the state to rtol 1e-4 plus 1e-4 of its largest |value|
+        tag = f"{name} edge {label} {(B, S, H, D)}"
+        want_out = want_out.to(bf16)
+        atol = 2.0 ** (math.frexp(want_out.float().abs().max().item())[1] - 8)
+        close_check(torch, f"{tag} bf16 out", out, want_out, 0.0, atol)
+        close_check(torch, f"{tag} state", state, want_state, 1e-4,
+                    1e-4 * want_state.abs().max().item())
+
+
 def recurrent_kernel_checks(torch, R, F, dev):
     """Phase 13: the two scan kernels and the attention kernels at the
     recurrent serving path's shapes against their plain versions on the card."""
@@ -1304,7 +1384,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
                     1e-4 * want_state.abs().max().item())
         if label == "prefill":
             nbytes = 5 * r.numel() * r.element_size() + u.numel() * 4 + state.numel() * 4
-            b_ms, b_by = bound(nbytes, 5.0 * D * D * B * H * S, "float32")
+            b_ms, b_by = bound(nbytes, wkv6_ops(B, S, H, D), "bfloat16")
             records.append(dict(
                 name="rwkv6_scan", path="recurrent_serving", shape=f"prefill {(B, S, H, D)}",
                 route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -1315,6 +1395,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
             ))
         del r, k, v, w, u, out, state, want_out, want_state
+    wkv6_edge_checks(torch, R, dev, int8=False)
 
     # -- RG-LRU scan: recurrentgemma-2b's prefill (B 8, S 512, lru_width 2560)
     #    and a case ragged in S and W; decays in (0.5, 0.999) so the carry lives
@@ -1719,7 +1800,7 @@ def recurrent_train_kernel_checks(torch, ops, R, F, dev):
         u = randn(H, D)
         (rq, rs), (kq, ks), (vq, vs) = q8(r), q8(k), q8(v)
         rd, kd, vd = deq(rq, rs), deq(kq, ks), deq(vq, vs)
-        ops_ = 5.0 * D * D * B * H * S
+        ops_ = wkv6_ops(B, S, H, D)
         for name, kernel, plain in (
                 ("rwkv6_scan", lambda: rwkv6_scan(r, k, v, w, u),
                  lambda: R.rwkv6_scan_ref(r, k, v, w, u)),
@@ -1746,9 +1827,11 @@ def recurrent_train_kernel_checks(torch, ops, R, F, dev):
                           + state.numel() * 4)                    # w in, out (same dtype)
                 record(name, f"train {(B, S, H, D)}", "rwkv6_scan.cu",
                        "rwkv6_scan.py:171" if name.endswith("q8") else "rwkv6_scan.py:119",
-                       err, kernel, plain, nbytes, ops_, "float32")
+                       err, kernel, plain, nbytes, ops_, "bfloat16")
             del out, state, want_out, want_state
         del r, k, v, w, u, rq, rs, kq, ks, vq, vs, rd, kd, vd
+    for int8 in (False, True):
+        wkv6_edge_checks(torch, R, dev, int8)
 
     # -- RG-LRU, float and int8: recurrentgemma-2b's training shape (60 rows,
     #    seq 128, lru width 2560, f32 gates) and a ragged one; bit for bit,

@@ -12,7 +12,8 @@ power limit.  KERNEL is one of:
 
   wkv6    ``rwkv6_scan`` on bf16 inputs at the recurrent serving prefill
           shape (8, 512, 64, 64) and the recurrent training shape
-          (60, 256, 64, 64);
+          (60, 256, 64, 64), and ``rwkv6_scan_int8`` (bf16 out, the
+          training quantizer's int8 r/k/v) at the training shape;
   decode  ``decode_attention`` and ``decode_attention_int8`` (bf16 q) at the
           shapes ``chip_smoke.py`` times them at: MHA (8 rows, 32 heads of
           128, 577-row cache), GQA-8 (32 heads over 4) and MQA-10 at D = 256
@@ -22,6 +23,11 @@ power limit.  KERNEL is one of:
           MoE prefill GQA-8 (32 heads over 4), training (60, 256, 32, 128),
           all causal; recurrent training (60, 128, 10 over 1, 256) and
           recurrentgemma's prompt of 3072 (8 rows, 10 over 1, 256), causal
+          with a window of 2048;
+  flash8  ``flash_attention_int8_fwd`` on bf16 queries over int8 K/V (the
+          training quantizer's rows) at ``chip_smoke.py``'s two shapes:
+          phase 6's training shape (60, 256, 32, 128), causal, and phase
+          17's recurrent training shape (60, 128, 10 over 1, 256), causal
           with a window of 2048;
   moe     ``fused_moe_gemm`` and ``fused_moe_combine`` (bf16) at
           ``chip_smoke.py`` phase 9's prefill (T 4096, C 384) and decode
@@ -49,7 +55,8 @@ DECODE_SHAPES = {
 
 
 def time_wkv6(torch, median_ms, gen, dev):
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_int8
 
     out = []
     for shape in WKV6_SHAPES:
@@ -57,6 +64,10 @@ def time_wkv6(torch, median_ms, gen, dev):
         w = torch.exp(-torch.exp(torch.randn(*shape, generator=gen, device=dev) * 0.5)).bfloat16()
         u = torch.randn(shape[2], shape[3], generator=gen, device=dev)
         out.append(f"{shape}: {median_ms(lambda: rwkv6_scan(r, k, v, w, u)):.4f} ms")
+        if shape == WKV6_SHAPES[-1]:
+            (rq, rs), (kq, ks), (vq, vs) = (R.quantize_int8_ref(t, 0.5) for t in (r, k, v))
+            ms = median_ms(lambda: rwkv6_scan_int8(rq, rs, kq, ks, vq, vs, w, u, torch.bfloat16))
+            out.append(f"int8 {shape}: {ms:.4f} ms")
     return out
 
 
@@ -96,6 +107,29 @@ def time_flash(torch, median_ms, gen, dev):
         k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16()
                 for _ in range(2))
         ms = median_ms(lambda: flash_attention_fwd(q, k, v, causal=True, window=window))
+        out.append(f"{label} {ms:.4f} ms")
+    return out
+
+
+# label: (B, S, H, Hkv, D, window); all causal
+FLASH8_SHAPES = {
+    "training": (60, 256, 32, 32, 128, None),
+    "RT D=256": (60, 128, 10, 1, 256, 2048),
+}
+
+
+def time_flash8(torch, median_ms, gen, dev):
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import flash_attention_int8_fwd
+
+    out = []
+    for label, (B, S, H, Hkv, D, window) in FLASH8_SHAPES.items():
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        (kq, ks), (vq, vs) = (R.quantize_int8_ref(
+            torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16(), 0.5)
+            for _ in range(2))
+        ms = median_ms(lambda: flash_attention_int8_fwd(q, kq, ks, vq, vs, causal=True,
+                                                        window=window))
         out.append(f"{label} {ms:.4f} ms")
     return out
 
@@ -157,7 +191,8 @@ def time_moe(torch, median_ms, gen, dev):
     return out
 
 
-KERNELS = {"wkv6": time_wkv6, "decode": time_decode, "flash": time_flash, "moe": time_moe}
+KERNELS = {"wkv6": time_wkv6, "decode": time_decode, "flash": time_flash,
+           "flash8": time_flash8, "moe": time_moe}
 
 
 def time_tree(kernel: str, tree: str) -> None:

@@ -550,13 +550,6 @@ struct TcSmem {
   }
 };
 
-// the int8 value x of one byte of w, where w holds the bytes x ^ 0x80 = x +
-// 128 (sel 0x7540 .. 0x7543 picks byte 0 .. 3): that byte in the mantissa of
-// 2^23 gives the float 2^23 + x + 128, exactly, on the full-rate ALUs
-__device__ __forceinline__ float byte_to_f32(uint32_t w, uint32_t sel) {
-  return __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.f;
-}
-
 // two int8 values as a packed bf16 pair (exact)
 __device__ __forceinline__ uint32_t widen2(int8_t lo, int8_t hi) {
   return bits(__floats2bfloat162_rn((float)lo, (float)hi));

@@ -53,13 +53,22 @@
 // (acc / max(l, 1e-30)).  The bf16 kernel needs 16-byte-aligned q, k, v, o
 // (the wrapper checks).
 //
-// The int8 kernel takes K/V as int8 plus (B, Skv, Hkv, 1) f32 row scales: a
-// K/V tile and its scales are loaded together and dequantized on chip, so
-// float K/V never exist in device memory and the K/V bytes read are a
-// quarter of bf16's.  Rows past Skv dequantize to 0 (the TPU kernel's
-// zero-scale padding rows): a clamped row index and a zero scale, not a pad.
-// It still runs the FMA sweep of the first design; moving it onto the bf16
-// kernel's tensor-core sweep is queued (ROADMAP).
+// The int8 entry takes K/V as int8 plus (B, Skv, Hkv, 1) f32 row scales: a
+// K/V tile and its scales are loaded together and widened on chip, so float
+// K/V never exist in device memory and the K/V bytes read are a quarter of
+// float32's, half of bf16's.  bf16 queries (flash_fwd_int8_tc_kernel) take
+// the bf16 kernel's tensor-core sweep, one template with it
+// (flash_tc_body): the int8 rows arrive by cp.async in a raw buffer and are
+// widened to bf16 (exact: int8 values are bf16 values) into the K/V stage
+// one tile ahead, by the thread that copied them, so no barrier is added;
+// the row scales stay f32 and outside the products: S = (Q K_int8^T) times
+// the k scale of its key and the softmax scale, after the product, and P
+// times the v scale of its key, in f32, before P's split into its high and
+// low parts.  Rows past Skv arrive as zeros with zero scales and are masked,
+// so their p is exactly 0, as the TPU kernel's zero-scale padding rows give.
+// float32 queries (flash_fwd_int8_kernel) keep the FMA sweep of the first
+// design, as the float kernel does, for the float32 parity runs: rows past
+// Skv dequantize to 0 there through a clamped row index and a zero scale.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -234,9 +243,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// flash_fwd_kernel over int8 K/V with (B, Skv, Hkv, 1) f32 row scales: the
-// same sweep, with each K/V element dequantized (int8 -> f32, times its row
-// scale, as the TPU kernel does) as the tile enters shared memory.  It is a
+// flash_fwd_kernel over int8 K/V with (B, Skv, Hkv, 1) f32 row scales, for
+// float32 queries: the same sweep, with each K/V element dequantized (int8 ->
+// f32, times its row scale, as the TPU kernel does) as the tile enters shared
+// memory.  It is a
 // copy rather than a template argument of flash_fwd_kernel: templating the
 // tile load made nvcc spill more in the float kernel and slowed it by ~40% at
 // the serving shape on the H100.  Its tile load differs: unpredicated loads
@@ -409,6 +419,10 @@ struct Cfg {
   static constexpr bool Q_REGS = D <= 128;        // Q fragments held in registers
   static constexpr int MIN_BLOCKS = D >= 256 ? 1 : 2;   // blocks an SM, for the registers
   static constexpr int SMEM = (BQ + 4 * BK) * LD * 2;   // Q, then 2 stages of K and V
+  // int8 K/V: then one tile's raw int8 K and V rows, and 3 slots of the k and
+  // v row scales of a tile
+  static constexpr int RAW = 2 * BK * D;
+  static constexpr int SMEM8 = SMEM + RAW + 3 * 2 * BK * 4;
 };
 
 // 2^x on the MUFU (flushes results below 2^-126 to 0); 2^-inf = 0
@@ -418,34 +432,54 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// ROWS rows of D bf16 from g (row r at g + r * stride) into shared rows of
-// Cfg<D>::LD; rows at or past n_in are zero-filled, not read
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* g,
-                                          int64_t stride, int n_in) {
-  constexpr int CPR = D / 8;           // 16-byte pieces a row
+// ROWS rows of D values of type E from g (row r at g + r * stride) into shared
+// rows of RB bytes; rows at or past n_in are zero-filled, not read.  Thread
+// tid copies pieces tid, tid + NT, ... (the int8 tiles' widening relies on it)
+template <int D, int ROWS, int RB, typename E>
+__device__ __forceinline__ void load_rows(uint32_t dst, const E* g, int64_t stride, int n_in) {
+  constexpr int EP = 16 / (int)sizeof(E), CPR = D / EP;     // values, pieces a row
 #pragma unroll
   for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR;
     const bool in = r < n_in;
-    cp_async16(dst + (r * Cfg<D>::LD + c * 8) * 2, g + (in ? r * stride : 0) + c * 8, in);
+    cp_async16(dst + r * RB + c * 16, g + (in ? r * stride : 0) + c * EP, in);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT, Cfg<D>::MIN_BLOCKS)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    int Sq, int Skv, int H, int Hkv, int causal, int window, float scale) {
+// The sweep, for bf16 K/V (INT8 = false: flash_fwd_tc_kernel) or int8 K/V
+// with f32 row scales (INT8 = true: flash_fwd_int8_tc_kernel).  int8 tiles:
+// the raw rows of tile tt + 1 are copied (cp.async) into one raw buffer while
+// tile tt - 1's products run, and the thread that copied a 16-byte piece
+// widens it into the bf16 stage of tile tt + 1 once tile tt's products are
+// done, so no barrier is added: a stage is written between the barrier that
+// ends the products of its previous tile and the barrier before its own.
+// Each thread's widening reads only its own pieces, and its next copy
+// overwrites them only after.  The row scales take a 3-slot ring, since a
+// tile's scales are read by its products while the next-but-one's land.
+// One template rather than a copy (as the FMA sweeps are): the bf16
+// instantiation times as before on the H100 (scripts/kernel_ab.py flash, at
+// the training shape the parent 0.2869 and 0.2902 ms, the template 0.2878
+// and 0.2914, in turns in one run).
+template <int D, bool INT8, typename KT>
+__device__ __forceinline__ void flash_tc_body(
+    const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
+    const float* __restrict__ ks, const KT* __restrict__ v, const float* __restrict__ vs,
+    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int Hkv, int causal, int window,
+    float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   using C = Cfg<D>;
   constexpr int BK = C::BK, LD = C::LD;
   constexpr int NS = BK / 8;           // S n-tiles (8 keys each)
   constexpr int NO = D / 8;            // O n-tiles (8 columns each)
   constexpr int KD = D / 16;           // k-steps of Q K^T
+  constexpr int CPR8 = D / 16;         // 16-byte pieces an int8 row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* KVs = Qs + BQ * LD;   // stage s: K at KVs + 2s*BK*LD, V after it
+  // int8: the raw K rows, then the raw V rows, of one tile; then the scale
+  // slots, slot i holding BK k scales and BK v scales
+  const int8_t* raw = reinterpret_cast<const int8_t*>(KVs + 4 * BK * LD);
+  const float* scl = reinterpret_cast<const float*>(raw + C::RAW);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -454,8 +488,11 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int hk = h / (H / Hkv);
   const int64_t q_row = (int64_t)H * D, kv_row = (int64_t)Hkv * D;
   const __nv_bfloat16* qb = q + (int64_t)b * Sq * q_row + (int64_t)h * D;
-  const __nv_bfloat16* kb = k + (int64_t)b * Skv * kv_row + (int64_t)hk * D;
-  const __nv_bfloat16* vb = v + (int64_t)b * Skv * kv_row + (int64_t)hk * D;
+  const KT* kb = k + (int64_t)b * Skv * kv_row + (int64_t)hk * D;
+  const KT* vb = v + (int64_t)b * Skv * kv_row + (int64_t)hk * D;
+  // int8: row scales of this (batch, kv head), row ki at [ki * Hkv]
+  const float* ksb = INT8 ? ks + (int64_t)b * Skv * Hkv + hk : nullptr;
+  const float* vsb = INT8 ? vs + (int64_t)b * Skv * Hkv + hk : nullptr;
 
   // the K/V tiles some query of this block sees (flash_attention.py:90-99)
   const int q_last = min(q0 + BQ - 1, Sq - 1);
@@ -464,14 +501,66 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int t_lo = window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
 
   const uint32_t qs_u = smem_u32(Qs), kv_u = smem_u32(KVs);
+  const uint32_t raw_u = smem_u32(raw), scl_u = smem_u32(scl);
   constexpr uint32_t STAGE = 2 * BK * LD * 2, VOFF = BK * LD * 2;   // bytes
-  load_rows<D, BQ>(qs_u, qb + (int64_t)q0 * q_row, q_row, Sq - q0);
-  cp_async_commit();
-  if (t_lo < t_hi) {
-    const int k0 = t_lo * BK;
-    load_rows<D, BK>(kv_u, kb + k0 * kv_row, kv_row, Skv - k0);
-    load_rows<D, BK>(kv_u + VOFF, vb + k0 * kv_row, kv_row, Skv - k0);
+
+  // int8: copy tile tt's raw K and V rows, and its scales into slot (tt - t_lo) % 3
+  auto load_raw = [&](int tt) {
+    const int k0 = tt * BK, n_in = Skv - k0;
+    load_rows<D, BK, D>(raw_u, kb + k0 * kv_row, kv_row, n_in);
+    load_rows<D, BK, D>(raw_u + BK * D, vb + k0 * kv_row, kv_row, n_in);
+    if (tid < 2 * BK) {               // rows past Skv get scale 0
+      const int r = tid % BK;
+      const bool in = r < n_in;
+      const float* src = (tid < BK ? ksb : vsb) + (in ? (int64_t)(k0 + r) * Hkv : 0);
+      cp_async4z(scl_u + (((tt - t_lo) % 3) * 2 * BK + tid) * 4, src, in);
+    }
     cp_async_commit();
+  };
+  // int8: this thread's pieces of the raw tile, widened into tile tt's stage
+  // (exact: int8 values are bf16 values); the two 16-byte halves of a piece
+  // are stored in an order that puts 8 neighbouring lanes on distinct banks
+  auto widen = [&](int tt) {
+    __nv_bfloat16* st = KVs + ((tt - t_lo) & 1) * 2 * BK * LD;
+#pragma unroll
+    for (int i = tid; i < BK * CPR8; i += NT) {
+      const int r = i / CPR8, c = i % CPR8;
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {             // K, then V
+        const uint4 w = *reinterpret_cast<const uint4*>(raw + part * BK * D + r * D + c * 16);
+        uint4 lo, hi;
+        widen4(w.x, lo.x, lo.y);
+        widen4(w.y, lo.z, lo.w);
+        widen4(w.z, hi.x, hi.y);
+        widen4(w.w, hi.z, hi.w);
+        uint4* dst = reinterpret_cast<uint4*>(st + part * BK * LD + r * LD + c * 16);
+        const int first = (c >> 2) & 1;
+        dst[first] = first ? hi : lo;
+        dst[first ^ 1] = first ? lo : hi;
+      }
+    }
+  };
+
+  load_rows<D, BQ, LD * 2>(qs_u, qb + (int64_t)q0 * q_row, q_row, Sq - q0);
+  if constexpr (INT8) {
+    if (t_lo < t_hi) {
+      load_raw(t_lo);                 // one group with the Q rows
+      cp_async_wait<0>();
+      compiler_fence();
+      widen(t_lo);
+      compiler_fence();
+      if (t_lo + 1 < t_hi) load_raw(t_lo + 1);
+    } else {
+      cp_async_commit();
+    }
+  } else {
+    cp_async_commit();
+    if (t_lo < t_hi) {
+      const int k0 = t_lo * BK;
+      load_rows<D, BK, LD * 2>(kv_u, kb + k0 * kv_row, kv_row, Skv - k0);
+      load_rows<D, BK, LD * 2>(kv_u + VOFF, vb + k0 * kv_row, kv_row, Skv - k0);
+      cp_async_commit();
+    }
   }
 
   float acc[NO][4];
@@ -491,18 +580,24 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
   for (int tt = t_lo; tt < t_hi; ++tt) {
     const uint32_t cur = kv_u + ((tt - t_lo) & 1) * STAGE;
-    // one barrier a tile: tile tt has landed for every thread, and every
-    // warp is done with tile tt - 1, whose stage the next copy refills
-    cp_async_wait<0>();
+    // one barrier a tile: tile tt is in its stage for every thread, and every
+    // warp is done with tile tt - 1, whose stage the next copy (bf16) or
+    // widening (int8) refills
+    if constexpr (!INT8) cp_async_wait<0>();
     __syncthreads();
-    if (tt + 1 < t_hi) {
-      const uint32_t nxt = kv_u + ((tt + 1 - t_lo) & 1) * STAGE;
-      const int k1 = (tt + 1) * BK;
-      load_rows<D, BK>(nxt, kb + k1 * kv_row, kv_row, Skv - k1);
-      load_rows<D, BK>(nxt + VOFF, vb + k1 * kv_row, kv_row, Skv - k1);
-      cp_async_commit();
+    if constexpr (!INT8) {
+      if (tt + 1 < t_hi) {
+        const uint32_t nxt = kv_u + ((tt + 1 - t_lo) & 1) * STAGE;
+        const int k1 = (tt + 1) * BK;
+        load_rows<D, BK, LD * 2>(nxt, kb + k1 * kv_row, kv_row, Skv - k1);
+        load_rows<D, BK, LD * 2>(nxt + VOFF, vb + k1 * kv_row, kv_row, Skv - k1);
+        cp_async_commit();
+      }
     }
     const int k0 = tt * BK;
+    // int8: this tile's k scales, then its v scales
+    const float* ksc = INT8 ? scl + ((tt - t_lo) % 3) * 2 * BK : nullptr;
+    const float* vsc = INT8 ? ksc + BK : nullptr;
     if (C::Q_REGS && tt == t_lo) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[C::Q_REGS ? kk : 0], qs_u + q_lane + kk * 32);
@@ -532,14 +627,19 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       }
     }
 
-    // scale in f32 after the product; mask only where the tile needs it
+    // scale in f32 after the product (int8: by the k row scale too); mask
+    // only where the tile needs it
     const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > q0) ||
                       (window > 0 && k0 <= q_last - window);
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+    for (int j = 0; j < NS; ++j) {
+      float2 kscale = make_float2(1.f, 1.f);
+      if constexpr (INT8) kscale = *reinterpret_cast<const float2*>(ksc + j * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
+        float x = s[j][e];
+        if constexpr (INT8) x *= (e & 1) ? kscale.y : kscale.x;
+        x *= scale;
         if (edge) {
           const int key = k0 + j * 8 + 2 * t + (e & 1);
           const int row = e < 2 ? row0 : row1;
@@ -550,6 +650,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         }
         s[j][e] = x;
       }
+    }
 
     // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (e = 2, 3)
     float corr[2];
@@ -582,15 +683,22 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       acc[n][3] *= corr[1];
     }
 
-    // O += P V: the S fragments of keys 16 ks .. 16 ks + 15 are P's A fragment
+    // O += P V: the S fragments of keys 16 ks .. 16 ks + 15 are P's A
+    // fragment; int8: p times the v row scale, in f32, before the split
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
       uint32_t pa[4], pl[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // a[e]: rows g (e even) or g + 8 (e odd), keys of S tile 2 ks + e / 2
-        const float x = s[2 * ks + (e >> 1)][(e & 1) * 2];
-        const float y = s[2 * ks + (e >> 1)][(e & 1) * 2 + 1];
+        float x = s[2 * ks + (e >> 1)][(e & 1) * 2];
+        float y = s[2 * ks + (e >> 1)][(e & 1) * 2 + 1];
+        if constexpr (INT8) {
+          const float2 vscale =
+              *reinterpret_cast<const float2*>(vsc + (2 * ks + (e >> 1)) * 8 + 2 * t);
+          x *= vscale.x;
+          y *= vscale.y;
+        }
         pa[e] = split_bf16(x, y, pl[e]);
       }
 #pragma unroll
@@ -601,6 +709,18 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         mma16816(acc[2 * np + 1], pa, vf[2], vf[3]);
         mma16816(acc[2 * np], pl, vf[0], vf[1]);         // and its low part
         mma16816(acc[2 * np + 1], pl, vf[2], vf[3]);
+      }
+    }
+
+    // int8: tile tt + 1's raw rows have landed (this thread's pieces); widen
+    // them into the stage tile tt - 1 left, then copy tile tt + 2's over them
+    if constexpr (INT8) {
+      if (tt + 1 < t_hi) {
+        cp_async_wait<0>();
+        compiler_fence();
+        widen(tt + 1);
+        compiler_fence();
+        if (tt + 2 < t_hi) load_raw(tt + 2);
       }
     }
   }
@@ -622,6 +742,24 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
           __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, Cfg<D>::MIN_BLOCKS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                    int Sq, int Skv, int H, int Hkv, int causal, int window, float scale) {
+  flash_tc_body<D, false>(q, k, nullptr, v, nullptr, o, Sq, Skv, H, Hkv, causal, window,
+                          scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, Cfg<D>::MIN_BLOCKS)
+flash_fwd_int8_tc_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
+                         const float* __restrict__ ks, const int8_t* __restrict__ v,
+                         const float* __restrict__ vs, __nv_bfloat16* __restrict__ o, int Sq,
+                         int Skv, int H, int Hkv, int causal, int window, float scale) {
+  flash_tc_body<D, true>(q, k, ks, v, vs, o, Sq, Skv, H, Hkv, causal, window, scale);
 }
 
 }  // namespace tc
@@ -697,19 +835,49 @@ cudaError_t launch_int8(const void* q, const void* k, const void* ks, const void
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_tc_int8(const void* q, const void* k, const void* ks, const void* v,
+                           const void* vs, void* o, int B, int Sq, int Skv, int H, int Hkv,
+                           int causal, int window, cudaStream_t stream) {
+  const auto kernel = tc::flash_fwd_int8_tc_kernel<D>;
+  const int smem = tc::Cfg<D>::SMEM8;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, tc::NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
+      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(o), Sq, Skv, H, Hkv, causal,
+      window, (float)(1.0 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+// float32 queries: the FMA sweep; bfloat16: the tensor-core sweep
 template <typename T>
 cudaError_t dispatch_d_int8(const void* q, const void* k, const void* ks, const void* v,
                             const void* vs, void* o, int B, int Sq, int Skv, int H,
                             int Hkv, int D, int causal, int window, cudaStream_t stream) {
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
   switch (D) {
     case 16:
-      return launch_int8<T, 16>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+      return TC ? launch_tc_int8<16>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch_int8<float, 16>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
+                                         stream);
     case 32:
-      return launch_int8<T, 32>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+      return TC ? launch_tc_int8<32>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch_int8<float, 32>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
+                                         stream);
     case 128:
-      return launch_int8<T, 128>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+      return TC ? launch_tc_int8<128>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
+                                      stream)
+                : launch_int8<float, 128>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
+                                          stream);
     case 256:
-      return launch_int8<T, 256>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+      return TC ? launch_tc_int8<256>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
+                                      stream)
+                : launch_int8<float, 256>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
+                                          stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,9 @@
 // Tensor-core and async-copy building blocks for Hopper (sm_90a), shared by
-// the attention kernels (flash_attention.cu, decode_attention.cu): 16-byte
-// cp.async into shared memory, ldmatrix, mma.sync.m16n8k16 with bf16
-// operands and f32 accumulation, and the split of an f32 pair into a bf16
-// high part and a bf16 low part, so a product with f32 operands keeps about
-// 16 bits of them on the tensor cores (two products).
+// the kernels of csrc/: 16-byte cp.async into shared memory, ldmatrix,
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulation, the split of an
+// f32 pair into a bf16 high part and a bf16 low part, so a product with f32
+// operands keeps about 16 bits of them on the tensor cores (two products),
+// and the widening of int8 values to bf16 (exact).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 g + t;
 // A (16x16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..);
@@ -28,6 +28,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool i
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src));
 }
+// 4 bytes global -> shared; nothing is read and zeros land when !in
+__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(in ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -35,6 +40,10 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
+// keeps the compiler from moving shared-memory loads and stores across this
+// point: a thread that reads its own cp.async pieces without a barrier, and
+// then copies new ones over them, fences both sides
+__device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory"); }
 
 __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
@@ -70,6 +79,23 @@ __device__ __forceinline__ uint32_t split_bf16(float x, float y, uint32_t& lo) {
   const float2 hf = __bfloat1622float2(hi);
   lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
   return bits(hi);
+}
+
+// the int8 value x of one byte of w, where w holds the bytes x ^ 0x80 = x +
+// 128 (sel 0x7540 .. 0x7543 picks byte 0 .. 3): that byte in the mantissa of
+// 2^23 gives the float 2^23 + x + 128, exactly, on the full-rate ALUs
+__device__ __forceinline__ float byte_to_f32(uint32_t w, uint32_t sel) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.f;
+}
+
+// the four int8 values of w as two packed bf16 pairs (exact): an integer of
+// at most 8 significant bits is its float32's upper 16 bits
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  lo = __byte_perm(__float_as_uint(byte_to_f32(u, 0x7540)),
+                   __float_as_uint(byte_to_f32(u, 0x7541)), 0x7632);
+  hi = __byte_perm(__float_as_uint(byte_to_f32(u, 0x7542)),
+                   __float_as_uint(byte_to_f32(u, 0x7543)), 0x7632);
 }
 
 }  // namespace tcore

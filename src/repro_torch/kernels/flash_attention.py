@@ -103,6 +103,8 @@ def flash_attention_int8_fwd(
             raise ValueError(f"{what}: {name} must be {sshape} float32")
     B, Sq, H, D = q.shape
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:     # the tensor-core kernel's cp.async / ldmatrix
+        check_aligned((("q", q), ("k", k), ("v", v), ("out", out)), what)
     _build.call(
         "repro_flash_attention_int8_fwd", q.data_ptr(), k.data_ptr(), k_scale.data_ptr(),
         v.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, Sq, k.shape[1], H,

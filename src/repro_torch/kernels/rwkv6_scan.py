@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.flash_attention import DTYPES, check_aligned
 
 HEAD_DIMS = (16, 64)   # the smoke config's and rwkv6-7b's
 
@@ -54,6 +54,8 @@ def rwkv6_scan(
     B, S, H, D = r.shape
     out = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if r.dtype == torch.bfloat16:     # the chunked kernel's 16-byte cp.async
+        check_aligned((("r", r), ("k", k), ("v", v), ("w", w)), what)
     _build.call(
         "repro_rwkv6_scan", r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), out.data_ptr(), state.data_ptr(), B, S, H, D, DTYPES[r.dtype],
@@ -86,6 +88,8 @@ def rwkv6_scan_int8(
     B, S, H, D = r.shape
     out = torch.empty(r.shape, dtype=out_dtype, device=r.device)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if out_dtype == torch.bfloat16:   # the chunked kernel's 16-byte cp.async
+        check_aligned((("r", r), ("k", k), ("v", v), ("w", w)), what)
     _build.call(
         "repro_rwkv6_scan_int8", r.data_ptr(), r_scale.data_ptr(), k.data_ptr(),
         k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr(), w.data_ptr(), u.data_ptr(),
