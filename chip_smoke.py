@@ -35,8 +35,10 @@ goyal schedule):
   6. the training path's kernels (flash attention, row quantizer, int8-K/V
      flash attention) at the full-width training shapes (Q/K/V (60, 256, 32,
      128) bf16) against their plain versions: the quantizer bit for bit at
-     noise 0.5, at random noise and at a ragged row count; times and bounds
-     as in phase 3;
+     noise 0.5, at random noise and at a ragged row count, with the route
+     ``quantize_plan`` names, then at its routes' edges (rows of 16, 24, 45
+     and 300, R of 1 and ragged, views with unaligned bases, zero rows,
+     denormals beside a huge value, .5 ties); times and bounds as in phase 3;
   7. the smoke config in float32: ``Session.run`` for 6 steps on the CPU
      (plain versions) and on the card (kernels) from the same weights, in
      ``f32`` and ``int8-fused``; per-step losses must agree;
@@ -79,10 +81,12 @@ Recurrent serving (rwkv6-7b, recurrentgemma-2b; after the MoE state is freed):
      64 heads of 64 in bf16, lru width 2560 in f32) and at ragged smoke-size
      shapes, and the flash (S 3072, window 2048) and decode (2048-row cache,
      native and int8) kernels at recurrentgemma's 10 query heads over one kv
-     head of 256, against their plain versions; times and bounds as in phase 3;
-     then WKV-6 cases of their own (bf16 at S 45 and 300, not multiples of
-     the chunked kernel's 16 steps, bf16 at head dim 16, decays near 1e-30
-     and near 1);
+     head of 256, against their plain versions (the RG-LRU scan bit for
+     bit); times and bounds as in phase 3; then WKV-6 cases of their own
+     (bf16 at S 45 and 300, not multiples of the chunked kernel's 16 steps,
+     bf16 at head dim 16, decays near 1e-30 and near 1) and RG-LRU cases of
+     its own, bit for bit (S 1, 45, 300 and 513, not multiples of its
+     32-step tiles; W 300 and 33; B 1; decays of exactly 1.0 and near 0);
  14. both recurrent smoke configs in float32 (recurrentgemma with native and
      int8 cache, prompt 13 > its window 8): greedy tokens from the plain path
      on the CPU and the kernels on the card must be identical, through
@@ -105,10 +109,12 @@ Recurrent training (``launch/train.py``'s session, as phases 6-8):
  17. the path's kernels at its full-width shapes against their plain
      versions: the WKV-6 scan, float and int8 r/k/v (60 rows, seq 256, 64
      heads of 64, bf16), the RG-LRU scan, float and int8 x, bit for bit (60
-     rows, seq 128, width 2560, f32), the quantizer at rows of 2560 bit for
-     bit, flash attention with float and int8 K/V at D = 256 (10 query heads
-     over one kv head, window 2048) and at D = 32, each also at a ragged
-     smoke-size shape, and the WKV-6 cases of phase 13 for both entries;
+     rows, seq 128, width 2560, f32), the quantizer bit for bit at the
+     path's rows (2560 f32, recurrentgemma's RG-LRU input; 64 bf16,
+     rwkv6-7b's r/k/v; 256 bf16, recurrentgemma's K/V), flash attention
+     with float and int8 K/V at D = 256 (10 query heads over one kv head,
+     window 2048) and at D = 32, each also at a ragged smoke-size shape, and
+     the WKV-6 and RG-LRU cases of phase 13 for both entries;
      then the gradients of ``ops.rwkv6_scan``,
      ``rwkv6_scan_q8``, ``rglru_scan``, ``rglru_scan_q8`` and
      ``flash_attention_q8`` (D = 256) on the card against the plain ops'
@@ -614,9 +620,9 @@ def device_time_by_kind(torch, prof, steps, what, moe=False):
         low = name.lower()
         kind = ("flash_attention" if "flash_fwd" in name else
                 "decode_attention" if "decode_kernel" in name or "decode_tc_kernel" in name else
-                "quantize" if "quantize_rows_kernel" in name else
+                "quantize" if "quantize_rows_" in name else
                 "wkv6_scan" if "wkv6_kernel" in name or "wkv6_chunk_kernel" in name else
-                "rglru_scan" if "rglru_kernel" in name else
+                "rglru_scan" if "rglru_" in name else
                 "fused_moe" if any(w in name for w in MOE_KERNELS) else
                 "matmul" if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")) else
                 "routing" if moe and any(w in low for w in ROUTING_KERNELS) else
@@ -676,30 +682,13 @@ def train_kernel_checks(torch, ops, R, F, dev):
     del qt, kt, vt
 
     # -- row quantizer: bit-equal to its plain version ------------------------
-    cases = [("noise 0.5", rows, 0.5),
-             ("random noise", rows, torch.rand(rows.shape, generator=gen, device=dev)),
+    records.append(quant_record(torch, R, "training", rows, flush))     # noise 0.5
+    cases = [("random noise", rows, torch.rand(rows.shape, generator=gen, device=dev)),
              ("ragged R=1001", rows[:1001], 0.5)]
     for label, x, noise in cases:
-        got, want = quantize_rows(x, noise), R.quantize_int8_ref(x, noise)
-        torch.cuda.synchronize()
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        print(f"[check] quantize_int8 {label}, {tuple(x.shape)} bf16: "
-              f"{'bit-equal' if same else 'DIFFERS'}")
-        if not same:
-            raise AssertionError(f"quantize_int8 ({label}) differs from its plain version")
+        quant_check(torch, R, f"{label}, {tuple(x.shape)} bf16", x, noise)
     del cases
-    R_, N = rows.shape
-    nbytes = R_ * N * rows.element_size() + R_ * N + R_ * 4     # x in, q and scales out
-    b_ms, b_by = bound(nbytes, 0.0, "bfloat16")
-    records.append(dict(
-        name="quantize_int8", path="training", route="cuda",
-        source="src/repro_torch/kernels/csrc/quantize.cu",
-        replaces="src/repro/kernels/quantize.py:38",
-        launches=0, max_abs_err=0.0,
-        ms=timed_ms(lambda: quantize_rows(rows, 0.5), flush),
-        plain_ms=timed_ms(lambda: R.quantize_int8_ref(rows, 0.5), flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
+    quantize_edge_checks(torch, R, dev)
 
     # -- int8-K/V flash attention, causal, at the main path's noise 0.5 --------
     kq, ks = (t.view(B, S, H, -1) for t in quantize_rows(rows, 0.5))
@@ -744,6 +733,89 @@ def train_kernel_checks(torch, ops, R, F, dev):
     for rec in records:
         print(json.dumps(rec))
     return records
+
+
+def quant_check(torch, R, label, x, noise):
+    """The quantizer on the card against its plain version, bit for bit."""
+    from repro_torch.kernels.quantize import quantize_plan, quantize_rows
+
+    aligned = x.data_ptr() % 16 == 0 and (not isinstance(noise, torch.Tensor)
+                                          or noise.data_ptr() % 16 == 0)
+    route = quantize_plan(*x.shape, x.dtype, aligned)
+    got, want = quantize_rows(x, noise), R.quantize_int8_ref(x, noise)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    print(f"[check] quantize_int8 {label} (route {route}): "
+          f"{'bit-equal' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError(f"quantize_int8 ({label}) differs from its plain version")
+    return route
+
+
+def quant_record(torch, R, path, rows, flush):
+    """The kernels-line record of the quantizer at noise 0.5 over ``rows``
+    (R, N), checked bit for bit first; its route goes into ``shape``."""
+    from repro_torch.kernels.quantize import quantize_rows
+
+    dt = str(rows.dtype).split(".")[-1]
+    route = quant_check(torch, R, f"{tuple(rows.shape)} {dt} at noise 0.5", rows, 0.5)
+    R_, N = rows.shape
+    nbytes = R_ * N * rows.element_size() + R_ * N + R_ * 4     # x in, q and scales out
+    b_ms, b_by = bound(nbytes, 0.0, "float32")
+    return dict(
+        name="quantize_int8", path=path, shape=f"rows {tuple(rows.shape)} {dt}, route {route}",
+        route="cuda", source="src/repro_torch/kernels/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:38", launches=0, max_abs_err=0.0,
+        ms=timed_ms(lambda: quantize_rows(rows, 0.5), flush),
+        plain_ms=timed_ms(lambda: R.quantize_int8_ref(rows, 0.5), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def quantize_edge_checks(torch, R, dev):
+    """Phase 6: the quantizer's routes at their edges, bit for bit against
+    the plain version at noise 0.5 and at random noise: groups of 2 and 4
+    lanes (rows of 16) and of 3 pieces in a group of 4 (24 bf16), widths
+    that are no multiple of 16 bytes (45 and 300 bf16), the wide route at
+    300 f32, views whose base is not 16-byte aligned, R of 1 and ragged R;
+    every case holds a zero row (the scale floor), a row of one huge value
+    among denormals and a row whose x / scale lands on .5 ties."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rows_of(R_, N, dtype):
+        x = torch.randn(R_, N, generator=gen, device=dev) * 3.0
+        specials = [torch.zeros(N, device=dev),
+                    torch.rand(N, generator=gen, device=dev) * 1e-39,   # denormals
+                    torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5] * N,
+                                 device=dev)[:N]]                      # scale 1: ties
+        specials[1][N // 2] = 3.0e38
+        for i, row in enumerate(specials if R_ >= len(specials) else []):
+            x[(i * 7) % R_] = row
+        return x.to(dtype)
+
+    flat = torch.randn(1001 * 64 + 1, generator=gen, device=dev).to(bf16)
+    odd = rows_of(1002, 45, bf16)
+    cases = [(rows_of(1001, 16, f32), "rows of 16 f32"),
+             (rows_of(1001, 16, bf16), "rows of 16 bf16"),
+             (rows_of(333, 24, bf16), "rows of 24 bf16"),
+             (rows_of(777, 45, bf16), "rows of 45 bf16"),
+             (rows_of(513, 300, bf16), "rows of 300 bf16"),
+             (rows_of(129, 300, f32), "rows of 300 f32"),
+             (rows_of(1, 64, bf16), "R=1 rows of 64 bf16"),
+             (rows_of(1, 2560, f32), "R=1 rows of 2560 f32"),
+             (rows_of(4099, 64, bf16), "ragged rows of 64 bf16"),
+             (rows_of(37, 2560, f32), "ragged rows of 2560 f32"),
+             (odd[1:], "a view one row into rows of 45 bf16"),
+             (flat[1:].view(1001, 64), "a view one element in, rows of 64 bf16")]
+    for x, label in cases:
+        for noise in (0.5, torch.rand(x.shape, generator=gen, device=dev)):
+            kind = "random noise" if isinstance(noise, torch.Tensor) else "noise 0.5"
+            quant_check(torch, R, f"edge {label} {tuple(x.shape)}, {kind}", x, noise)
+    # a noise tensor whose base is not 16-byte aligned takes the scalar route too
+    x = rows_of(257, 64, bf16)
+    noise = torch.rand(257 * 64 + 1, generator=gen, device=dev)[1:].view(257, 64)
+    quant_check(torch, R, "edge rows of 64 bf16, a noise view one element in", x, noise)
 
 
 def expected_train_launches(cfg, prec, steps):
@@ -1342,6 +1414,48 @@ def wkv6_edge_checks(torch, R, dev, int8):
                     1e-4 * want_state.abs().max().item())
 
 
+def bit_check(torch, label, got, want):
+    """``got`` equals ``want`` bit for bit; -> 0.0, the error."""
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    print(f"[check] {label}: {'bit-equal' if same else 'DIFFERS'}")
+    if not same:
+        err = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{label} differs from its plain version (max_abs_err={err:.3e})")
+    return 0.0
+
+
+def rglru_edge_checks(torch, R, dev, int8):
+    """The RG-LRU scan's cases of its own, bit for bit against the plain
+    version: the float entry or (``int8``) the int8 entry over the training
+    quantizer's x.  S of 1, 45, 300 and 513 (no multiples of the kernel's
+    32-step tiles), W of 300 (a partial block; for int8 x, rows that are no
+    multiple of 16 bytes) and 33 (no multiple of 4: 4-byte pieces), B of 1,
+    and decays of exactly 1.0 (every third channel) and near 0 (every third
+    from the second, 1e-30 to 1e-6) among decays in (0.5, 1)."""
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_int8
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    name = "rglru_scan_q8" if int8 else "rglru_scan"
+    for B, S, W in ((2, 1, 2560), (2, 45, 2560), (2, 300, 2560), (2, 513, 2560),
+                    (2, 45, 300), (1, 513, 300), (3, 70, 33)):
+        a = torch.rand(B, S, W, generator=gen, device=dev) * 0.5 + 0.5
+        a[..., 0::3] = 1.0
+        a[..., 1::3] = 10.0 ** (-6.0 - 24.0 * torch.rand(B, S, len(range(1, W, 3)),
+                                                         generator=gen, device=dev))
+        x = torch.randn(B, S, W, generator=gen, device=dev)
+        if int8:
+            q, s = quantize_rows(x.view(-1, W), 0.5)
+            xq, xs = q.view(B, S, W), s.view(B, S, 1)
+            got, want = rglru_scan_int8(a, xq, xs), R.rglru_scan_ref(
+                a, R.dequantize_int8_ref(xq, xs))
+        else:
+            got, want = rglru_scan(a, x), R.rglru_scan_ref(a, x)
+        bit_check(torch, f"{name} edge {(B, S, W)}, decays of 1.0 and near 0", got, want)
+
+
 def recurrent_kernel_checks(torch, R, F, dev):
     """Phase 13: the two scan kernels and the attention kernels at the
     recurrent serving path's shapes against their plain versions on the card."""
@@ -1398,12 +1512,13 @@ def recurrent_kernel_checks(torch, R, F, dev):
     wkv6_edge_checks(torch, R, dev, int8=False)
 
     # -- RG-LRU scan: recurrentgemma-2b's prefill (B 8, S 512, lru_width 2560)
-    #    and a case ragged in S and W; decays in (0.5, 0.999) so the carry lives
+    #    and a case ragged in S and W; decays in (0.5, 0.999) so the carry
+    #    lives; bit for bit (both round a multiply, then an add, in step order)
     for label, (B, S, W) in (("prefill", (8, 512, 2560)), ("ragged", (2, 45, 300))):
         a = torch.rand(B, S, W, generator=gen, device=dev) * 0.499 + 0.5
         x = randn(B, S, W)
-        err = close_check(torch, f"rglru_scan {label} {(B, S, W)} f32", rglru_scan(a, x),
-                          R.rglru_scan_ref(a, x), 1e-5, 1e-6)
+        err = bit_check(torch, f"rglru_scan {label} {(B, S, W)} f32", rglru_scan(a, x),
+                        R.rglru_scan_ref(a, x))
         if label == "prefill":
             b_ms, b_by = bound(3 * x.numel() * 4, 2.0 * x.numel(), "float32")
             records.append(dict(
@@ -1416,6 +1531,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
             ))
         del a, x
+    rglru_edge_checks(torch, R, dev, int8=False)
 
     # -- attention at recurrentgemma-2b's shapes: 10 query heads over one kv
     #    head of 256 (MQA), local window 2048, a prompt longer than the window
@@ -1835,42 +1951,37 @@ def recurrent_train_kernel_checks(torch, ops, R, F, dev):
 
     # -- RG-LRU, float and int8: recurrentgemma-2b's training shape (60 rows,
     #    seq 128, lru width 2560, f32 gates) and a ragged one; bit for bit,
-    #    and the quantizer at rows of 2560 bit for bit too
+    #    and the quantizer at rows of W bit for bit too
     for label, (B, S, W) in (("train", (60, 128, 2560)), ("ragged", (2, 45, 300))):
         a = torch.rand(B, S, W, generator=gen, device=dev) * 0.499 + 0.5
         x = randn(B, S, W)
+        if label == "train":
+            records.append(quant_record(torch, R, "recurrent_training", x.view(-1, W), flush))
+        else:
+            quant_check(torch, R, f"rows of {W} f32 {tuple(x.shape)}", x.view(-1, W), 0.5)
         xq, xs = q8(x)
-        want_q, want_s = R.quantize_int8_ref(x, 0.5)
-        same = torch.equal(xq, want_q) and torch.equal(xs, want_s)
-        print(f"[check] quantize_int8 rows of {W} f32 {tuple(x.shape)}: "
-              f"{'bit-equal' if same else 'DIFFERS'}")
-        if not same:
-            raise AssertionError(f"quantize_int8 differs from its plain version at width {W}")
         xd = deq(xq, xs)
         for name, kernel, plain in (("rglru_scan", lambda: rglru_scan(a, x),
                                      lambda: R.rglru_scan_ref(a, x)),
                                     ("rglru_scan_q8", lambda: rglru_scan_int8(a, xq, xs),
                                      lambda: R.rglru_scan_ref(a, xd))):
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            same = torch.equal(got, want)
-            print(f"[check] {name} {label} {(B, S, W)} f32: "
-                  f"{'bit-equal' if same else 'DIFFERS'}")
-            if not same:
-                raise AssertionError(f"{name} ({label}) differs from its plain version")
+            bit_check(torch, f"{name} {label} {(B, S, W)} f32", kernel(), plain())
             if label == "train":
                 x_bytes = xq.numel() + xs.numel() * 4 if name.endswith("q8") else x.numel() * 4
                 record(name, f"train {(B, S, W)}", "rglru_scan.cu",
                        "rglru_scan.py:103" if name.endswith("q8") else "rglru_scan.py:65",
                        0.0, kernel, plain, 2 * a.numel() * 4 + x_bytes, 2.0 * x.numel(),
                        "float32")
-        if label == "train":
-            rows = x.view(-1, W)
-            record("quantize_int8", f"RG-LRU rows {tuple(rows.shape)} f32", "quantize.cu",
-                   "quantize.py:38", 0.0, lambda: quantize_rows(rows, 0.5),
-                   lambda: R.quantize_int8_ref(rows, 0.5),
-                   rows.numel() * 5 + rows.shape[0] * 4, 0.0, "float32")
-        del a, x, xq, xs, xd, want_q, want_s
+        del a, x, xq, xs, xd
+    rglru_edge_checks(torch, R, dev, int8=True)
+
+    # -- the quantizer at the path's other rows, bit for bit: rwkv6-7b's r, k
+    #    and v (60 x 256 x 64 heads, rows of 64 bf16) and recurrentgemma-2b's
+    #    K and V (60 x 128 x one kv head, rows of 256 bf16)
+    for R_, N in ((60 * 256 * 64, 64), (60 * 128, 256)):
+        rows = randn(R_, N).to(bf16)
+        records.append(quant_record(torch, R, "recurrent_training", rows, flush))
+        del rows
 
     # -- flash attention, float and int8 K/V, at recurrentgemma's head dims:
     #    D = 256 at its training shape (60 rows, seq 128, 10 query heads over

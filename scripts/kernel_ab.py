@@ -29,6 +29,16 @@ power limit.  KERNEL is one of:
           phase 6's training shape (60, 256, 32, 128), causal, and phase
           17's recurrent training shape (60, 128, 10 over 1, 256), causal
           with a window of 2048;
+  quant   the row quantizer (``quantize_rows``, noise 0.5) at the training
+          path's four shapes: rows of 64 bf16 (rwkv6-7b's r/k/v, 983,040
+          rows), of 128 bf16 (deepseek-7b's K/V, 491,520), of 256 bf16
+          (recurrentgemma-2b's K/V, 7,680) and of 2560 f32 (its RG-LRU
+          input, 7,680), each with the route the tree's wrapper names where
+          it names one;
+  rglru   ``rglru_scan`` at the recurrent serving prefill shape (8, 512,
+          2560) and the recurrent training shape (60, 128, 2560), and
+          ``rglru_scan_int8`` (the training quantizer's int8 x) at the
+          training shape;
   moe     ``fused_moe_gemm`` and ``fused_moe_combine`` (bf16) at
           ``chip_smoke.py`` phase 9's prefill (T 4096, C 384) and decode
           (T 8, C 8) shapes of qwen3-moe-30b-a3b, one layer's experts and
@@ -134,6 +144,46 @@ def time_flash8(torch, median_ms, gen, dev):
     return out
 
 
+# label: (R, N, dtype name)
+QUANT_SHAPES = {
+    "rows of 64 bf16": (983040, 64, "bfloat16"),
+    "rows of 128 bf16": (491520, 128, "bfloat16"),
+    "rows of 256 bf16": (7680, 256, "bfloat16"),
+    "rows of 2560 f32": (7680, 2560, "float32"),
+}
+RGLRU_SHAPES = {"RS": (8, 512, 2560), "RT": (60, 128, 2560)}
+
+
+def time_quant(torch, median_ms, gen, dev):
+    from repro_torch.kernels import quantize as Q
+
+    out = []
+    for label, (R_, N, dtype) in QUANT_SHAPES.items():
+        x = torch.randn(R_, N, generator=gen, device=dev).to(getattr(torch, dtype))
+        route = (Q.quantize_plan(R_, N, x.dtype, True) if hasattr(Q, "quantize_plan") else "-")
+        ms = median_ms(lambda: Q.quantize_rows(x, 0.5))
+        out.append(f"{label} {ms:.4f} ms (route {route})")
+        del x
+    return out
+
+
+def time_rglru(torch, median_ms, gen, dev):
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_int8
+
+    out = []
+    for label, shape in RGLRU_SHAPES.items():
+        a = torch.rand(*shape, generator=gen, device=dev) * 0.499 + 0.5
+        x = torch.randn(*shape, generator=gen, device=dev)
+        out.append(f"{label} {shape} {median_ms(lambda: rglru_scan(a, x)):.4f} ms")
+        if label == "RT":
+            xq, xs = R.quantize_int8_ref(x, 0.5)
+            ms = median_ms(lambda: rglru_scan_int8(a, xq, xs))
+            out.append(f"int8 {label} {ms:.4f} ms")
+        del a, x
+    return out
+
+
 def time_moe(torch, median_ms, gen, dev):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from chip_smoke import kernel_ms
@@ -192,7 +242,7 @@ def time_moe(torch, median_ms, gen, dev):
 
 
 KERNELS = {"wkv6": time_wkv6, "decode": time_decode, "flash": time_flash,
-           "flash8": time_flash8, "moe": time_moe}
+           "flash8": time_flash8, "moe": time_moe, "quant": time_quant, "rglru": time_rglru}
 
 
 def time_tree(kernel: str, tree: str) -> None:

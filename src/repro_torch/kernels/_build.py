@@ -35,7 +35,7 @@ SIGNATURES = {
         "flash_attention", [P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
     "repro_flash_attention_int8_fwd": (
         "flash_attention", [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]),
-    "repro_quantize_rows": ("quantize", [P, P, F, P, P, I, I, I, P]),
+    "repro_quantize_rows": ("quantize", [P, P, F, P, P, I, I, I, I, P]),
     "repro_decode_attention": (
         "decode_attention", [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]),
     "repro_decode_attention_int8": (

@@ -214,6 +214,16 @@ QUANT_CASES = [
     (300, 128, "half", np.float32),
     (9, 512, "random", np.float32),
     (21, 128, "half", "bfloat16"),
+    # the CUDA kernel's routes at the training path's rows: narrow (64 and
+    # 256 bf16), wide (2560 f32, and 300 f32 with a ragged last piece)
+    (33, 64, "half", "bfloat16"),
+    (33, 64, "random", "bfloat16"),
+    (11, 256, "half", "bfloat16"),
+    (11, 256, "random", "bfloat16"),
+    (7, 2560, "half", np.float32),
+    (7, 2560, "random", np.float32),
+    (13, 300, "half", np.float32),
+    (13, 300, "random", np.float32),
 ]
 
 

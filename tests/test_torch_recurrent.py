@@ -108,12 +108,20 @@ def test_rwkv6_scan_ref_continues_from_a_state():
     torch.testing.assert_close(s2, state, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(2, 45, 300), (1, 130, 256)], ids=str)
+# every third step's decays exactly 1.0 (the TPU kernel's padding value)
+RGLRU_A_ONE = (2, 33, 64)
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 300), (1, 130, 256), (2, 1, 300), RGLRU_A_ONE],
+                         ids=str)
 def test_rglru_scan_matches_jax(shape):
     """(2, 45, 300): ragged in S and in W against the kernel's 128 x 256
-    tiles; (1, 130, 256): past one sequence chunk."""
+    tiles; (1, 130, 256): past one sequence chunk; (2, 1, 300): one step;
+    RGLRU_A_ONE: rows of decays exactly 1.0."""
     rng = np.random.default_rng(2)
     a = rng.uniform(0.5, 0.999, shape).astype(np.float32)
+    if shape == RGLRU_A_ONE:
+        a[:, ::3] = 1.0
     x = rng.standard_normal(shape).astype(np.float32)
     want = jax_rglru_scan(jnp.asarray(a), jnp.asarray(x), interpret=True)
     got = ops.rglru_scan(_t(a), _t(x))

@@ -153,13 +153,21 @@ RGLRU_OPS = {   # name -> (JAX op, port op, port plain version)
 }
 
 
-@pytest.mark.parametrize("shape", [(2, 45, 300), (1, 130, 256)], ids=str)
+# every third step's decays exactly 1.0 (the TPU kernel's padding value)
+RGLRU_A_ONE = (2, 33, 64)
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 300), (1, 130, 256), (2, 1, 300), RGLRU_A_ONE],
+                         ids=str)
 @pytest.mark.parametrize("name", list(RGLRU_OPS))
 def test_rglru_op_and_its_gradients_match_jax(name, shape):
     """(2, 45, 300): ragged in S and W against the kernel's 128 x 256 tiles;
-    (1, 130, 256): past one sequence chunk; rows of W quantized for q8."""
+    (1, 130, 256): past one sequence chunk; (2, 1, 300): one step;
+    RGLRU_A_ONE: rows of decays exactly 1.0; rows of W quantized for q8."""
     rng = np.random.default_rng(2)
     a = rng.uniform(0.5, 0.999, shape).astype(np.float32)
+    if shape == RGLRU_A_ONE:
+        a[:, ::3] = 1.0
     x = rng.standard_normal(shape).astype(np.float32)
     g = rng.standard_normal(shape).astype(np.float32)
     jop, op, plain = RGLRU_OPS[name]
