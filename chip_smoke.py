@@ -167,6 +167,26 @@ pool; after recurrent training):
      runs the contiguous kernel over its slots, as the reference's does, so
      the paged launches of this path are those of the pool check.
 
+Checkpoint / restart and elastic replanning (``Session.run`` with a
+``checkpoint_dir``, ``Session.apply``; after the engine, before the profiles):
+ 23. deepseek-7b at full width cut to 2 layers (1.244 B params: bf16 params
+     and f32 AdamW state are a 12.4 GB checkpoint), seq 256, f32, the demo
+     fleet, in a temporary directory removed at the end (short disk fails):
+     S0 trains 6 steps and saves once, synchronously; S1 (checkpoint every
+     3, async) trains 3; its checkpoint, restored with every CRC checked,
+     equals S1's state bit for bit; S2 (S1's config and directory) resumes at
+     step 3: its first batch is S0's fourth and its losses and grad norms at
+     steps 4-6 equal S0's to rtol 1e-6 (and whether bit-equal); checkpoint
+     bytes, free disk, sync save s, the async save's snapshot ms against the
+     step's ms, the background write s and restore s;
+ 24. 2 steps, ``WorkerLost(["csd/1"])``, 2 steps, ``WorkerJoined("csd", 1)``,
+     2 steps, params and optimizer state carried across: the smoke config on
+     the CPU and on the card from the same weights in f32 and int8-fused
+     (losses within phase 7's tolerances, the step rebuilt exactly when the
+     rows change, as the reference rebuilds it, no private shard re-homed,
+     launches of 6 steps), then phase 23's model in int8-fused on the card,
+     step ms before and after each event.
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``
 or ``engine_serving``) whose shapes it was
@@ -185,6 +205,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2550,6 +2571,209 @@ def profile_engine_step(torch, get_model, get_config, params, dev, steps=4):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Checkpoint / restart and elastic replanning (phases 23-24)
+# ---------------------------------------------------------------------------
+
+# the full-width cell of phases 23-24: deepseek-7b cut to 2 layers (1.244 B
+# params; bf16 params + f32 AdamW state are 12.4 GB a checkpoint), seq 256
+CKPT_LAYERS, CKPT_SEQ = 2, 256
+
+
+def _recording(session):
+    """Keep a host copy of the tokens of every batch the session's batcher
+    hands out."""
+    seen = []
+    ds = session.dataset
+    inner = ds.next_batch
+
+    def next_batch():
+        b = inner()
+        seen.append(b["tokens"].copy())
+        return b
+
+    ds.next_batch = next_batch
+    return seen
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def checkpoint_restart(torch, ops, train_session_factory, dev, root: Path):
+    """Phase 23: deepseek-7b at full width (2 layers, seq 256, f32, the demo
+    fleet): S0 runs 6 steps uninterrupted (one sync save at its end); S1
+    (checkpoint every 3, async) runs 3 steps; its checkpoint is restored and
+    held to S1's state bit for bit; S2 (same config and directory) resumes at
+    step 3 and runs to 6, its batches and per-step losses and grad norms held
+    to S0's."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+
+    kw = dict(arch="deepseek-7b", device=dev, full_config=True, n_layers=CKPT_LAYERS,
+              seq=CKPT_SEQ, steps=6, precision="f32")
+    s0 = train_session_factory(checkpoint_dir=str(root / "s0"), checkpoint_every=6, **kw)
+    s0.config.async_checkpoint = False
+    cfg = s0.model.cfg
+    # params (bf16 at full width) + AdamW's f32 mu and nu + the 4-byte step
+    like, _ = s0.model.init_params(abstract=True)
+    expect_bytes = sum(t.numel() * (t.element_size() + 8) for t in _leaves(like)) + 4
+    free = shutil.disk_usage(root).free
+    need = 2 * expect_bytes                 # S2 writes step 6 beside S1's step 3
+    print(f"[ckpt] {cfg.name}: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B params, "
+          f"a checkpoint {expect_bytes / 1e9:.3f} GB; free disk {free / 1e9:.1f} GB under "
+          f"{root} (needs {need / 1e9:.1f} GB)")
+    if free < need:
+        raise AssertionError(f"phase 23 needs {need / 1e9:.1f} GB of disk, {free / 1e9:.1f} GB "
+                             f"are free")
+    b0 = _recording(s0)
+    r0 = s0.run()
+    h0 = r0.history
+    m0 = s0.checkpoints
+    on_disk = _dir_bytes(root / "s0")
+    print(f"[ckpt] S0: 6 steps, losses {[round(h['loss'], 6) for h in h0]}; sync save at step 6: "
+          f"snapshot {m0.last_snapshot_s:.3f} s + write {m0.last_write_s:.3f} s = "
+          f"{m0.last_snapshot_s + m0.last_write_s:.3f} s for {on_disk} bytes "
+          f"({on_disk / (m0.last_snapshot_s + m0.last_write_s) / 1e9:.2f} GB/s)")
+    if on_disk < expect_bytes:
+        raise AssertionError(f"S0's checkpoint holds {on_disk} bytes, fewer than {expect_bytes}")
+    shutil.rmtree(root / "s0")
+    del s0, r0
+    torch.cuda.empty_cache()
+
+    run_dir = str(root / "run")
+    s1 = train_session_factory(checkpoint_dir=run_dir, checkpoint_every=3, **kw)
+    if not s1.config.async_checkpoint:
+        raise AssertionError("S1 must save asynchronously")
+    r1 = s1.run(steps=3)
+    m1 = s1.checkpoints
+    step_ms = statistics.median(h["step_time"] for h in r1.history[1:]) * 1e3
+    print(f"[ckpt] S1: 3 steps ({step_ms:.3f} ms/step, median of steps 2-3), async save at "
+          f"step 3: the caller blocked {m1.last_snapshot_s * 1e3:.1f} ms for the host snapshot "
+          f"({m1.last_snapshot_s * 1e3 / step_ms:.2f} steps), the background write took "
+          f"{m1.last_write_s:.3f} s")
+    t = time.perf_counter()
+    state, meta = restore(run_dir, {"params": r1.params, "opt": r1.opt_state}, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    saved = dict(_flatten_with_paths({"params": r1.params, "opt": r1.opt_state}))
+    got = dict(_flatten_with_paths(state))
+    differ = [k for k in saved if not (
+        got[k] == saved[k] if isinstance(saved[k], int) else torch.equal(got[k], saved[k]))]
+    print(f"[ckpt] restore of step {meta['step']} with CRC32 over every leaf: {restore_s:.3f} s; "
+          f"{len(saved)} leaves, {len(differ)} differ from S1's state")
+    if differ or meta["step"] != 3 or sorted(got) != sorted(saved):
+        raise AssertionError(f"restored leaves differ from the saved ones: {differ[:5]}")
+    del s1, r1, state, saved, got
+    torch.cuda.empty_cache()
+
+    s2 = train_session_factory(checkpoint_dir=run_dir, checkpoint_every=3, **kw)
+    b2 = _recording(s2)
+    ops.reset_launches()
+    r2 = s2.run()
+    counts = dict(ops.LAUNCHES)
+    h2 = r2.history
+    print(f"[ckpt] S2: start_step {r2.start_step}, losses {[round(h['loss'], 6) for h in h2]} "
+          f"grad_norm {[round(h['grad_norm'], 4) for h in h2]}; S0's steps 4-6: losses "
+          f"{[round(h['loss'], 6) for h in h0[3:]]} grad_norm "
+          f"{[round(h['grad_norm'], 4) for h in h0[3:]]}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if r2.start_step != 3 or r2.steps_run != 3:
+        raise AssertionError(f"S2 resumed at {r2.start_step} and ran {r2.steps_run} steps")
+    if not np.array_equal(b2[0], b0[3]):
+        raise AssertionError("S2's first batch is not S0's fourth")
+    bit_equal = all(h2[i][k] == h0[3 + i][k] for i in range(3) for k in ("loss", "grad_norm"))
+    for key in ("loss", "grad_norm"):
+        if not np.allclose([h[key] for h in h2], [h[key] for h in h0[3:]], rtol=1e-6, atol=0.0):
+            raise AssertionError(f"S2's {key} at steps 4-6 differs from S0's")
+    print(f"[ckpt] S2's losses and grad norms at steps 4-6 equal S0's to rtol 1e-6; "
+          f"bit-equal: {bit_equal}")
+    _check_launches(counts, expected_train_launches(cfg, "f32", 3), "resumed training")
+    del s2, r2
+    torch.cuda.empty_cache()
+
+
+def _elastic_sequence(session, params):
+    """Run 2 steps, lose csd/1, run 2, a csd joins, run 2 (params and
+    optimizer state carried across): the losses, the replans and step ms."""
+    from repro_torch.api import WorkerJoined, WorkerLost
+    from repro_torch.core.privacy import audit_custody
+
+    r = session.run(params, steps=2)
+    losses, parts = [h["loss"] for h in r.history], [r.history]
+    compiles, replans = [session.compile_count], []
+    for event in (WorkerLost(["csd/1"]), WorkerJoined("csd", 1)):
+        rows = session.tune().schedule.global_rows
+        res = session.apply(event)
+        new_rows = session.tune().schedule.global_rows
+        # the reference's rule: the step is rebuilt only when the rows change
+        if res.recompiled != (new_rows != rows):
+            raise AssertionError(f"{event}: recompiled={res.recompiled} with rows "
+                                 f"{rows} -> {new_rows}")
+        r = session.run(r.params, opt_state=r.opt_state, steps=2)
+        losses += [h["loss"] for h in r.history]
+        parts.append(r.history)
+        compiles.append(session.compile_count)
+        replans.append((type(event).__name__, rows, new_rows, res.recompiled,
+                        res.dropped_shards))
+        if compiles[-1] != compiles[-2] + int(res.recompiled):
+            raise AssertionError(f"{event}: compile count {compiles}")
+    audit = audit_custody(session.devices.custody_log)
+    if any(audit.values()) or r.opt_state.step != 6:
+        raise AssertionError(f"custody audit {audit}, optimizer step {r.opt_state.step}")
+    return losses, parts, compiles, replans, audit
+
+
+def elastic_replan(torch, ops, train_session_factory, dev):
+    """Phase 24: WorkerLost then WorkerJoined between training runs, the
+    smoke config on the CPU (plain versions) against the card (kernels)
+    from the same weights in f32 and int8-fused, then deepseek-7b at phase
+    23's full width in int8-fused on the card."""
+    import copy
+
+    rtol = {"f32": 1e-4, "int8-fused": 1e-2}       # phase 7's
+    for prec in ("f32", "int8-fused"):
+        kw = dict(steps=6, seq=32, precision=prec)
+        cpu = train_session_factory(device="cpu", **kw)
+        params, _ = cpu.init_state()
+        gpu_params = _to(copy.deepcopy(params), dev)
+        want, _, cpu_compiles, _, _ = _elastic_sequence(cpu, params)
+        gpu = train_session_factory(device=dev, **kw)
+        ops.reset_launches()
+        got, _, compiles, replans, audit = _elastic_sequence(gpu, gpu_params)
+        counts = dict(ops.LAUNCHES)
+        print(f"[elastic] smoke {prec}: cpu={[round(x, 6) for x in want]} "
+              f"gpu={[round(x, 6) for x in got]} compiles {compiles} replans {replans} "
+              f"custody audit {audit} launches { {k: v for k, v in counts.items() if v} }")
+        if not np.allclose(got, want, rtol=rtol[prec], atol=0.0):
+            raise AssertionError(f"{prec}: losses across the events differ between CPU and card")
+        if compiles != cpu_compiles:
+            raise AssertionError(f"{prec}: compile counts {compiles} on the card, "
+                                 f"{cpu_compiles} on the CPU")
+        _check_launches(counts, expected_train_launches(gpu.model.cfg, prec, 6),
+                        f"elastic {prec} training")
+
+    session = train_session_factory(arch="deepseek-7b", device=dev, full_config=True,
+                                    n_layers=CKPT_LAYERS, seq=CKPT_SEQ, steps=6,
+                                    precision="int8-fused")
+    cfg = session.model.cfg
+    ops.reset_launches()
+    losses, parts, compiles, replans, audit = _elastic_sequence(session, None)
+    counts = dict(ops.LAUNCHES)
+    ms = [[round(h["step_time"] * 1e3, 3) for h in part] for part in parts]
+    print(f"[elastic] {cfg.name} int8-fused, {cfg.n_layers} layers, seq {CKPT_SEQ}: step ms "
+          f"before the events {ms[0]}, after WorkerLost {ms[1]}, after WorkerJoined {ms[2]}; "
+          f"rows {[r[1:3] for r in replans]}, compiles {compiles}, losses "
+          f"{[round(x, 4) for x in losses]}, custody audit {audit}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss across the elastic events")
+    _check_launches(counts, expected_train_launches(cfg, "int8-fused", 6),
+                    "full-width elastic training")
+    del session
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2631,6 +2855,18 @@ def main() -> int:
     records += paged_kernel_checks(torch, R, dev)
     cross_device_engine(torch, ops, get_model, smoke_config, ServeSession, dev)
     engine_totals = full_width_engine(torch, ops, R, get_model, get_config, ServeSession, dev)
+    # checkpoint / restart and elastic replanning at full width
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip-smoke-ckpt-"))
+    try:
+        checkpoint_restart(torch, ops, train_session_factory, dev, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    print(f"[ckpt] phase 23: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    elastic_replan(torch, ops, train_session_factory, dev)
+    print(f"[elastic] phase 24: {time.perf_counter() - t_phase:.1f} s")
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)

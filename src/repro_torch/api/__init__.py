@@ -19,6 +19,10 @@ from repro_torch.api.artifacts import (
 from repro_torch.api.callbacks import CallbackRegistry
 from repro_torch.api.events import DriftDetected, FleetEvent, WorkerJoined, WorkerLost
 from repro_torch.api.fleet import FleetSpec
+from repro_torch.api.membership import (
+    DirMembershipSource, ElasticController, HeartbeatWriter, MemberInfo,
+    MembershipWatcher,
+)
 from repro_torch.api.serving import GenerateResult, ServeSession
 from repro_torch.api.session import Session, SessionConfig
 from repro_torch.storage import DeviceFleet, FleetManifest, StorageSpec
@@ -27,11 +31,16 @@ __all__ = [
     "CallbackRegistry",
     "CompiledStep",
     "DeviceFleet",
+    "DirMembershipSource",
     "DriftDetected",
+    "ElasticController",
     "FleetEvent",
     "FleetManifest",
     "FleetSpec",
     "GenerateResult",
+    "HeartbeatWriter",
+    "MemberInfo",
+    "MembershipWatcher",
     "ReplanResult",
     "ServeSession",
     "Session",

@@ -15,15 +15,28 @@ The data plane is the :mod:`repro_torch.storage` device fleet: each
 dp-group's rows are assembled in its own storage device and the stitched
 batch lands on the session's device.  Stages are lazy and memoized; a stage
 can be overridden (``session.override("tune", plan)``), which invalidates
-everything downstream of it.  A drift re-tune goes through
-:meth:`Session.apply` and keeps the pinned row capacity, so the compiled
-step survives (the ``compile_count`` probe).
+everything downstream of it.
+
+All mid-run fleet changes go through ONE replanning path,
+:meth:`Session.apply`:
+
+    session.apply(WorkerLost(["csd/1"]))   # paper's backfill remedy
+    session.apply(WorkerJoined("csd", 2))  # elastic growth
+    session.apply(DriftDetected())         # online re-tune, zero recompile
+
+``apply`` keeps the pinned row capacity across events, so a drift re-tune
+keeps the compiled step (the ``compile_count`` probe) and a node loss keeps
+``max_local``, so only the group count changes.  A lost worker's private
+shards are quarantined and its public custody moves to a survivor
+(``DeviceFleet.quarantine_workers``).  With ``config.checkpoint_dir`` set,
+``run`` saves every ``checkpoint_every`` steps and resumes from the newest
+valid checkpoint, the batcher's cursors included, so a restart replays no
+data.
 
 The session runs on the card unless told otherwise (``device="cuda"``; it
-raises when no card is visible).  Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP item: cluster execution
-(hostsync / multi-process), checkpoint save and restore, and the
-``WorkerLost`` / ``WorkerJoined`` events.
+raises when no card is visible).  Cluster execution (hostsync /
+multi-process) is not ported yet and raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from repro_torch.api.artifacts import (
 from repro_torch.api.callbacks import CallbackRegistry
 from repro_torch.api.events import DriftDetected, FleetEvent, WorkerJoined, WorkerLost
 from repro_torch.api.fleet import FleetSpec
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.hetero import BatchSchedule, schedule_from_tune
 from repro_torch.core.load_balance import EpochPlan, plan_epoch
 from repro_torch.core.privacy import Shard, place
@@ -55,8 +69,6 @@ from repro_torch.train.steps import make_train_step
 PyTree = Any
 
 ROADMAP_CLUSTER = "ROADMAP item 13 'Multi-device and multi-process'"
-ROADMAP_CHECKPOINT = "ROADMAP item 4 'checkpoint/manager.py'"
-ROADMAP_ELASTIC = "ROADMAP item 4 'WorkerLost / WorkerJoined'"
 
 # stage dependency graph: invalidating a stage clears it plus everything
 # that derives from it ("shard"/"compile" depend only on the tune schedule)
@@ -73,11 +85,10 @@ _DOWNSTREAM = {
 
 @dataclasses.dataclass
 class SessionConfig:
-    """Run-level knobs (training length, LR rule, drift watch).
+    """Run-level knobs (training length, LR rule, checkpointing, drift).
 
-    Mutable by design (unlike the stage artifacts).  ``checkpoint_dir`` is
-    accepted for parity with the reference and raises at ``run`` until
-    checkpointing is ported.
+    Mutable by design (unlike the stage artifacts): callers tweak e.g.
+    ``total_steps`` or ``retune_margin`` between runs of the same session.
     """
 
     total_steps: int = 100
@@ -86,8 +97,12 @@ class SessionConfig:
     warmup_steps: int = 20
     aux_weight: float = 0.01
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
     retune_margin: float = 0.2       # DriftMonitor threshold = tuner 1/E
     retune_patience: int = 10
+    log_every: int = 10
     seed: int = 0
 
 
@@ -124,8 +139,23 @@ class Session:
         self._device_fleet: Optional[DeviceFleet] = None
         self._artifacts: Dict[str, Any] = {}
         self._compile_count = 0
-        # canonical live membership: survives stage rebuilds
+        # WorkerClass templates survive a fully-dead class leaving the fleet,
+        # so a replacement node can still rejoin under the same class name
+        self._class_templates: Dict[str, Any] = {c.name: c for c in self.fleet.classes}
+        # canonical live membership: survives stage rebuilds (tune(force=True)
+        # must not resurrect dead workers from bare class counts)
         self._group_workers: Optional[Tuple[str, ...]] = None
+        # per-class high-water mark of worker indices ever handed out, so a
+        # joiner is never labelled as a dead worker
+        self._next_index: Dict[str, int] = {}
+        # the checkpoint manager of the last run with a checkpoint_dir (its
+        # last save's snapshot and write times)
+        self.checkpoints: Optional[CheckpointManager] = None
+
+    def _note_labels(self, workers: Sequence[str]) -> None:
+        for w in workers:
+            cls, idx = w.rsplit("/", 1)
+            self._next_index[cls] = max(self._next_index.get(cls, 0), int(idx) + 1)
 
     # -- cluster mode (not ported) ------------------------------------------
 
@@ -137,7 +167,7 @@ class Session:
 
     @property
     def shards(self) -> Tuple[Shard, ...]:
-        """Live shard set."""
+        """Live shard set (shrinks when an owner dies — privacy constraint)."""
         return tuple(self._shards)
 
     @property
@@ -166,7 +196,9 @@ class Session:
         self._invalidate(stage)
         self._artifacts[stage] = artifact
         if stage == "tune":
+            # an externally supplied TunePlan defines the live membership
             self._group_workers = tuple(artifact.group_workers)
+            self._note_labels(artifact.group_workers)
 
     def _invalidate(self, from_stage: str) -> None:
         self._artifacts.pop(from_stage, None)
@@ -198,6 +230,7 @@ class Session:
                     schedule = prev.schedule.with_batches(new_batches)
                 else:
                     schedule = BatchSchedule(new_batches)
+            self._note_labels(workers)
             self._artifacts["tune"] = TunePlan(
                 result=result, schedule=schedule, group_workers=tuple(workers))
             if prev_shard is not None and prev_shard.global_rows == schedule.global_rows:
@@ -329,33 +362,48 @@ class Session:
         steps: Optional[int] = None,
     ) -> TrainReport:
         """Train.  Pass a prior report's ``params`` AND ``opt_state`` to
-        continue — the optimizer's moments and the lr-schedule step counter
-        live in ``opt_state``.  The step updates both IN PLACE (the JAX
-        package donates them): pass copies to keep the originals."""
+        continue after an elastic event — the optimizer's moments and the
+        lr-schedule step counter live in ``opt_state``.  The step updates both
+        IN PLACE (the JAX package donates them): pass copies to keep the
+        originals.  With ``config.checkpoint_dir`` holding a valid
+        checkpoint, training resumes from it and the caller's state is
+        ignored."""
         cfg = self.config
         steps = steps or cfg.total_steps
-        if cfg.checkpoint_dir:
-            raise NotImplementedError(
-                f"checkpoint save/restore is not ported to repro_torch yet "
-                f"({ROADMAP_CHECKPOINT})")
         compiled = self.compile()
-        if params is None:
-            params, fresh_opt = self.init_state(init_opt=opt_state is None)
-            opt_state = opt_state if opt_state is not None else fresh_opt
+        ckpt = None
+        if cfg.checkpoint_dir:
+            ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
+            self.checkpoints = ckpt
+        start_step = 0
+        if ckpt is not None and ckpt.latest_step() is not None:
+            # restart-after-failure: the newest valid checkpoint, every leaf
+            # straight onto the session's device, and the SAMPLING state too:
+            # without the cursors a restart replays already-seen batches
+            like, _ = self.model.init_params(abstract=True)
+            state, meta = ckpt.restore(
+                {"params": like, "opt": self.optimizer.init(like)}, device=self.device)
+            params, opt_state = state["params"], state["opt"]
+            start_step = int(meta.get("step", ckpt.latest_step()))
+            self.dataset.set_cursors(meta.get("cursors") or {})
         else:
-            params = self._adopt_state(params)
-        if opt_state is None:
-            opt_state = self.optimizer.init(params)
-        else:
-            opt_state = opt_state._replace(
-                mu=self._adopt_state(opt_state.mu),
-                nu=None if opt_state.nu is None else self._adopt_state(opt_state.nu))
+            if params is None:
+                params, fresh_opt = self.init_state(init_opt=opt_state is None)
+                opt_state = opt_state if opt_state is not None else fresh_opt
+            else:
+                params = self._adopt_state(params)
+            if opt_state is None:
+                opt_state = self.optimizer.init(params)
+            else:
+                opt_state = opt_state._replace(
+                    mu=self._adopt_state(opt_state.mu),
+                    nu=None if opt_state.nu is None else self._adopt_state(opt_state.nu))
 
         dataset = self.dataset
         monitor = DriftMonitor(margin=cfg.retune_margin, patience=cfg.retune_patience)
         history: List[Dict[str, float]] = []
         t0 = time.perf_counter()
-        for i in range(steps):
+        for i in range(start_step, steps):
             # each dp-group's rows are assembled in its storage device
             td = time.perf_counter()
             batch = dataset.next_device_batch(self.device)
@@ -378,42 +426,129 @@ class Session:
                 self.apply(DriftDetected(source="monitor"))
                 compiled = self.compile()   # same object unless shapes grew
                 dataset = self.dataset
+
+            if ckpt is not None and (i + 1) % cfg.checkpoint_every == 0:
+                ckpt.save(
+                    i + 1, {"params": params, "opt": opt_state},
+                    metadata={
+                        "step": i + 1,
+                        "schedule": list(self.tune().schedule.group_batches),
+                        "cursors": dataset.cursors(),
+                    },
+                    async_=cfg.async_checkpoint,
+                )
+                self.callbacks.emit_checkpoint(i + 1, cfg.checkpoint_dir)
+        if ckpt is not None:
+            ckpt.wait()
         return TrainReport(
             params=params,
             opt_state=opt_state,
             history=tuple(history),
             steps_run=len(history),
-            start_step=0,
+            start_step=start_step,
             compile_count=self._compile_count,
             wall_time=time.perf_counter() - t0,
         )
 
-    # -- the elastic replanning path -----------------------------------------
+    # -- the ONE elastic replanning path ---------------------------------------
 
     def apply(self, event: FleetEvent) -> ReplanResult:
-        """Route a fleet event through the replanning path.  A drift re-tune
-        keeps the pinned row capacity, so shapes (and the compiled step)
-        survive."""
-        if isinstance(event, (WorkerLost, WorkerJoined)):
-            raise NotImplementedError(
-                f"{type(event).__name__} is not ported to repro_torch yet "
-                f"({ROADMAP_ELASTIC})")
-        if not isinstance(event, DriftDetected):
-            raise TypeError(f"unknown fleet event {event!r}")
-        old = self.tune()
-        # membership never changes on drift: re-tune per-CLASS batches and
-        # map them onto the current group workers
-        result = tune(self.fleet, self.benchmark)
-        new_batches = tuple(result.batches[w.rsplit("/", 1)[0]] for w in old.group_workers)
-        new = TunePlan(result=result, schedule=old.schedule.with_batches(new_batches),
-                       group_workers=old.group_workers)
+        """Route any elastic fleet event through one replanning code path.
 
+        The pinned row ``capacity`` always survives the event, so shapes only
+        change when the group COUNT changes (node loss/join) — never on a
+        drift re-tune.
+        """
+        old = self.tune()
+        dropped: Tuple[str, ...] = ()
+
+        if isinstance(event, DriftDetected):
+            # membership never changes on drift: re-tune per-CLASS batches and
+            # map them onto the CURRENT group workers (which may already
+            # reflect earlier losses/joins); capacity-pinned, so same shapes
+            result = tune(self.fleet, self.benchmark)
+            new_batches = tuple(result.batches[w.rsplit("/", 1)[0]] for w in old.group_workers)
+            new = TunePlan(result=result, schedule=old.schedule.with_batches(new_batches),
+                           group_workers=old.group_workers)
+
+        elif isinstance(event, WorkerLost):
+            dead = set(event.workers)
+            missing = dead - set(old.group_workers)
+            if missing:
+                raise KeyError(f"unknown workers {sorted(missing)}")
+            keep = [(w, b) for w, b in zip(old.group_workers, old.schedule.group_batches)
+                    if w not in dead]
+            if not keep:
+                raise ValueError("cannot lose every worker in the fleet")
+            # shrink the fleet's class counts so later tunes/joins see the
+            # true membership (a fully-dead class leaves the fleet)
+            lost_per_class: Dict[str, int] = {}
+            for w in dead:
+                cls = w.rsplit("/", 1)[0]
+                lost_per_class[cls] = lost_per_class.get(cls, 0) + 1
+            self.fleet = Fleet(classes=tuple(
+                dataclasses.replace(c, count=c.count - lost_per_class.get(c.name, 0))
+                for c in self.fleet.classes
+                if c.count - lost_per_class.get(c.name, 0) > 0
+            ))
+            # paper's remedy, through the fleet custody API: the dead
+            # workers' private shards are quarantined (tombstoned on every
+            # surviving device), their public custody re-homes to survivors;
+            # plan_epoch rebalances the share
+            dropped = self.devices.quarantine_workers(sorted(dead))
+            self._shards = [s for s in self._shards if not (s.private and s.owner in dead)]
+            # pin capacity to the pre-event max_local: fewer groups, same
+            # per-group row count
+            schedule = BatchSchedule(tuple(b for _, b in keep),
+                                     round_to=old.schedule.round_to,
+                                     capacity=old.schedule.max_local)
+            new = TunePlan(result=old.result, schedule=schedule,
+                           group_workers=tuple(w for w, _ in keep))
+
+        elif isinstance(event, WorkerJoined):
+            if any(c.name == event.class_name for c in self.fleet.classes):
+                self.fleet = Fleet(classes=tuple(
+                    dataclasses.replace(c, count=c.count + event.count)
+                    if c.name == event.class_name else c
+                    for c in self.fleet.classes
+                ))
+            elif event.class_name in self._class_templates:
+                # the class fully died earlier; revive it from its template
+                self.fleet = Fleet(classes=self.fleet.classes + (
+                    dataclasses.replace(self._class_templates[event.class_name],
+                                        count=event.count),
+                ))
+            else:
+                raise KeyError(event.class_name)
+            result = tune(self.fleet, self.benchmark)
+            # survivors keep their labels (private shards stay pinned to their
+            # owners); joiners draw never-used indices from the high-water
+            # mark, so a dead worker's label is never recycled
+            start = self._next_index.get(event.class_name, 0)
+            self._next_index[event.class_name] = start + event.count
+            joiners = tuple(f"{event.class_name}/{start + i}" for i in range(event.count))
+            workers = old.group_workers + joiners
+            # fresh storage devices for the joiners: they hold the public
+            # pool; no private shards exist for a new worker yet
+            for w in joiners:
+                self.devices.provision_worker(w)
+            schedule = BatchSchedule(
+                tuple(result.batches[w.rsplit("/", 1)[0]] for w in workers),
+                round_to=old.schedule.round_to,
+                capacity=old.schedule.max_local,   # never shrinks; growth
+            )                                      # beyond it recompiles
+            new = TunePlan(result=result, schedule=schedule, group_workers=workers)
+
+        else:
+            raise TypeError(f"unknown fleet event {event!r}")
+
+        # ---- shared tail: install the new TunePlan, re-plan, re-place ----
         compiled = self._artifacts.get("compile")
         keep_compiled = compiled is not None and compiled.global_rows == new.schedule.global_rows
         shard_plan = self._artifacts.get("shard")
-        keep_shard = (shard_plan is not None
-                      and shard_plan.global_rows == new.schedule.global_rows)
+        keep_shard = shard_plan is not None and shard_plan.global_rows == new.schedule.global_rows
         dataset = self._artifacts.get("dataset")
+        keep_dataset = dataset is not None and new.group_workers == old.group_workers
         self.override("tune", new)          # invalidates plan/place/dataset
         if keep_shard:
             self._artifacts["shard"] = shard_plan
@@ -421,16 +556,23 @@ class Session:
             self._artifacts["compile"] = compiled
         self.plan()
         self.place()
-        if dataset is not None:
-            # same membership: rewire the live iterator to the re-planned
-            # schedule and placement; per-worker epoch cursors survive
+        if keep_dataset:
+            # same membership (drift re-tune): rewire the live iterator to the
+            # re-planned schedule and placement; per-worker epoch cursors
+            # survive (no replay of already-seen data)
             dataset.rewire(new.schedule, manifest_sources(self.place(), list(new.group_workers)))
             self._artifacts["dataset"] = dataset
         else:
             _ = self.dataset
         result_obj = ReplanResult(
             event=event, tune_plan=new,
+            # only a real invalidation counts: with no step built yet,
+            # nothing was thrown away
             recompiled=compiled is not None and not keep_compiled,
+            dropped_shards=dropped,
         )
-        self.callbacks.emit_retune(event, new)
+        if isinstance(event, DriftDetected):
+            self.callbacks.emit_retune(event, new)
+        else:
+            self.callbacks.emit_fleet_change(event, result_obj)
         return result_obj

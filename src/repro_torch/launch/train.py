@@ -10,11 +10,16 @@ devices.
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
       --full-config --seq 128 --steps 5
 
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 50 \\
+      --checkpoint-dir /path/to/ckpt
+
 ``--full-config`` runs the published dims (random weights from ``--seed``);
 ``--layers`` cuts the depth, the one cut a single card may need.
-``--device`` defaults to ``cuda`` and the driver fails when no card is
-found.  Not ported yet, each refused with its ROADMAP item:
-``--cluster-processes > 1``, ``--measured-tune`` and ``--checkpoint-dir``.
+``--checkpoint-dir`` saves every ``SessionConfig.checkpoint_every`` (50)
+steps and resumes from the newest valid checkpoint there.  ``--device``
+defaults to ``cuda``, and the run fails when no card is found.  Not
+ported yet, each refused with its ROADMAP item: ``--cluster-processes > 1``
+and ``--measured-tune``.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import sys
 from typing import Optional
 
 from repro_torch.api import FleetSpec, Session, SessionConfig
-from repro_torch.api.session import ROADMAP_CHECKPOINT, ROADMAP_CLUSTER
+from repro_torch.api.session import ROADMAP_CLUSTER
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.device import DeviceLike
 from repro_torch.models.api import get_model
@@ -44,6 +49,8 @@ def train_session_factory(
     n_layers: Optional[int] = None,
     precision: str = "f32",
     optimizer: str = "adamw",
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = SessionConfig.checkpoint_every,
     seed: int = 0,
     device: DeviceLike = "cuda",
 ) -> Session:
@@ -64,7 +71,8 @@ def train_session_factory(
         optimizer=adamw() if optimizer == "adamw" else sgd_momentum(),
         fleet=spec,
         data=DataConfig(vocab=cfg.vocab, seq_len=seq, seed=seed),
-        config=SessionConfig(total_steps=steps, seed=seed),
+        config=SessionConfig(total_steps=steps, checkpoint_dir=checkpoint_dir,
+                             checkpoint_every=checkpoint_every, seed=seed),
         shards=spec.shards(private_per_worker={"csd": 256}, public=65536),
         device=device,
     )
@@ -85,7 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--checkpoint-dir", default=None, help=f"not ported ({ROADMAP_CHECKPOINT})")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save here, and resume from the newest valid checkpoint here")
     ap.add_argument("--measured-tune", action="store_true",
                     help=f"not ported ({ROADMAP_MEASURED_TUNE})")
     ap.add_argument("--cluster-processes", type=int, default=1,
@@ -100,13 +109,12 @@ def main(argv=None) -> int:
         ap.error(f"--cluster-processes > 1 is not ported to repro_torch yet ({ROADMAP_CLUSTER})")
     if args.measured_tune:
         ap.error(f"--measured-tune is not ported to repro_torch yet ({ROADMAP_MEASURED_TUNE})")
-    if args.checkpoint_dir:
-        ap.error(f"--checkpoint-dir is not ported to repro_torch yet ({ROADMAP_CHECKPOINT})")
 
     session = train_session_factory(
         arch=args.arch, steps=args.steps, seq=args.seq, csds=args.csds,
         full_config=args.full_config, n_layers=args.layers, precision=args.precision,
-        optimizer=args.optimizer, seed=args.seed, device=args.device,
+        optimizer=args.optimizer, checkpoint_dir=args.checkpoint_dir, seed=args.seed,
+        device=args.device,
     )
     cfg = session.model.cfg
     tune_plan = session.tune()
@@ -129,6 +137,11 @@ def main(argv=None) -> int:
     )
     report = session.run()
     hist = report.history
+    if report.start_step:
+        print(f"resumed from the checkpoint at step {report.start_step}")
+    if not hist:
+        print(f"nothing to run: the checkpoint is at step {report.start_step} of {args.steps}")
+        return 0
     print(f"{report.steps_run} steps in {report.wall_time:.1f}s; "
           f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
     return 0

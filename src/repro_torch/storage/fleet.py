@@ -28,12 +28,14 @@ row spans) arrive with the port's multi-device slice (ROADMAP item 13).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import tempfile
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.hetero import BatchSchedule
 from repro_torch.core.privacy import CustodyEvent, PlacementManifest, Shard
@@ -268,9 +270,47 @@ class DeviceFleet:
     def to_device_batch(
         self, batch: Dict[str, np.ndarray], device: torch.device,
     ) -> Dict[str, torch.Tensor]:
-        """Land host arrays on the session's device (one host-to-device copy
-        per key; the JAX package's ``jnp.asarray``)."""
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        """Land host arrays on the session's device: one host-to-device copy
+        per key and nothing else, held to that by
+        :func:`transfer_guard_host_to_device` (the reference's meshfeed
+        guards its feed the same way)."""
+        crossing = sum(v.nbytes for v in batch.values()) if device.type != "cpu" else 0
+        with transfer_guard_host_to_device(crossing):
+            return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+class _HostToDeviceCopies(TorchDispatchMode):
+    """Counts the bytes of every copy from a CPU tensor to another device."""
+
+    def __init__(self):
+        super().__init__()
+        self.nbytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten._to_copy.default:
+            dst = kwargs.get("device")
+            if args[0].device.type == "cpu" and dst is not None and torch.device(dst).type != "cpu":
+                self.nbytes += args[0].nbytes
+        elif func is torch.ops.aten.copy_.default:
+            if args[1].device.type == "cpu" and args[0].device.type != "cpu":
+                self.nbytes += args[1].nbytes
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def transfer_guard_host_to_device(nbytes: int):
+    """The feed boundary: the block may move exactly ``nbytes`` from host to
+    device (the batch it lands) and raises if it moved any other amount, so
+    no other host bytes ride along with a batch (the port's counterpart of
+    the reference feed's ``jax.transfer_guard_host_to_device``)."""
+    copies = _HostToDeviceCopies()
+    with copies:
+        yield
+    if copies.nbytes != nbytes:
+        raise RuntimeError(
+            f"the feed moved {copies.nbytes} bytes host-to-device, not the "
+            f"batch's {nbytes}")
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,7 @@ from repro.optim import sgd_momentum as jax_sgd
 from repro.optim.schedules import goyal_schedule as jax_goyal
 from repro.storage import DataConfig as JDataConfig
 from repro.train import steps as JS
-from repro_torch.api import DriftDetected, FleetSpec, Session, SessionConfig, WorkerLost
+from repro_torch.api import DriftDetected, FleetSpec, Session, SessionConfig
 from repro_torch.configs import smoke_config
 from repro_torch.interop import params_from_jax
 from repro_torch.launch import train as train_driver
@@ -358,13 +358,8 @@ def test_drift_retune_keeps_compiled_step():
 def test_unported_paths_raise_naming_their_roadmap_item(capsys):
     s = _session()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.apply(WorkerLost(["csd/1"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.attach_cluster(None)
-    s.config.checkpoint_dir = "ckpt"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.run(steps=1)
-    for argv in (["--cluster-processes", "2"], ["--measured-tune"], ["--checkpoint-dir", "x"]):
+    for argv in (["--cluster-processes", "2"], ["--measured-tune"]):
         with pytest.raises(SystemExit):
             train_driver.main(["--device", "cpu", *argv])
         assert "ROADMAP" in capsys.readouterr().err
