@@ -22,6 +22,11 @@ Phases (any failure raises and the script exits non-zero):
      10 over 1 and head dims 16 and 32, with bf16 K/V and with int8 K/V;
      decode (native and int8) at lengths
      around the split's chunk, 0 and 1, with windows starting inside a chunk;
+     and phases 25-27's edges: head dim 64 (flash over bf16, int8 and
+     float32 K/V; decode native, int8 and paged, bf16 and float32), GQA
+     group 7 (56 over 8, 28 over 4, 14 over 2, 7 over 1), not causal with
+     Sq != Skv (32, 1 and 77 rows against 1500 and 130) and Skv = 1500
+     (whisper's encoder, and a decode over all 1500 frames);
   4. the smoke config in float32: greedy tokens from the plain path on the CPU
      and the kernel path on the card must be identical, native and int8 cache;
   5. deepseek-7b at its published size (30 layers, d_model 4096, bf16, random
@@ -71,8 +76,9 @@ MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
      measured slower decode steps): one training step per model of phases 8
      and 19 and precision, the
      decode step of phase 5, the MoE decode step of phase 11, the
-     recurrent decode steps of phase 15 and a decode-only engine step of
-     phase 22's cell (8 requests in 8 slots, native KV)
+     recurrent decode steps of phase 15, a decode-only engine step of
+     phase 22's cell (8 requests in 8 slots, native KV) and the native
+     decode steps of phases 25-27
      (``torch.profiler``, device time by kind, busy ms, idle share; the MoE
      step split into matmul, attention, fused_moe, routing and other).
 
@@ -187,9 +193,33 @@ Checkpoint / restart and elastic replanning (``Session.run`` with a
      launches of 6 steps), then phase 23's model in int8-fused on the card,
      step ms before and after each event.
 
+The five remaining configs (after phase 24, before the profiles; each freed
+before the next is built, its predicted peak printed before its weights):
+ before 25, phase 3's kernel checks at phases 25-27's shapes (flash at
+     deepseek-coder-33b's GQA-7 prefill, whisper's encoder, cross and self
+     prefill, qwen2-vl-7b's GQA-7 prefill over 1536 rows; decode native and
+     int8 at the coder's 577 rows, whisper's self (97 rows) and cross (1500
+     frames) and the VL's 1601 rows), then the five smoke configs in
+     float32, as phase 4: greedy tokens from the plain path on the CPU and
+     the kernels on the card identical, native and int8 cache;
+ 25. ``families_serving``: qwen1.5-4b, minitron-8b and deepseek-coder-33b at
+     their published sizes (bf16, seed-0 weights; the coder's 33.3 B params
+     are 62.1 GiB) through ``ServeSession.generate``, batch 8, prompt 512,
+     64 greedy tokens, native and int8 KV, as phase 5;
+ 26. ``encdec_serving``: whisper-medium (24 + 24 layers, head dim 64) over
+     1500 stub frames drawn from the seed, prompt 32, 64 greedy tokens
+     through ``ServeSession.generate(..., frames=)``, native cache and the
+     8-leaf int8 cache (quantized cross K/V);
+ 27. ``vlm_serving``: qwen2-vl-7b over 1024 stub patch embeddings and 512
+     text tokens through ``ServeSession.generate(..., patch_embeds=)``, 64
+     greedy tokens, native and int8;
+ each prints prefill ms, decode ms/step, peak GiB and launch counts (every
+ attention call through the kernels), and its seconds beside its budget.
+
 Each record of the kernels line carries the main path (``serving``,
-``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``
-or ``engine_serving``) whose shapes it was
+``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
+``engine_serving``, ``families_serving``, ``encdec_serving`` or
+``vlm_serving``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -508,6 +538,7 @@ def tile_edge_checks(torch, R, dev):
                           decode_attention_int8(q, kq, ks, vq, vs, valid, window=window),
                           R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid, window=window))
     torch.cuda.empty_cache()
+    family_tile_edges(torch, R, dev)
 
 
 def cross_device(torch, ops, get_model, smoke_config, ServeSession, dev):
@@ -619,7 +650,7 @@ def profile_decode(torch, model, params, cache, logits, pos0, steps=6, moe=False
     for t in range(2):
         tok = step(t, tok)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for t in range(2, 2 + steps):
             tok = step(t, tok)
         torch.cuda.synchronize()
@@ -629,7 +660,10 @@ def profile_decode(torch, model, params, cache, logits, pos0, steps=6, moe=False
 def device_time_by_kind(torch, prof, steps, what, moe=False):
     """Print device ms per step by kind of kernel; return device-busy ms per
     step (union of device spans), or None when the profiler saw none.  A MoE
-    step also splits out its routing kernels."""
+    step also splits out its routing kernels.  The profiles record device
+    activity only: host ops are not read here, and turning every recorded
+    event into a Python object costs ~65 us an event (an rwkv6-7b train step
+    launches ~90,000 kernels, several host events each)."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
@@ -960,7 +994,7 @@ def profile_train(torch, train_session_factory, dev, step_ms):
         params, opt_state, _ = step(params, opt_state, batch)        # warm
         torch.cuda.synchronize()
         batch = session.dataset.next_device_batch(dev)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             params, opt_state, metrics = step(params, opt_state, batch)
             torch.cuda.synchronize()
         busy = device_time_by_kind(torch, prof, 1, f"{arch} {prec} train step")
@@ -2559,7 +2593,7 @@ def profile_engine_step(torch, get_model, get_config, params, dev, steps=4):
     for _ in range(steps):
         engine.step()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
@@ -2774,6 +2808,452 @@ def elastic_replan(torch, ops, train_session_factory, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-27: qwen1.5-4b, minitron-8b, deepseek-coder-33b, whisper-medium
+# and qwen2-vl-7b
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("qwen1.5-4b", "minitron-8b", "deepseek-coder-33b")
+SLICE_ARCHS = FAMILY_ARCHS + ("whisper-medium", "qwen2-vl-7b")
+# seconds each of this slice's phases should take on the card (printed
+# beside what it took; a run over budget is reported, not failed)
+SLICE_BUDGET_S = {"kernels": 30, "cross-device": 30, "25": 90, "26": 30, "27": 30}
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:133",
+            "decode_attention": "src/repro/kernels/decode_attention.py:327",
+            "decode_attention_int8": "src/repro/kernels/decode_attention.py:378"}
+
+
+def family_tile_edges(torch, R, dev):
+    """Phase 3, this slice's tile edges, from a generator of their own (the
+    earlier cases draw what they drew before): flash at head dim 64 over
+    bf16, int8 and float32 K/V, GQA group 7 (56 over 8, 28 over 4, 14 over
+    2, 7 over 1), not causal with Sq != Skv (whisper's cross-attention: 32,
+    1 and 77 decoder rows against 1500 and 130 frames, past the 64-row
+    tile's edge) and Skv = 1500 (whisper's bidirectional encoder); decode at
+    head dim 64 and group 7 at lengths around the split's chunk, contiguous
+    (native and int8, bf16 and float32) and paged (pages of 16, bit for bit
+    against the contiguous kernel on the gathered rows), and over all 1500
+    frames.  bf16 outputs to 2 bf16 ulps of each row, float32 to 1e-4 as
+    phase 3."""
+    from repro_torch.kernels.decode_attention import (
+        chunk_rows, decode_attention, decode_attention_int8, paged_decode_attention,
+        paged_decode_attention_int8,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2525)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def edge(label, got, want, dtype):
+        if dtype == bf16:
+            row_ulp_check(torch, label, got, want)
+        else:
+            close_check(torch, label, got, want, rtol=0.0, atol=1e-4)
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: paged and contiguous kernels differ")
+        print(f"[check] {label}: paged == contiguous on the gathered rows, bit for bit")
+
+    # B, Sq, Skv, H, Hkv, D, causal, window, float32 too
+    flash_cases = [(2, 65, 65, 4, 4, 64, True, None, True),
+                   (2, 129, 129, 16, 16, 64, True, 8, False),
+                   (2, 200, 200, 14, 2, 64, True, None, True),
+                   (2, 129, 129, 56, 8, 128, True, None, False),
+                   (2, 100, 100, 28, 4, 128, True, 40, False),
+                   (2, 33, 33, 7, 1, 64, False, None, True),
+                   (2, 32, 1500, 16, 16, 64, False, None, True),
+                   (2, 1, 1500, 16, 16, 64, False, None, False),
+                   (2, 77, 130, 14, 2, 64, False, None, True),
+                   (1, 1500, 1500, 16, 16, 64, False, None, False)]
+    for B, Sq, Skv, H, Hkv, D, causal, window, also_f32 in flash_cases:
+        q, k, v = randn(B, Sq, H, D), randn(B, Skv, Hkv, D), randn(B, Skv, Hkv, D)
+        tag = f"Sq={Sq} Skv={Skv} H={H}/{Hkv} D={D} causal={causal} window={window}"
+        (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+        kd, vd = R.dequantize_int8_ref(kq, ks), R.dequantize_int8_ref(vq, vs)
+        for dtype in (bf16, f32) if also_f32 else (bf16,):
+            qx, kx, vx = (t.to(dtype) for t in (q, k, v))
+            name = f"{tag} {str(dtype).split('.')[-1]}"
+            edge(f"flash_attention edge {name}",
+                 flash_attention_fwd(qx, kx, vx, causal=causal, window=window),
+                 R.flash_attention_ref(qx, kx, vx, causal=causal, window=window), dtype)
+            edge(f"flash_attention_q8 edge {name}",
+                 flash_attention_int8_fwd(qx, kq, ks, vq, vs, causal=causal, window=window),
+                 R.flash_attention_ref(qx, kd, vd, causal=causal, window=window), dtype)
+        del q, k, v, kq, ks, vq, vs, kd, vd
+
+    for H, Hkv, D in ((16, 16, 64), (14, 2, 64), (56, 8, 128), (28, 4, 128), (7, 1, 64)):
+        ch = chunk_rows(D, bf16)
+        rows = 2 * ch + 8
+        valid = torch.tensor([ch - 1, ch, ch + 1, 0, 1, ch + ch // 2, rows, 2 * ch + 1],
+                             dtype=torch.int32, device=dev)
+        q = randn(8, 1, H, D)
+        k, v = randn(8, rows, Hkv, D), randn(8, rows, Hkv, D)
+        (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+        for window in (None, 100, 20):
+            tag = f"H={H}/{Hkv} D={D} valid {valid.tolist()} window={window}"
+            row_ulp_check(torch, f"decode_attention edge {tag} bf16",
+                          decode_attention(q, k, v, valid, window=window),
+                          R.decode_attention_ref(q, k, v, valid, window=window))
+            row_ulp_check(torch, f"decode_attention_int8 edge {tag} bf16",
+                          decode_attention_int8(q, kq, ks, vq, vs, valid, window=window),
+                          R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid, window=window))
+        tag = f"H={H}/{Hkv} D={D} valid {valid.tolist()} float32"
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        edge(f"decode_attention edge {tag}", decode_attention(q32, k32, v32, valid),
+             R.decode_attention_ref(q32, k32, v32, valid), f32)
+        edge(f"decode_attention_int8 edge {tag}", decode_attention_int8(q32, kq, ks, vq, vs, valid),
+             R.decode_attention_int8_ref(q32, kq, ks, vq, vs, valid), f32)
+        # paged: the same rows as pages of 16 scattered over a pool
+        page = 16
+        NP = -(-rows // page)
+        P = 8 * NP + 3
+        table = torch.randperm(P, generator=gen, device=dev)[:8 * NP].reshape(8, NP).to(
+            torch.int32)
+        kp, vp = randn(P, page, Hkv, D), randn(P, page, Hkv, D)
+        (kpq, kps), (vpq, vps) = R.quantize_int8_ref(kp), R.quantize_int8_ref(vp)
+        for window in (None, 20):
+            tag = f"H={H}/{Hkv} D={D} pages of {page} window={window} bf16"
+            got = paged_decode_attention(q, kp, vp, table, valid, window=window)
+            row_ulp_check(torch, f"paged_decode_attention edge {tag}", got,
+                          R.paged_decode_attention_ref(q, kp, vp, table, valid, window=window))
+            same(f"paged_decode_attention edge {tag}", got,
+                 decode_attention(q, R.gather_pages(kp, table), R.gather_pages(vp, table), valid,
+                                  window=window))
+            got8 = paged_decode_attention_int8(q, kpq, kps, vpq, vps, table, valid, window=window)
+            row_ulp_check(torch, f"paged_decode_attention_int8 edge {tag}", got8,
+                          R.paged_decode_attention_int8_ref(q, kpq, kps, vpq, vps, table, valid,
+                                                            window=window))
+            same(f"paged_decode_attention_int8 edge {tag}", got8,
+                 decode_attention_int8(q, *(R.gather_pages(t, table)
+                                            for t in (kpq, kps, vpq, vps)), valid,
+                                       window=window))
+        del q, k, v, kq, ks, vq, vs, kp, vp, kpq, kps, vpq, vps
+
+    # whisper's cross-attention decode: one row against all 1500 frames
+    q, k, v = randn(8, 1, 16, 64), randn(8, 1500, 16, 64), randn(8, 1500, 16, 64)
+    (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+    valid = torch.full((8,), 1500, dtype=torch.int32, device=dev)
+    row_ulp_check(torch, "decode_attention edge 1500 frames H=16/16 D=64 bf16",
+                  decode_attention(q, k, v, valid), R.decode_attention_ref(q, k, v, valid))
+    row_ulp_check(torch, "decode_attention_int8 edge 1500 frames H=16/16 D=64 bf16",
+                  decode_attention_int8(q, kq, ks, vq, vs, valid),
+                  R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    edge("decode_attention edge 1500 frames H=16/16 D=64 float32",
+         decode_attention(q32, k32, v32, valid), R.decode_attention_ref(q32, k32, v32, valid), f32)
+    edge("decode_attention_int8 edge 1500 frames H=16/16 D=64 float32",
+         decode_attention_int8(q32, kq, ks, vq, vs, valid),
+         R.decode_attention_int8_ref(q32, kq, ks, vq, vs, valid), f32)
+    torch.cuda.empty_cache()
+
+
+def _attention_record(name, path, shape, err, fn, plain, nbytes, flops, library, flush):
+    """A kernels-line record: bound from the bytes the call must move and its
+    bf16 operations, times from CUDA events (median of 25, L2 flushed)."""
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    src = "flash_attention.cu" if name.startswith("flash") else "decode_attention.cu"
+    return dict(name=name, path=path, shape=shape, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{src}", replaces=REPLACES[name],
+                launches=0, max_abs_err=err, ms=timed_ms(fn, flush),
+                plain_ms=timed_ms(plain, flush), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if library is None else timed_ms(library, flush))
+
+
+def family_kernel_checks(torch, R, F, dev):
+    """Phase 3's kernel checks at phases 25-27's shapes, bf16, each held to
+    its plain version at 2 bf16 ulps a row and timed (its plain version, SDPA
+    where one call computes the same function, its bound): families_serving
+    at deepseek-coder-33b's GQA group 7 (prefill (8, 512, 56 over 8, 128),
+    decode over 577 rows); encdec_serving at whisper-medium's head dim 64
+    (the encoder (8, 1500, 16, 64) bidirectional, the cross-attention
+    prefill of 32 decoder rows against 1500 frames, the decoder's causal
+    self-attention prefill of 32 rows, its self decode over 97 rows and its
+    cross decode over 1500 frames, native and int8); vlm_serving at
+    qwen2-vl-7b's group 7 (prefill (8, 1536, 28 over 4, 128), decode over
+    1601 rows)."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2526)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    records = []
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def flash(path, shape, B, Sq, Skv, H, Hkv, D, causal):
+        q, k, v = rand(B, Sq, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
+        run = lambda: flash_attention_fwd(q, k, v, causal=causal)               # noqa: E731
+        plain = lambda: R.flash_attention_ref(q, k, v, causal=causal)           # noqa: E731
+        err = row_ulp_check(torch, f"flash_attention {path} {shape}", run(), plain())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        records.append(_attention_record(
+            "flash_attention", path, shape, err, run, plain,
+            2 * (2 * q.numel() + 2 * k.numel()), 4 * D * B * H * pairs,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=Hkv != H), flush))
+
+    def decode(path, shape, H, Hkv, D, cache, valid_l):
+        B = len(valid_l)
+        valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+        rows = int(valid.sum())
+        q = rand(B, 1, H, D)
+        k, v = rand(B, cache, Hkv, D), rand(B, cache, Hkv, D)
+        run = lambda: decode_attention(q, k, v, valid)                          # noqa: E731
+        plain = lambda: R.decode_attention_ref(q, k, v, valid)                  # noqa: E731
+        err = row_ulp_check(torch, f"decode_attention {path} {shape}", run(), plain())
+        mask = (torch.arange(cache, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        small = 2 * q.numel() * 2 + B * 4
+        records.append(_attention_record(
+            "decode_attention", path, shape, err, run, plain,
+            2 * rows * Hkv * D * 2 + small, 4 * D * H * rows,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=Hkv != H), flush))
+        (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+        run8 = lambda: decode_attention_int8(q, kq, ks, vq, vs, valid)           # noqa: E731
+        plain8 = lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid)   # noqa: E731
+        err8 = row_ulp_check(torch, f"decode_attention_int8 {path} {shape}", run8(), plain8())
+        records.append(_attention_record(
+            "decode_attention_int8", path, shape, err8, run8, plain8,
+            2 * rows * Hkv * (D + 4) + small, 4 * D * H * rows, None, flush))
+
+    flash("families_serving", "deepseek-coder-33b prefill GQA-7", 8, 512, 512, 56, 8, 128, True)
+    decode("families_serving", "deepseek-coder-33b decode GQA-7", 56, 8, 128, 577,
+           [576, 1, 300, 513, 576, 0, 450, 520])
+    flash("encdec_serving", "whisper encoder", 8, 1500, 1500, 16, 16, 64, False)
+    flash("encdec_serving", "whisper cross prefill", 8, 32, 1500, 16, 16, 64, False)
+    flash("encdec_serving", "whisper self prefill", 8, 32, 32, 16, 16, 64, True)
+    decode("encdec_serving", "whisper self decode", 16, 16, 64, 97,
+           [96, 33, 64, 80, 96, 40, 90, 70])
+    decode("encdec_serving", "whisper cross decode", 16, 16, 64, 1500, [1500] * 8)
+    flash("vlm_serving", "qwen2-vl-7b prefill GQA-7", 8, 1536, 1536, 28, 4, 128, True)
+    decode("vlm_serving", "qwen2-vl-7b decode GQA-7", 28, 4, 128, 1601,
+           [1600, 1537, 1568, 1590, 1600, 1545, 1580, 1555])
+    del scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
+def _side_inputs(torch, cfg, B, n_patches, gen, dev):
+    """The stub frontend's output drawn from ``gen``: whisper's frames (B,
+    n_frames, d_model), the VLM's patch embeddings (B, n_patches, d_model)."""
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(B, cfg.n_frames, cfg.d_model, generator=gen,
+                                      device=dev).to(cfg.dtype)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.randn(B, n_patches, cfg.d_model, generator=gen,
+                                            device=dev).to(cfg.dtype)}
+    return {}
+
+
+def _slice_launches(cfg, kv, decode_steps):
+    """(flash launches, decode op, decode launches) of one prefill and
+    ``decode_steps`` steps: whisper's prefill runs the encoder and, per
+    decoder layer, its self and its cross attention; each step both."""
+    decode_op = "decode_attention_int8" if kv == "int8" else "decode_attention"
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers, decode_op, 2 * cfg.n_dec_layers * \
+            decode_steps
+    return cfg.n_layers, decode_op, cfg.n_layers * decode_steps
+
+
+def cross_device_slice(torch, ops, get_model, smoke_config, ServeSession, dev):
+    """Before phases 25-27, as phase 4: the five configs' smoke variants in
+    float32, greedy tokens from the plain path on the CPU and the kernels on
+    the card identical, native and int8 cache, every attention call of the
+    card's run through the kernels."""
+    for arch in SLICE_ARCHS:
+        base = smoke_config(arch)
+        rng = np.random.default_rng(25)
+        prompt = torch.from_numpy(rng.integers(0, base.vocab, (2, 13)))
+        cpu_gen = torch.Generator()
+        cpu_gen.manual_seed(25)
+        side = _side_inputs(torch, base, 2, 4, cpu_gen, "cpu")
+        for kv in ("native", "int8"):
+            model = get_model(base.with_(kv_cache_dtype=kv))
+            cpu_params, _ = model.init_params(seed=0, device="cpu")
+            gpu_params = _to(cpu_params, dev)
+            want = ServeSession(model=model, params=cpu_params, device="cpu").generate(
+                prompt, max_new_tokens=6, **side).tokens
+            ops.reset_launches()
+            got = ServeSession(model=model, params=gpu_params, device=dev).generate(
+                prompt, max_new_tokens=6, **side).tokens.cpu()
+            counts = {k: c for k, c in ops.LAUNCHES.items() if c}
+            print(f"[slice] {arch} smoke {kv}: cpu={want.tolist()} gpu={got.tolist()} "
+                  f"launches={counts}")
+            if not torch.equal(want, got):
+                raise AssertionError(f"{arch} {kv}: greedy tokens differ between CPU and card")
+            n_flash, decode_op, n_decode = _slice_launches(base, kv, 6)
+            if (counts.get("flash_attention") != n_flash
+                    or counts.get(decode_op) != n_decode or len(counts) != 2):
+                raise AssertionError(f"{arch} {kv}: attention did not run through the kernels: "
+                                     f"{counts}")
+
+
+def predicted_peak_gib(cfg, n_params, B, seq, cache_len, kv):
+    """Weights, the KV cache (whisper: its self and cross K/V) and the
+    prefill's widest live activations (the MLP's three intermediates, the
+    rows' f32 norm, q/k/v/out), in GiB."""
+    hd = cfg.resolved_head_dim()
+    row = hd * 2 if kv == "native" else hd + 4
+    if cfg.family == "encdec":
+        kv_bytes = cfg.n_dec_layers * B * (cache_len + cfg.n_frames) * cfg.n_kv_heads * row * 2
+        seq = max(seq, cfg.n_frames)
+    else:
+        kv_bytes = cfg.n_layers * B * cache_len * cfg.n_kv_heads * row * 2
+    act = B * seq * (3 * cfg.d_ff * 2 + cfg.d_model * 4 + 4 * cfg.n_heads * hd * 2)
+    return (n_params * 2 + kv_bytes + act) / 2**30
+
+
+def _serve_full(torch, ops, get_model, ServeSession, cfg, params, prompt, side, n_new, tag,
+                dev):
+    """Native and int8 KV: a warm-up prefill (checked), then the greedy run
+    with the counts reset just before it and read just after; returns the
+    launch totals and the ms a decode step, by KV dtype."""
+    B, P = prompt.shape
+    n_prefix = P + (side["patch_embeds"].shape[1] if "patch_embeds" in side else 0)
+    totals = {name: 0 for name in ops.LAUNCHES}
+    toks, step_ms = {}, {}
+    for kv in ("native", "int8"):
+        model = get_model(cfg.with_(kv_cache_dtype=kv))
+        logits, cache = model.prefill(params, prompt, n_prefix + n_new + 1, **side)
+        torch.cuda.synchronize()
+        if tuple(logits.shape) != (B, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name} {kv}: prefill logits {tuple(logits.shape)} "
+                                 f"not finite")
+        del logits, cache
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        out = ServeSession(model=model, params=params, device=dev).generate(
+            prompt, max_new_tokens=n_new, **side)
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[{tag}] {cfg.name} {kv}: prefill {out.prefill_time * 1e3:.3f} ms, decode "
+              f"{out.decode_tok_s:.3f} tok/s ({out.ms_per_step:.3f} ms/step), peak memory "
+              f"{peak / 2**30:.3f} GiB, launches {({k: c for k, c in counts.items() if c})}")
+        t = out.tokens
+        if tuple(t.shape) != (B, n_new + 1) or int(t.min()) < 0 or int(t.max()) >= cfg.vocab:
+            raise AssertionError(f"{cfg.name} {kv}: tokens {tuple(t.shape)} out of range")
+        n_flash, decode_op, n_decode = _slice_launches(cfg, kv, n_new)
+        if counts["flash_attention"] != n_flash or counts[decode_op] != n_decode:
+            raise AssertionError(f"{cfg.name} {kv}: attention did not run through the kernels: "
+                                 f"{counts}")
+        for name, c in counts.items():
+            totals[name] += c
+        toks[kv], step_ms[kv] = t.cpu(), out.ms_per_step
+    agree = (toks["native"] == toks["int8"]).float().mean().item()
+    print(f"[{tag}] {cfg.name} native vs int8 KV: {agree:.3f} of generated tokens agree")
+    return totals, step_ms
+
+
+def full_width_slice(torch, ops, get_model, get_config, ServeSession, dev, archs, tag,
+                     B=8, P=512, n_new=64, n_patches=1024):
+    """Phases 25-27: each arch at its published size (bf16, seed-0 weights
+    built on the card slice by slice) through ``ServeSession.generate``,
+    batch 8, 64 greedy tokens, native and int8 KV: the dense configs at
+    prompt ``P``; whisper-medium over 1500 stub frames at prompt ``P``;
+    qwen2-vl-7b over ``n_patches`` stub patch embeddings and ``P`` text
+    tokens.  Each arch's predicted peak is printed
+    before its weights are built; they are freed after it.  Returns the
+    launch totals and each arch's native ms a decode step."""
+    totals, step_ms = {name: 0 for name in ops.LAUNCHES}, {}
+    for arch in archs:
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        abstract, _ = model.init_params(abstract=True)
+        n_params = sum(t.numel() for t in _leaves(abstract))
+        n_vis = n_patches if cfg.family == "vlm" else 0
+        cache_len = n_vis + P + n_new + 1
+        torch.cuda.empty_cache()
+        print(f"[{tag}] {arch}: {n_params / 1e9:.3f} B params; predicted peak "
+              f"{predicted_peak_gib(cfg, n_params, B, n_vis + P, cache_len, 'native'):.2f} GiB "
+              f"native (weights {n_params * 2 / 2**30:.2f}); allocated before "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+        t0 = time.perf_counter()
+        params, _ = model.init_params(seed=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"[{tag}] {arch}: weights built in {time.perf_counter() - t0:.1f} s, allocated "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+        side = _side_inputs(torch, cfg, B, n_patches, gen, dev)
+        counts, ms = _serve_full(torch, ops, get_model, ServeSession, cfg, params, prompt, side,
+                                 n_new, tag, dev)
+        for name, c in counts.items():
+            totals[name] += c
+        step_ms[arch] = ms["native"]
+        del params, prompt, side
+        torch.cuda.empty_cache()
+    return totals, step_ms
+
+
+def profile_slice(torch, get_model, get_config, dev, step_ms, B=8, P=512, n_patches=1024):
+    """Phase 12, this slice's cells: one native decode step of each arch of
+    phases 25-27 after its prefill (whisper at prompt 32), device time by
+    kind, busy ms and the idle share of the step phases 25-27 timed."""
+    for arch, ms in step_ms.items():
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        torch.cuda.empty_cache()
+        params, _ = model.init_params(seed=0, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        p = 32 if cfg.family == "encdec" else P
+        prompt = torch.randint(0, cfg.vocab, (B, p), generator=gen, device=dev)
+        side = _side_inputs(torch, cfg, B, n_patches, gen, dev)
+        n_prefix = p + (n_patches if cfg.family == "vlm" else 0)
+        logits, cache = model.prefill(params, prompt, n_prefix + 16, **side)
+        print(f"[profile] {arch}:")
+        busy = profile_decode(torch, model, params, cache, logits, n_prefix)
+        if busy is not None:
+            print(f"[profile] {arch} native: device busy {busy:.3f} ms of {ms:.3f} ms per "
+                  f"decode step: idle share {1 - busy / ms:.3f}")
+        del params, logits, cache, prompt, side
+    torch.cuda.empty_cache()
+
+
+def slice_phases(torch, ops, R, F, get_model, get_config, smoke_config, ServeSession, dev):
+    """This slice's kernel checks, the smoke configs CPU vs card, then
+    phases 25-27, each timed against its budget -> (records, launch totals
+    by path, native ms a decode step by arch)."""
+    spent = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        spent[label] = time.perf_counter() - t0
+        over = " OVER BUDGET" if spent[label] > SLICE_BUDGET_S[label] else ""
+        print(f"[slice] phase {label}: {spent[label]:.1f} s (budget "
+              f"{SLICE_BUDGET_S[label]} s){over}")
+        return out
+
+    records = timed("kernels", lambda: family_kernel_checks(torch, R, F, dev))
+    timed("cross-device", lambda: cross_device_slice(torch, ops, get_model, smoke_config,
+                                                     ServeSession, dev))
+    totals, step_ms = {}, {}
+    for phase, path, archs, kw in (("25", "families_serving", FAMILY_ARCHS, {}),
+                                   ("26", "encdec_serving", ("whisper-medium",), {"P": 32}),
+                                   ("27", "vlm_serving", ("qwen2-vl-7b",), {})):
+        totals[path], ms = timed(phase, lambda: full_width_slice(
+            torch, ops, get_model, get_config, ServeSession, dev, archs, path.split("_")[0],
+            **kw))
+        step_ms.update(ms)
+    return records, totals, step_ms
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2819,15 +3299,28 @@ def main() -> int:
         if not tc or any(sum(tensor_ops[n]) == 0 for n in tc):
             raise AssertionError(f"{kernel} holds no tensor-core instruction: {tc}")
 
+    last = [t_start]
+
+    def lap(label):
+        """The seconds since the previous lap: where the run's wall goes."""
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    lap("phases 1-2 (the build included)")
     records = kernel_checks(torch, ops, R, F, dev)
     tile_edge_checks(torch, R, dev)
     records += train_kernel_checks(torch, ops, R, F, dev)
+    lap("phases 3 and 6")
     cross_device(torch, ops, get_model, smoke_config, ServeSession, dev)
     cross_device_train(torch, ops, train_session_factory, dev)
+    lap("phases 4 and 7")
     # the main paths: counts are reset before and read after each run
     serve_totals, decode_ms = full_width(torch, ops, get_model, get_config, ServeSession, dev)
+    lap("phase 5")
     train_totals, train_ms = full_width_train(torch, ops, train_session_factory, get_config,
                                               dev)
+    lap("phase 8")
     # MoE serving: the dense model's state is gone with its phases' locals
     torch.cuda.empty_cache()
     print(f"[moe] before the MoE phases: {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB "
@@ -2835,11 +3328,14 @@ def main() -> int:
     records += moe_kernel_checks(torch, R, F, dev)
     cross_device_moe(torch, ops, get_model, smoke_config, ServeSession, dev)
     moe_totals, moe_ms = full_width_moe(torch, ops, get_model, get_config, ServeSession, dev)
+    lap("phases 9-11")
     # recurrent serving, after the MoE state is freed
     records += recurrent_kernel_checks(torch, R, F, dev)
     cross_device_recurrent(torch, ops, get_model, smoke_config, ServeSession, dev)
+    lap("phases 13-14")
     rec_totals, rec_ms = full_width_recurrent(torch, ops, get_model, get_config, ServeSession,
                                               dev)
+    lap("phases 15-16")
     # recurrent training
     records += recurrent_train_kernel_checks(torch, ops, R, F, dev)
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):
@@ -2850,32 +3346,41 @@ def main() -> int:
         train_ms.update(ms)
         for name, c in totals.items():
             rec_train_totals[name] += c
+    lap("phases 17-19")
     # the serve engine: paged decode kernels, smoke engines, deepseek-7b engine load
     torch.cuda.empty_cache()
     records += paged_kernel_checks(torch, R, dev)
     cross_device_engine(torch, ops, get_model, smoke_config, ServeSession, dev)
+    lap("phases 20-21")
     engine_totals = full_width_engine(torch, ops, R, get_model, get_config, ServeSession, dev)
+    lap("phase 22")
     # checkpoint / restart and elastic replanning at full width
     torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
     ckpt_root = Path(tempfile.mkdtemp(prefix="chip-smoke-ckpt-"))
     try:
         checkpoint_restart(torch, ops, train_session_factory, dev, ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
-    print(f"[ckpt] phase 23: {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
+    lap("phase 23")
     elastic_replan(torch, ops, train_session_factory, dev)
-    print(f"[elastic] phase 24: {time.perf_counter() - t_phase:.1f} s")
+    lap("phase 24")
+    # qwen1.5-4b, minitron-8b, deepseek-coder-33b, whisper-medium, qwen2-vl-7b
+    torch.cuda.empty_cache()
+    slice_records, slice_totals, slice_ms = slice_phases(
+        torch, ops, R, F, get_model, get_config, smoke_config, ServeSession, dev)
+    records += slice_records
+    lap("phases 25-27 (their kernel checks and smoke configs included)")
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)
     profile_serving(torch, get_model, get_config, dev, decode_ms)
     profile_moe_serving(torch, get_model, get_config, dev, moe_ms)
     profile_recurrent_serving(torch, get_model, get_config, dev, rec_ms)
+    profile_slice(torch, get_model, get_config, dev, slice_ms)
+    lap("phase 12")
     totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
               "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals,
-              "engine_serving": engine_totals}
+              "engine_serving": engine_totals, **slice_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

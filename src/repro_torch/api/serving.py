@@ -2,7 +2,12 @@
 decode behind one object, with the reference's family-aware control flow:
 attention archs prefill with one batched ``Model.prefill``; recurrent archs
 (rglru, rwkv6) step ``decode_step`` over the prompt from ``init_cache``, as
-the reference's ``_prefill_recurrent`` does with its compiled scan.
+the reference's ``_prefill_recurrent`` does with its compiled scan.  A VLM
+takes the reference's text-only route (its prefill puts the first
+``min(n_vision_patches, P)`` tokens on the vision position ids).  Side
+inputs pass through to ``Model.prefill``: ``frames=`` for an
+encoder-decoder model, which raises without them, and ``patch_embeds=``
+for a VLM, whose decode positions then count from the patches' end.
 
     serve = ServeSession(model=model, params=params)          # device="cuda"
     out = serve.generate(prompt_tokens, max_new_tokens=16)
@@ -83,17 +88,24 @@ class ServeSession:
         max_new_tokens: int = 16,
         cache_len: Optional[int] = None,
         sampling: SamplingParams = GREEDY,
+        **inputs,                          # frames= (encdec), patch_embeds= (vlm)
     ) -> GenerateResult:
+        if self.model.cfg.family == "encdec" and inputs.get("frames") is None:
+            raise ValueError("an encoder-decoder model needs frames: "
+                             "ServeSession.generate(prompt, frames=...)")
         prompt = torch.as_tensor(prompt).to(self.device)
+        inputs = {k: v.to(self.device) for k, v in inputs.items()}
         B, P = prompt.shape
-        cache_len = cache_len or (P + max_new_tokens + 1)
+        # a VLM's cache holds its patches' rows before the prompt's
+        n_prefix = P + (inputs["patch_embeds"].shape[1] if "patch_embeds" in inputs else 0)
+        cache_len = cache_len or (n_prefix + max_new_tokens + 1)
 
         self._sync()
         t0 = time.perf_counter()
         if self.recurrent:
             logits, cache = self._prefill_recurrent(prompt, cache_len)
         else:
-            logits, cache = self.model.prefill(self.params, prompt, cache_len)
+            logits, cache = self.model.prefill(self.params, prompt, cache_len, **inputs)
             logits = logits[:, -1]
 
         greedy = sampling.temperature <= 0.0
@@ -110,7 +122,7 @@ class ServeSession:
 
         out = [tok]
         for t in range(max_new_tokens):
-            pos = torch.full((B,), P + t, dtype=torch.int32, device=self.device)
+            pos = torch.full((B,), n_prefix + t, dtype=torch.int32, device=self.device)
             if greedy:
                 tok, _, cache = self._serve(self.params, tok, cache, pos)
             else:
@@ -154,3 +166,4 @@ class ServeSession:
         return eng.generate_batch(
             prompts, max_new_tokens=max_new_tokens, sampling=sampling
         )
+

@@ -829,6 +829,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const float* ks, const void
   switch (D) {
     case 16: return launch<QT, KT, 16, INT8>(q, k, ks, v, vs, valid, o, part, counter, B, rows, page_size, H, Hkv, chunk, window, s);
     case 32: return launch<QT, KT, 32, INT8>(q, k, ks, v, vs, valid, o, part, counter, B, rows, page_size, H, Hkv, chunk, window, s);
+    case 64: return launch<QT, KT, 64, INT8>(q, k, ks, v, vs, valid, o, part, counter, B, rows, page_size, H, Hkv, chunk, window, s);
     case 128: return launch<QT, KT, 128, INT8>(q, k, ks, v, vs, valid, o, part, counter, B, rows, page_size, H, Hkv, chunk, window, s);
     case 256: return launch<QT, KT, 256, INT8>(q, k, ks, v, vs, valid, o, part, counter, B, rows, page_size, H, Hkv, chunk, window, s);
     default: return cudaErrorInvalidValue;

@@ -43,8 +43,8 @@
 // and would break them.  That is a choice of dtype, not a fallback.  It
 // stages 32-row K/V tiles as f32 in shared memory.
 //
-// Head dims 16, 32, 128 and 256 (the smoke configs, deepseek-7b and qwen3,
-// recurrentgemma-2b), in every kernel.
+// Head dims 16, 32, 64, 128 and 256 (the smoke configs, whisper-medium,
+// the dense and MoE configs, recurrentgemma-2b), in every kernel.
 //
 // Layouts follow the JAX package: q/o (B, Sq, H, D), k/v (B, Skv, Hkv, D),
 // contiguous; the kv head of query head h is h / (H / Hkv), any group size
@@ -809,6 +809,9 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
     case 32:
       return TC ? launch_tc<32>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream)
                 : launch<float, 32>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
+    case 64:
+      return TC ? launch_tc<64>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch<float, 64>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
     case 128:
       return TC ? launch_tc<128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream)
                 : launch<float, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, stream);
@@ -867,6 +870,10 @@ cudaError_t dispatch_d_int8(const void* q, const void* k, const void* ks, const 
     case 32:
       return TC ? launch_tc_int8<32>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream)
                 : launch_int8<float, 32>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
+                                         stream);
+    case 64:
+      return TC ? launch_tc_int8<64>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window, stream)
+                : launch_int8<float, 64>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,
                                          stream);
     case 128:
       return TC ? launch_tc_int8<128>(q, k, ks, v, vs, o, B, Sq, Skv, H, Hkv, causal, window,

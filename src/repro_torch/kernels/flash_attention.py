@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 128, 256)   # the smoke configs, deepseek-7b and qwen3, recurrentgemma-2b
+# the smoke configs, whisper-medium, the dense/MoE/VL configs, recurrentgemma-2b
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def check_attention_inputs(q: torch.Tensor, tensors, what: str) -> None:

@@ -12,15 +12,18 @@ generation, on the card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full-config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mode engine --requests 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mode loadgen --requests 64 \
       --shared-prefix 16 --device cpu
 
-``--arch`` takes any arch of ``repro_torch.configs.ARCHS`` (deepseek-7b,
-qwen3-moe-30b-a3b, dbrx-132b, rwkv6-7b, recurrentgemma-2b); ``--full-config``
+``--arch`` takes any arch of ``repro_torch.configs.ARCHS``; ``--full-config``
 runs its published dims (random weights from ``--seed``), without it its
 smoke config runs.
 dbrx-132b's full dims (264 GB of bf16 weights) do not fit one card.
+whisper-medium (encoder-decoder) needs frames: ``oneshot`` passes
+``generate`` seeded stub frames.  qwen2-vl-7b's ``oneshot`` is
+``generate``'s text-only route.
 ``--device`` defaults to ``cuda`` and the driver raises when no card is
 found.  The engine modes take the attention (dense, moe) and recurrent
 (rwkv6, rglru) families.
@@ -64,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full_config else smoke_config(args.arch)
     model = get_model(cfg)
@@ -77,7 +81,11 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
-        out = serve.generate(prompt, max_new_tokens=args.tokens, sampling=sampling)
+        side = {}
+        if cfg.family == "encdec":
+            side["frames"] = torch.randn(B, cfg.n_frames, cfg.d_model, generator=gen,
+                                         device=device).to(cfg.dtype)
+        out = serve.generate(prompt, max_new_tokens=args.tokens, sampling=sampling, **side)
         print(f"arch={cfg.name} device={device} batch={B} prompt={P} decoded={args.tokens}")
         print(f"prefill: {out.prefill_time * 1e3:.1f} ms; decode throughput: "
               f"{out.decode_tok_s:.1f} tok/s ({out.ms_per_step:.1f} ms/step)")

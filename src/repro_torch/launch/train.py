@@ -18,8 +18,10 @@ devices.
 ``--checkpoint-dir`` saves every ``SessionConfig.checkpoint_every`` (50)
 steps and resumes from the newest valid checkpoint there.  ``--device``
 defaults to ``cuda``, and the run fails when no card is found.  Not
-ported yet, each refused with its ROADMAP item: ``--cluster-processes > 1``
-and ``--measured-tune``.
+ported yet, each refused with its ROADMAP item: ``--cluster-processes > 1``,
+``--measured-tune`` and training the encoder-decoder and vision-language
+archs (whisper-medium, qwen2-vl-7b), whose loss needs frames or patch
+embeddings the batches do not carry.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ from repro_torch.optim import adamw, sgd_momentum
 from repro_torch.storage import DataConfig
 
 ROADMAP_MEASURED_TUNE = "ROADMAP item 14 'Drivers and benches'"
+# the loss passes no frames or patch embeddings (reference train/steps.py:52-73)
+ROADMAP_SIDE_INPUTS = "ROADMAP item 12, encoder-decoder and vision-language training"
 PRECISIONS = ("f32", "bf16", "int8-fused")
 
 
@@ -109,6 +113,8 @@ def main(argv=None) -> int:
         ap.error(f"--cluster-processes > 1 is not ported to repro_torch yet ({ROADMAP_CLUSTER})")
     if args.measured_tune:
         ap.error(f"--measured-tune is not ported to repro_torch yet ({ROADMAP_MEASURED_TUNE})")
+    if get_config(args.arch).family in ("encdec", "vlm"):
+        ap.error(f"training {args.arch} is not ported to repro_torch yet ({ROADMAP_SIDE_INPUTS})")
 
     session = train_session_factory(
         arch=args.arch, steps=args.steps, seq=args.seq, csds=args.csds,

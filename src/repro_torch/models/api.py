@@ -1,9 +1,11 @@
-"""Model registry (port of :mod:`repro.models.api`): the dense, MoE and
-recurrent (rwkv6, rglru) families.
+"""Model registry (port of :mod:`repro.models.api`): every family of the
+reference (dense, MoE, rwkv6, rglru, encoder-decoder, vision-language).
 
 ``get_model(cfg)`` returns a :class:`Model` whose methods dispatch to the
-family module.  Families the port does not run yet, and the MoE training
-forward, raise ``NotImplementedError`` naming their ROADMAP item.
+family module.  ``forward`` and ``prefill`` pass side inputs through
+(``frames=`` for encdec, ``patch_embeds=`` for vlm), as the reference's
+``api.py:49-61`` does.  The MoE training forward raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -13,18 +15,15 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models import dense, moe, rglru, rwkv6
+from repro_torch.models import dense, encdec, moe, rglru, rwkv6, vlm
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES = {"dense": dense, "moe": moe, "rglru": rglru, "rwkv6": rwkv6}
+_FAMILIES = {"dense": dense, "moe": moe, "rglru": rglru, "rwkv6": rwkv6,
+             "encdec": encdec, "vlm": vlm}
 # families whose training forward is not ported yet, and the ROADMAP item
 _NO_FORWARD = {
     # the router's load-balance loss must reach the training loss
     "moe": "ROADMAP item 10, MoE training",
-}
-_NOT_YET = {
-    "encdec": "ROADMAP 'Encoder-decoder and vision-language'",
-    "vlm": "ROADMAP 'Encoder-decoder and vision-language'",
 }
 
 
@@ -38,18 +37,18 @@ class Model:
         return self.mod.init_params(self.cfg, seed=seed, abstract=abstract,
                                     dtype=dtype, device=device)
 
-    def forward(self, params, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params, tokens, **inputs) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward -> (logits, aux loss); aux is 0 for every family
         that trains here (the router's aux loss is MoE's)."""
         if self.cfg.family in _NO_FORWARD:
             raise NotImplementedError(
                 f"the {self.cfg.family} training forward is not ported yet "
                 f"({_NO_FORWARD[self.cfg.family]})")
-        logits = self.mod.forward(params, self.cfg, tokens)
+        logits = self.mod.forward(params, self.cfg, tokens, **inputs)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
-    def prefill(self, params, tokens, cache_len: int):
-        return self.mod.prefill(params, self.cfg, tokens, cache_len)
+    def prefill(self, params, tokens, cache_len: int, **inputs):
+        return self.mod.prefill(params, self.cfg, tokens, cache_len, **inputs)
 
     def decode_step(self, params, token, cache, pos):
         return self.mod.decode_step(params, self.cfg, token, cache, pos)
@@ -65,7 +64,5 @@ class Model:
 
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
-        item = _NOT_YET.get(cfg.family, "ROADMAP 'Modules to port'")
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet ({item})")
+        raise KeyError(f"unknown family {cfg.family!r}; known: {sorted(_FAMILIES)}")
     return Model(cfg=cfg, mod=_FAMILIES[cfg.family])

@@ -1,7 +1,11 @@
 """Model configuration dataclass (port of :mod:`repro.models.config`).
 
-It holds the fields the ported families read; fields of families not yet
-ported arrive with them.
+It holds the fields the ported families read.  The reference's
+``modality`` and ``norm`` are labels its models never read (each family
+builds its own norm: LayerNorm in encdec and rwkv6, RMSNorm elsewhere), so
+the port carries neither.  The reference's sharding
+switches (``scan_layers``, ``fsdp``) have no counterpart: the port runs its
+layers in a Python loop on one device.
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ class ModelConfig:
     d_ff: int = 1024
     vocab: int = 1024
     head_dim: Optional[int] = None   # default: d_model // n_heads
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
-    mlp: str = "swiglu"              # swiglu | geglu
+    mlp: str = "swiglu"              # swiglu | gelu | geglu | relu2
     tie_embeddings: bool = False
 
     # MoE
@@ -47,6 +52,15 @@ class ModelConfig:
     # rwkv
     rwkv_head_dim: int = 64
     decay_lora: int = 64
+
+    # enc-dec (Whisper)
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    n_frames: int = 1500              # encoder positions (stubbed conv frontend)
+
+    # vlm (Qwen2-VL)
+    mrope_sections: Tuple[int, ...] = ()
+    n_vision_patches: int = 0         # stubbed patch-embedding prefix length
 
     # numerics
     dtype: torch.dtype = torch.float32
@@ -70,8 +84,9 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the ported families (as the
-        reference's ``param_count`` counts it: norms are not counted)."""
+        """Analytic parameter count (as the reference's ``param_count``
+        counts it: norms, biases and whisper's position table are not
+        counted)."""
         d, ff, V = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim()
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
@@ -87,10 +102,14 @@ class ModelConfig:
             heads = d // self.rwkv_head_dim
             tm = 6 * d * d + 2 * self.decay_lora * d + heads * self.rwkv_head_dim
             n = self.n_layers * (tm + 2 * d * ff)
-        else:
+        elif self.family == "encdec":
+            enc = self.n_enc_layers * (attn + 2 * d * ff)
+            dec = self.n_dec_layers * (2 * attn + 2 * d * ff)
+            n = enc + dec
+        else:  # dense / vlm
             mlp_p = 3 * d * ff if self.mlp in ("swiglu", "geglu") else 2 * d * ff
             n = self.n_layers * (attn + mlp_p)
         n += V * d
-        if not self.tie_embeddings:
+        if not self.tie_embeddings and self.family != "encdec":
             n += V * d
         return int(n)

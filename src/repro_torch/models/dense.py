@@ -1,6 +1,11 @@
 """Dense llama-style decoder LM (GQA + RoPE + SwiGLU), port of
 :mod:`repro.models.dense`.
 
+Covers deepseek-7b, qwen1.5-4b (QKV bias), minitron-8b (squared-ReLU MLP)
+and deepseek-coder-33b, and is the backbone of qwen2-vl
+(:mod:`repro_torch.models.vlm`: ``inputs_embeds``, ``mrope_positions``,
+``rope_offset``).
+
 Entry points:
   * ``init_params(cfg, seed=..., device=...)``        -> (params, logical_axes)
   * ``forward(params, cfg, tokens)``                   -> logits (train)
@@ -26,7 +31,8 @@ PyTree = Any
 def _init_block(s, cfg: ModelConfig):
     hd = cfg.resolved_head_dim()
     L.init_rmsnorm(s, "ln1", cfg.d_model)
-    L.init_attention(s, "attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd)
+    L.init_attention(s, "attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd,
+                     qkv_bias=cfg.qkv_bias)
     L.init_rmsnorm(s, "ln2", cfg.d_model)
     L.init_mlp(s, "mlp", cfg.mlp, cfg.d_model, cfg.d_ff)
 
@@ -68,12 +74,13 @@ def _final(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y
 
 
-def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                 mrope_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = L.rms_norm(lp["ln1"], x)
     h = L.attention_train(
         lp["attn"], h, positions=positions, causal=True, window=cfg.window,
-        rope_theta=cfg.rope_theta, precision=cfg.train_precision,
+        rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections or None,
+        mrope_positions=mrope_positions, precision=cfg.train_precision,
     )
     x = x + h
     h = L.rms_norm(lp["ln2"], x)
@@ -94,17 +101,30 @@ def _scan_blocks(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
 def _run_layer(cfg: ModelConfig, body: Callable[[PyTree, torch.Tensor], torch.Tensor],
                lp: PyTree, x: torch.Tensor) -> torch.Tensor:
     """One layer of a training forward: under ``cfg.remat`` only its input is
-    kept and its forward recomputed in the backward (``jax.checkpoint``)."""
-    if cfg.remat:
+    kept and its forward recomputed in the backward (``jax.checkpoint``);
+    without autograd (the encoder of a serving prefill) it just runs."""
+    if cfg.remat and torch.is_grad_enabled():
         return checkpoint(body, lp, x, use_reentrant=False)
     return body(lp, x)
 
 
-def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Training forward. tokens: (B, S) int -> logits (B, S, V)."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
+def _inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            inputs_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    if inputs_embeds is not None:
+        return inputs_embeds.to(cfg.dtype)
+    return L.embed(params["embedding"], tokens, cfg.dtype)
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            mrope_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training forward. tokens: (B, S) int -> logits (B, S, V);
+    ``inputs_embeds`` (B, S, d) replaces the token embedding (the VLM's
+    [patches | text] sequence)."""
+    x = _inputs(params, cfg, tokens, inputs_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _scan_blocks(params, x, cfg, lambda lp, h: _block_train(lp, h, cfg, positions))
+    x = _scan_blocks(params, x, cfg,
+                     lambda lp, h: _block_train(lp, h, cfg, positions, mrope_positions))
     return _final(params, x, cfg)
 
 
@@ -136,10 +156,13 @@ FFN = Callable[[Dict, torch.Tensor, ModelConfig], torch.Tensor]
 
 @torch.no_grad()
 def prefill_with(ffn: FFN, params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-                 cache_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 cache_len: int, *, inputs_embeds: Optional[torch.Tensor] = None,
+                 mrope_positions: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill of the attention skeleton with ``ffn`` as each block's MLP."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    x = _inputs(params, cfg, tokens, inputs_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
+    sections = (cfg.mrope_sections or None) if mrope_positions is not None else None
     kvs = []
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
@@ -147,6 +170,7 @@ def prefill_with(ffn: FFN, params: PyTree, cfg: ModelConfig, tokens: torch.Tenso
         attn_out, kv = L.attention_prefill(
             lp["attn"], hn, positions=positions, cache_len=cache_len,
             causal=True, window=cfg.window, rope_theta=cfg.rope_theta,
+            mrope_sections=sections, mrope_positions=mrope_positions,
             kv_cache_dtype=cfg.kv_cache_dtype,
         )
         x = x + attn_out
@@ -158,16 +182,20 @@ def prefill_with(ffn: FFN, params: PyTree, cfg: ModelConfig, tokens: torch.Tenso
 
 @torch.no_grad()
 def decode_step_with(ffn: FFN, params: PyTree, cfg: ModelConfig, token: torch.Tensor,
-                     cache: Dict[str, torch.Tensor], pos: torch.Tensor
+                     cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                     rope_offset: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step of the attention skeleton with ``ffn`` as each block's
-    MLP; ``cache`` is updated in place and returned."""
+    MLP; ``cache`` is updated in place and returned.  RoPE rotates at ``pos
+    + rope_offset`` (the VLM's M-RoPE text position), the K/V row is written
+    at ``pos``."""
     x = L.embed(params["embedding"], token, cfg.dtype)
+    rope_pos = pos if rope_offset is None else pos + rope_offset
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
         hn = L.rms_norm(lp["ln1"], x)
         attn_out, _ = L.attention_decode(
-            lp["attn"], hn, _layer(cache, i), pos=pos, window=cfg.window,
+            lp["attn"], hn, _layer(cache, i), pos=rope_pos, window=cfg.window,
             rope_theta=cfg.rope_theta, slot=pos,
         )
         x = x + attn_out
@@ -175,18 +203,22 @@ def decode_step_with(ffn: FFN, params: PyTree, cfg: ModelConfig, token: torch.Te
     return _final(params, x, cfg), cache
 
 
-def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int, *,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            mrope_positions: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt; return last-position logits (B, 1, V) + KV cache."""
-    return prefill_with(_mlp, params, cfg, tokens, cache_len)
+    return prefill_with(_mlp, params, cfg, tokens, cache_len, inputs_embeds=inputs_embeds,
+                        mrope_positions=mrope_positions)
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
-                cache: Dict[str, torch.Tensor], pos: torch.Tensor
+                cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                rope_offset: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """token (B, 1), pos (B,) -> logits (B, 1, V).  ``cache`` is updated in
     place (the JAX package donates it) and returned."""
-    return decode_step_with(_mlp, params, cfg, token, cache, pos)
+    return decode_step_with(_mlp, params, cfg, token, cache, pos, rope_offset)
 
 
 def decode_writes(cfg: ModelConfig, cache: Dict[str, torch.Tensor], pos: Sequence[int],

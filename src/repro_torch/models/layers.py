@@ -1,7 +1,9 @@
-"""Transformer layers (port of a subset of :mod:`repro.models.layers`):
-RMSNorm, LayerNorm, RoPE, GQA attention for training, prefill (with the
-rotating window of the local-attention archs) and KV-cache decode (native
-and int8 cache), SwiGLU, GeGLU, linear, embedding and logits.
+"""Transformer layers (port of :mod:`repro.models.layers`): RMSNorm,
+LayerNorm, RoPE and Qwen2-VL's M-RoPE, GQA attention (optional QKV bias) for
+training, prefill (with the rotating window of the local-attention archs)
+and KV-cache decode (native and int8 cache), encoder-decoder
+cross-attention, the SwiGLU, GeGLU, GELU and squared-ReLU MLPs, linear,
+embedding and logits.
 
 Plain functions on tensors over the nested-dict parameter tree of
 :mod:`repro_torch.models.param`, in the JAX layouts.  The JAX package's
@@ -74,13 +76,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: Tuple[int, ...],
+                theta: float = 1000000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE (``layers.py:103-135``).
+
+    x: (B, S, H, D); positions: (3, B, S), the (temporal, height, width)
+    position ids.  ``sections`` counts the frequency pairs of each stream
+    (sum == D/2): pair i rotates by the position of the stream its section
+    belongs to."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to head_dim/2 = {d // 2}")
+    freqs = rope_freqs(d, theta, device=x.device)                # (D/2,)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))                 # (D/2,)
+    pos = positions.movedim(0, -1).float()                      # (B, S, 3)
+    angles = pos[..., sec_ids][..., None, :] * freqs            # (B, S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rotate(q: torch.Tensor, k: torch.Tensor, positions, rope_theta: float, use_rope: bool,
+            mrope_sections, mrope_positions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k with M-RoPE (when ``mrope_sections`` is given), RoPE (when
+    ``use_rope``), or as they are (whisper)."""
+    if mrope_sections is not None:
+        return (apply_mrope(q, mrope_positions, mrope_sections, rope_theta),
+                apply_mrope(k, mrope_positions, mrope_sections, rope_theta))
+    if use_rope:
+        return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta)
+    return q, k
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA)
 # ---------------------------------------------------------------------------
 
 
 def init_attention(b: ParamBuilder, name: str, d_model: int, n_heads: int,
-                   n_kv_heads: int, head_dim: int):
+                   n_kv_heads: int, head_dim: int, qkv_bias: bool = False):
     s = b.scope(name)
     s.param("wq", (d_model, n_heads, head_dim), ("embed", "heads", "head_dim"),
             init=scaled_init(0))
@@ -90,13 +127,20 @@ def init_attention(b: ParamBuilder, name: str, d_model: int, n_heads: int,
             init=scaled_init(0))
     s.param("wo", (n_heads, head_dim, d_model), ("heads", "head_dim", "embed"),
             init=scaled_init(0))
+    if qkv_bias:
+        s.param("bq", (n_heads, head_dim), ("heads", "head_dim"), init=zeros_init())
+        s.param("bk", (n_kv_heads, head_dim), ("kv_heads", "head_dim"), init=zeros_init())
+        s.param("bv", (n_kv_heads, head_dim), ("kv_heads", "head_dim"), init=zeros_init())
+
+
+def q_project(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    return q + p["bq"].to(x.dtype) if "bq" in p else q
 
 
 def qkv_project(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
-    return q, k, v
+    k, v = cross_kv(p, x)
+    return q_project(p, x), k, v
 
 
 def out_project(p: Dict, o: torch.Tensor) -> torch.Tensor:
@@ -111,17 +155,21 @@ def attention_train(
     causal: bool = True,
     window: Optional[int] = None,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,
     precision: str = "f32",
 ) -> torch.Tensor:
     """Full-sequence attention of training (``layers.py:365-411``).
 
     ``precision`` is ``ModelConfig.train_precision``: ``"bf16"`` casts the
     attention operands before the kernel; ``"int8-fused"`` routes to the
-    int8-K/V op, whose backward saves int8 residuals.
+    int8-K/V op, whose backward saves int8 residuals.  Positions rotate q and
+    k by M-RoPE when ``mrope_sections`` is given, else by RoPE unless
+    ``use_rope`` is False (whisper's learned and sinusoidal positions).
     """
     q, k, v = qkv_project(p, x)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    q, k = _rotate(q, k, positions, rope_theta, use_rope, mrope_sections, mrope_positions)
     if precision == "bf16":
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     attend = kops.flash_attention_q8 if precision == "int8-fused" else kops.flash_attention
@@ -138,7 +186,10 @@ def attention_prefill(
     causal: bool = True,
     window: Optional[int] = None,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
     rotating: bool = False,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,
     kv_cache_dtype: str = "native",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: full attention over the prompt AND its KV cache padded to
@@ -148,10 +199,10 @@ def attention_prefill(
 
     ``rotating=True`` (the local-attention archs): the cache holds only the
     last ``min(S, cache_len)`` positions, aligned to slot 0, the layout the
-    rotating-window decode expects; keys keep their absolute RoPE phases."""
+    rotating-window decode expects; keys keep their absolute RoPE phases.
+    Positions as in :func:`attention_train`."""
     q, k, v = qkv_project(p, x)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    q, k = _rotate(q, k, positions, rope_theta, use_rope, mrope_sections, mrope_positions)
     o = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal, window=window)
     S = k.shape[1]
@@ -180,6 +231,7 @@ def attention_decode(
     pos: torch.Tensor,                       # (B,) absolute position of the new token
     window: Optional[int] = None,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
     slot: Optional[torch.Tensor] = None,     # (B,) cache row to write (default pos)
     valid_len: Optional[torch.Tensor] = None,  # (B,) live cache rows (default slot+1)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -190,11 +242,14 @@ def attention_decode(
     ``dynamic_update_slice`` into a donated buffer); the returned dict holds
     the same tensors.  Rows ``< valid_len[b]`` attend.  An int8 cache
     (``"k_scale"`` leaf) quantizes the new row before the write and attends
-    through the int8 decode op.
+    through the int8 decode op.  RoPE rotates at ``pos`` (which a VLM
+    shifts by its M-RoPE offset; the write stays at ``slot``), unless
+    ``use_rope`` is False.
     """
     q, k, v = qkv_project(p, x)                       # (B,1,H,D) / (B,1,Hkv,D)
-    q = apply_rope(q, pos[:, None], rope_theta)
-    k = apply_rope(k, pos[:, None], rope_theta)
+    if use_rope:
+        q = apply_rope(q, pos[:, None], rope_theta)
+        k = apply_rope(k, pos[:, None], rope_theta)
     idx = (pos if slot is None else slot).long()      # (B,) write row
     valid = (idx + 1 if valid_len is None else valid_len).to(torch.int32)
     rows = torch.arange(x.shape[0], device=x.device)
@@ -216,6 +271,46 @@ def attention_decode(
     cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
     o = kops.decode_attention(q, cache["k"], cache["v"], valid, window=window)
     return out_project(p, o), cache
+
+
+def cross_kv(p: Dict, ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V of ``ctx`` (B, S, d) through the layer's ``wk``/``wv`` (and biases)."""
+    k = torch.einsum("bsd,dhk->bshk", ctx, p["wk"].to(ctx.dtype))
+    v = torch.einsum("bsd,dhk->bshk", ctx, p["wv"].to(ctx.dtype))
+    if "bk" in p:
+        k = k + p["bk"].to(ctx.dtype)
+        v = v + p["bv"].to(ctx.dtype)
+    return k, v
+
+
+def cross_attention(p: Dict, x: torch.Tensor, ctx_k: torch.Tensor,
+                    ctx_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V, no RoPE, no
+    mask (``layers.py:569-585``): every query row sees every frame, through
+    the flash op with ``causal=False`` (Sq decoder rows against Skv frames)."""
+    q = q_project(p, x)
+    o = kops.flash_attention(q.contiguous(), ctx_k.contiguous(), ctx_v.contiguous(),
+                             causal=False)
+    return out_project(p, o)
+
+
+def cross_attention_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor]
+                           ) -> torch.Tensor:
+    """One decoder row (B, 1, d) against the cached cross K/V (``"xk"``,
+    ``"xv"``, and with an int8 cache ``"xk_scale"``, ``"xv_scale"``) through
+    the decode op, every frame valid: the same unmasked attention as
+    :func:`cross_attention` (reference ``encdec.py:250-262``).  The int8
+    cache is attended in place, dequantized inside the kernel (the
+    reference dequantizes first, then attends)."""
+    q = q_project(p, x).contiguous()
+    xk = cache["xk"]
+    valid = torch.full((x.shape[0],), xk.shape[1], dtype=torch.int32, device=x.device)
+    if "xk_scale" in cache:
+        o = kops.decode_attention_int8(q, xk, cache["xk_scale"], cache["xv"],
+                                       cache["xv_scale"], valid)
+    else:
+        o = kops.decode_attention(q, xk, cache["xv"], valid)
+    return out_project(p, o)
 
 
 # ---------------------------------------------------------------------------
@@ -249,16 +344,51 @@ def geglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
 
 
+def init_gelu_mlp(b: ParamBuilder, name: str, d_model: int, d_ff: int, bias: bool = True):
+    s = b.scope(name)
+    s.param("wi", (d_model, d_ff), ("embed", "mlp"), init=scaled_init(0))
+    s.param("wo", (d_ff, d_model), ("mlp", "embed"), init=scaled_init(0))
+    if bias:
+        s.param("bi", (d_ff,), ("mlp",), init=zeros_init())
+        s.param("bo", (d_model,), ("embed",), init=zeros_init())
+
+
+def _two_layer(p: Dict, x: torch.Tensor, act) -> torch.Tensor:
+    """``act(x wi + bi) wo + bo``, the biases where the tree holds them."""
+    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
+    if "bi" in p:
+        h = h + p["bi"].to(x.dtype)
+    y = torch.einsum("bsf,fd->bsd", act(h), p["wo"].to(x.dtype))
+    if "bo" in p:
+        y = y + p["bo"].to(x.dtype)
+    return y
+
+
+def gelu_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP: GELU in ``jax.nn.gelu``'s default, tanh form."""
+    return _two_layer(p, x, lambda h: F.gelu(h, approximate="tanh"))
+
+
+def relu2_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Nemotron's squared-ReLU MLP (no biases)."""
+    return _two_layer(p, x, lambda h: torch.square(F.relu(h)))
+
+
 def init_mlp(b: ParamBuilder, name: str, kind: str, d_model: int, d_ff: int):
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet (ROADMAP: model families)")
-    init_swiglu(b, name, d_model, d_ff)
+    """kind: swiglu | geglu | gelu | relu2 (``layers.py:614-620``)."""
+    if kind in ("swiglu", "geglu"):
+        init_swiglu(b, name, d_model, d_ff)
+    elif kind in ("gelu", "relu2"):
+        init_gelu_mlp(b, name, d_model, d_ff, bias=(kind == "gelu"))
+    else:
+        raise ValueError(f"unknown mlp kind {kind!r}")
+
+
+_MLPS = {"swiglu": swiglu, "geglu": geglu, "gelu": gelu_mlp, "relu2": relu2_mlp}
 
 
 def mlp_apply(p: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet (ROADMAP: model families)")
-    return swiglu(p, x)
+    return _MLPS[kind](p, x)
 
 
 def init_linear(b: ParamBuilder, name: str, d_in: int, d_out: int,

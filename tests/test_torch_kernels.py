@@ -43,6 +43,10 @@ FLASH_CASES = [
     (2, 24, 29, 4, 4, 16, False, None),     # Sq != Skv, not causal
     (1, 40, 20, 4, 2, 16, False, 8),        # rows past Skv+window: fully masked -> 0
     (1, 19, 19, 4, 4, 128, True, None),     # the full config's head dim
+    (1, 33, 33, 14, 2, 64, True, None),     # whisper's head dim 64, GQA group 7, ragged
+    (2, 20, 20, 7, 1, 64, True, 8),         # head dim 64, 7 over 1, window 8
+    (2, 11, 45, 4, 4, 64, False, None),     # cross-attention: 11 decoder rows, 45 frames
+    (1, 17, 17, 7, 1, 128, False, None),    # group 7 at head dim 128, not causal
 ]
 
 
@@ -81,6 +85,9 @@ DECODE_CASES = [
     (3, 50, 4, 2, 16, (13, 50, 7), None),        # GQA 2, ragged
     (3, 29, 4, 1, 32, (29, 5, 0), 8),            # MQA, window 8
     (2, 577, 4, 4, 128, (576, 300), None),       # the full config's head dim / cache_len
+    (3, 40, 4, 4, 64, (40, 17, 1), None),        # whisper's head dim 64, MHA
+    (3, 45, 14, 2, 64, (45, 0, 33), None),       # head dim 64, GQA group 7
+    (2, 50, 7, 1, 128, (50, 21), 8),             # group 7 at head dim 128, window 8
 ]
 
 
