@@ -216,10 +216,39 @@ before the next is built, its predicted peak printed before its weights):
  each prints prefill ms, decode ms/step, peak GiB and launch counts (every
  attention call through the kernels), and its seconds beside its budget.
 
+Training the MoE, encoder-decoder and vision-language families (after
+phase 27, before the profiles; each run's predicted peak printed before its
+weights, each freed before the next is built):
+ before 28, phase 3's kernel checks at phases 28-30's training shapes (flash
+     and int8-K/V flash at qwen3-moe's (60, 256, 32 over 4, 128), whisper's
+     encoder (16, 1500, 16, 64) and self-attention (16, 256), qwen2-vl's
+     (8, 1536, 28 over 4, 128); flash at whisper's cross-attention, 256 rows
+     against 1500 frames; the quantizer over their K rows; the expert GEMM
+     and the combine at T 15,360 / C 1,280), phase 17's gradient check for
+     ``ops.fused_moe_mlp`` at 4 rows with the aux loss in the cotangent (and
+     the aux loss's own router gradient non-zero), then the four smoke
+     configs in float32, CPU vs card, f32 and int8-fused, as phase 7: both
+     MoE configs for 6 steps through ``Session.run``, whisper and qwen2-vl
+     for 3 steps through ``make_train_step`` with frames / patch embeddings
+     (SGD, from fan-in weights: ``cross_device_family_train`` says why);
+ 28. ``moe_training``: qwen3-moe-30b-a3b at full width, depth cut 48 -> 3
+     layers, seq 256, through ``Session.run`` on the demo fleet (60 rows,
+     24 valid), as phase 8, with each step's router aux loss (non-zero);
+ 29. ``encdec_training``: whisper-medium at full depth and width through
+     ``make_train_step``, 16 rows of 256 decoder tokens over 1500 stub
+     frames from the seed, as phase 8;
+ 30. ``vlm_training``: qwen2-vl-7b at full width, depth cut 28 -> 8 layers,
+     through ``make_train_step``, 8 rows of 1024 stub patches + 512 text
+     tokens (the loss scores the text), as phase 8.
+ Phase 12 profiles one f32 step of each of phases 28-30 (the largest
+ "other" kernels named), phase 28's routing split out and the plain MoE
+ backward of one layer timed on CUDA events.
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
-``engine_serving``, ``families_serving``, ``encdec_serving`` or
-``vlm_serving``) whose shapes it was
+``engine_serving``, ``families_serving``, ``encdec_serving``,
+``vlm_serving``, ``moe_training``, ``encdec_training`` or ``vlm_training``)
+whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -657,7 +686,7 @@ def profile_decode(torch, model, params, cache, logits, pos0, steps=6, moe=False
     return device_time_by_kind(torch, prof, steps, "decode step", moe)
 
 
-def device_time_by_kind(torch, prof, steps, what, moe=False):
+def device_time_by_kind(torch, prof, steps, what, moe=False, top_other=0):
     """Print device ms per step by kind of kernel; return device-busy ms per
     step (union of device spans), or None when the profiler saw none.  A MoE
     step also splits out its routing kernels.  The profiles record device
@@ -669,7 +698,7 @@ def device_time_by_kind(torch, prof, steps, what, moe=False):
     if not spans:
         print("[profile] not measured: the profiler saw no device activity")
         return None
-    kinds = {}
+    kinds, others = {}, {}
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
         low = name.lower()
@@ -683,6 +712,8 @@ def device_time_by_kind(torch, prof, steps, what, moe=False):
                 "routing" if moe and any(w in low for w in ROUTING_KERNELS) else
                 "other")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start)
+        if kind == "other":
+            others[name] = others.get(name, 0.0) + (end - start)
         if start > cur_e:
             busy += cur_e - cur_s
             cur_s, cur_e = start, end
@@ -692,6 +723,8 @@ def device_time_by_kind(torch, prof, steps, what, moe=False):
     per_step = {k: round(v / steps / 1e3, 4) for k, v in sorted(kinds.items())}
     print(f"[profile] device ms per {what} by kind: {per_step}; "
           f"{len(spans) / steps:.0f} device activities per {what}")
+    for name, t in sorted(others.items(), key=lambda kv: -kv[1])[:top_other]:
+        print(f"[profile]   other: {t / steps / 1e3:.3f} ms {name[:150]}")
     return busy / steps / 1e3
 
 
@@ -877,21 +910,34 @@ def expected_train_launches(cfg, prec, steps):
     """Kernel launches of ``steps`` training steps of ``cfg`` under ``prec``
     with remat (each layer's forward runs twice: the forward and its
     recompute in the backward): every attention layer through the flash
-    kernel, every recurrent layer through its scan, and under int8-fused the
-    row quantizer for K and V, for r, k and v, or for the RG-LRU input."""
+    kernel, every recurrent layer through its scan, every MoE layer through
+    the expert GEMM and the combine, and under int8-fused the row quantizer
+    for K and V, for r, k and v, or for the RG-LRU input.  Whisper's
+    cross-attention runs the float flash kernel under every precision, as
+    the reference's does."""
     if cfg.family == "rglru":
         kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+    elif cfg.family == "encdec":
+        kinds = ["A"] * (cfg.n_enc_layers + cfg.n_dec_layers) + ["X"] * cfg.n_dec_layers
+    elif cfg.family == "moe":
+        kinds = ["A", "E"] * cfg.n_layers
     else:
         kinds = ["W" if cfg.family == "rwkv6" else "A"] * cfg.n_layers
     q8 = prec == "int8-fused"
-    kernel = {"A": "flash_attention", "R": "rglru_scan", "W": "rwkv6_scan"}
-    quantized_rows = {"A": 2, "R": 1, "W": 3}        # K, V; x; r, k, v
+    # kind -> (kernels, whether int8-fused takes their _q8 entry, rows quantized)
+    per_kind = {"A": (("flash_attention",), True, 2),            # K, V
+                "R": (("rglru_scan",), True, 1),                 # x
+                "W": (("rwkv6_scan",), True, 3),                 # r, k, v
+                "X": (("flash_attention",), False, 0),
+                "E": (("fused_moe_gemm", "fused_moe_combine"), False, 0)}
     out = {}
     for kind in kinds:
-        name = kernel[kind] + ("_q8" if q8 else "")
-        out[name] = out.get(name, 0) + 2 * steps
-        if q8:
-            out["quantize_int8"] = out.get("quantize_int8", 0) + 2 * steps * quantized_rows[kind]
+        names, swaps, n_rows = per_kind[kind]
+        for name in names:
+            name += "_q8" if q8 and swaps else ""
+            out[name] = out.get(name, 0) + 2 * steps
+        if q8 and n_rows:
+            out["quantize_int8"] = out.get("quantize_int8", 0) + 2 * steps * n_rows
     return out
 
 
@@ -924,12 +970,57 @@ def cross_device_train(torch, ops, train_session_factory, dev, arch="deepseek-7b
 # the full-width training cells: arch -> (layers, seq).  deepseek-7b and
 # rwkv6-7b are cut to 8 layers (the AdamW state of the full depth does not
 # fit 80 GB); recurrentgemma-2b runs all 26 at seq 128 (its 256,000-entry
-# vocabulary makes the logits the largest tensors of a step)
-TRAIN_CELLS = {"deepseek-7b": (8, 256), "rwkv6-7b": (8, 256), "recurrentgemma-2b": (26, 128)}
+# vocabulary makes the logits the largest tensors of a step); qwen3-moe-30b-a3b
+# (phase 28) keeps 3 of 48 layers: 2.49 B params, 30 GB of weights and AdamW
+# state, beside logits of 151,936 columns
+TRAIN_CELLS = {"deepseek-7b": (8, 256), "rwkv6-7b": (8, 256), "recurrentgemma-2b": (26, 128),
+               "qwen3-moe-30b-a3b": (3, 256)}
+
+
+def predicted_train_peak_gib(cfg, n_params, rows, seq_in, seq_out):
+    """A training step's predicted peak: bf16 weights and gradients and f32
+    AdamW moments (12 B a parameter), the logits over ``seq_in`` positions
+    and their gradient in bf16, the float32 copy of the ``seq_out`` scored
+    positions and its softmax gradient, and each layer's saved input (remat)."""
+    n_layers = cfg.n_enc_layers + cfg.n_dec_layers if cfg.family == "encdec" else cfg.n_layers
+    logits = rows * cfg.vocab * (seq_in * 2 * 2 + seq_out * 4 * 2)
+    saved = rows * max(seq_in, cfg.n_frames) * cfg.d_model * 2 * n_layers
+    return (n_params * 12 + logits + saved) / 2**30
+
+
+def report_train(cfg, arch, prec, hist, wall, rows, valid_rows, seq, peak, counts, steps,
+                 get_config):
+    """Phase 8's lines for one full-width training run; raises on a
+    non-finite loss or grad norm, or on a MoE step without its aux loss;
+    returns the median ms a step (steps 2-5)."""
+    ms = statistics.median(h["step_time"] for h in hist[1:]) * 1e3
+    data_ms = statistics.median(h["data_time"] for h in hist[1:]) * 1e3
+    valid_tok_s = valid_rows * seq / (ms / 1e3)
+    loop_ms = wall / steps * 1e3          # all steps, batch assembly included
+    n_layers = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers}" if cfg.family == "encdec" else
+                f"{cfg.n_layers} of {get_config(arch).n_layers}")
+    print(f"[train] {cfg.name} {prec}: {n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B params ({str(cfg.dtype)}), rows {rows} "
+          f"({valid_rows} valid) x seq {seq}")
+    print(f"[train] {cfg.name} {prec}: {ms:.3f} ms/step (median of steps 2-{steps}), "
+          f"{valid_tok_s:.1f} valid tok/s, first step {hist[0]['step_time'] * 1e3:.1f} ms, "
+          f"peak memory {peak / 2**30:.3f} GiB, launches {counts}")
+    print(f"[train] {cfg.name} {prec}: whole loop {wall * 1e3:.1f} ms for "
+          f"{steps} steps ({loop_ms:.3f} ms/step, "
+          f"{valid_rows * seq / (loop_ms / 1e3):.1f} valid tok/s), of which batch "
+          f"assembly {data_ms:.3f} ms/step (median of steps 2-{steps})")
+    print(f"[train] {cfg.name} {prec}: losses {[round(h['loss'], 4) for h in hist]} "
+          f"grad_norm {[round(h['grad_norm'], 3) for h in hist]} "
+          f"aux {[round(h['aux'], 4) for h in hist]}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError(f"{cfg.name} {prec}: non-finite loss or grad norm")
+    if cfg.family == "moe" and not all(h["aux"] > 0 for h in hist):
+        raise AssertionError(f"{cfg.name} {prec}: the router's aux loss is missing")
+    return ms
 
 
 def full_width_train(torch, ops, train_session_factory, get_config, dev, arch="deepseek-7b"):
-    """Phases 8 and 19: ``arch`` at full width, depth and seq from
+    """Phases 8, 19 and 28: ``arch`` at full width, depth and seq from
     TRAIN_CELLS, through Session.run for 5 steps in f32 and int8-fused."""
     steps = 5
     layers, seq = TRAIN_CELLS[arch]
@@ -940,87 +1031,132 @@ def full_width_train(torch, ops, train_session_factory, get_config, dev, arch="d
                                         n_layers=layers, seq=seq, steps=steps, precision=prec)
         cfg = session.model.cfg
         sched = session.tune().schedule
+        torch.cuda.empty_cache()
+        print(f"[train] {cfg.name} {prec}: predicted peak "
+              f"{predicted_train_peak_gib(cfg, cfg.param_count(), sched.global_rows, seq, seq):.2f}"
+              f" GiB; allocated before {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
         report = session.run()
         counts = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
-        hist = report.history
-        ms = statistics.median(h["step_time"] for h in hist[1:]) * 1e3    # steps 2-5
-        data_ms = statistics.median(h["data_time"] for h in hist[1:]) * 1e3
-        valid_tok_s = sched.valid_rows * seq / (ms / 1e3)
-        loop_ms = report.wall_time / steps * 1e3          # all steps, data plane included
-        print(f"[train] {cfg.name} {prec}: {cfg.n_layers} of {get_config(arch).n_layers} "
-              f"layers, d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params "
-              f"({str(cfg.dtype)}), rows {sched.global_rows} ({sched.valid_rows} valid) x seq "
-              f"{seq}")
-        print(f"[train] {cfg.name} {prec}: {ms:.3f} ms/step (median of steps 2-{steps}), "
-              f"{valid_tok_s:.1f} valid tok/s, first step {hist[0]['step_time'] * 1e3:.1f} ms, "
-              f"peak memory {peak / 2**30:.3f} GiB, launches {counts}")
-        print(f"[train] {cfg.name} {prec}: whole loop {report.wall_time * 1e3:.1f} ms for "
-              f"{steps} steps ({loop_ms:.3f} ms/step, "
-              f"{sched.valid_rows * seq / (loop_ms / 1e3):.1f} valid tok/s), of which batch "
-              f"assembly {data_ms:.3f} ms/step (median of steps 2-{steps})")
-        print(f"[train] {cfg.name} {prec}: losses {[round(h['loss'], 4) for h in hist]} "
-              f"grad_norm {[round(h['grad_norm'], 3) for h in hist]}")
-        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
-            raise AssertionError(f"{cfg.name} {prec}: non-finite loss or grad norm")
+        ms = report_train(cfg, arch, prec, report.history, report.wall_time, sched.global_rows,
+                          sched.valid_rows, seq, peak, counts, steps, get_config)
         _check_launches(counts, expected_train_launches(cfg, prec, steps),
                         f"{cfg.name} {prec} training")
         for name, c in counts.items():
             totals[name] += c
         step_ms[(arch, prec)] = ms
-        del session, report, hist
+        del session, report
         torch.cuda.empty_cache()
     return totals, step_ms
 
 
 def profile_train(torch, train_session_factory, dev, step_ms):
     """Phase 12, training: one profiled step per (arch, precision) at the
-    shapes of phases 8 and 19, after a warm step, on fresh weights; then one
-    more step split into its parts."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.optim.optimizers import tree_leaves
-    from repro_torch.train.steps import loss_fn, value_and_grad
-
+    shapes of phases 8, 19 and 28, after a warm step, on fresh weights;
+    then one more step split into its parts (``profile_step``)."""
     for (arch, prec), ms in step_ms.items():
         layers, seq = TRAIN_CELLS[arch]
         session = train_session_factory(arch=arch, device=dev, full_config=True,
                                         n_layers=layers, seq=seq, steps=2, precision=prec)
-        step = session.compile().step_fn
         params, opt_state = session.init_state()
-        batch = session.dataset.next_device_batch(dev)
-        params, opt_state, _ = step(params, opt_state, batch)        # warm
-        torch.cuda.synchronize()
-        batch = session.dataset.next_device_batch(dev)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            params, opt_state, metrics = step(params, opt_state, batch)
-            torch.cuda.synchronize()
-        busy = device_time_by_kind(torch, prof, 1, f"{arch} {prec} train step")
-        if busy is not None:
-            print(f"[profile] {arch} {prec}: device busy {busy:.3f} ms of {ms:.3f} ms per "
-                  f"train step: idle share {1 - busy / ms:.3f}")
-        # the parts of make_train_step's step, one after another, on CUDA events
-        batch = session.dataset.next_device_batch(dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        with torch.no_grad():
-            loss_fn(session.model, params, batch)
-        ev[1].record()
-        _, grads = value_and_grad(session.model, params, batch)
-        ev[2].record()
-        opt_state, params = session.optimizer.update(grads, opt_state, params, metrics["lr"])
-        ev[3].record()
-        torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
-        ev[4].record()
-        torch.cuda.synchronize()
-        part = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
-        print(f"[profile] {arch} {prec}: one step in parts (CUDA events): forward+backward "
-              f"{part[1]:.3f} ms (a forward alone {part[0]:.3f} ms), AdamW update "
-              f"{part[2]:.3f} ms, grad norm {part[3]:.3f} ms")
-        del session, step, params, opt_state, batch, prof, grads
+        profile_step(torch, dev, f"{arch} {prec}", session.model, session.optimizer,
+                     session.compile().step_fn, params, opt_state,
+                     lambda: session.dataset.next_device_batch(dev), ms)
+        del session, params, opt_state
         torch.cuda.empty_cache()
+
+
+def profile_side_train(torch, get_model, get_config, dev, step_ms):
+    """Phase 12, phases 29-30: one profiled f32 step of each, as
+    ``profile_train``, on fresh weights and batches drawn from the seed."""
+    from repro_torch.optim import adamw
+
+    for arch, ms in step_ms.items():
+        layers, rows, seq, n_patches = SIDE_TRAIN[arch]
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.with_(n_layers=layers)
+        model, opt = get_model(cfg), adamw()
+        params, _ = model.init_params(seed=0, device=dev)
+        step, opt_state = _side_step(get_model, cfg, params, rows, 2, opt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        profile_step(torch, dev, f"{arch} f32", model, opt, step, params, opt_state,
+                     lambda: _side_batch(torch, cfg, rows, seq, n_patches, gen, dev), ms)
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+
+
+def profile_step(torch, dev, label, model, optimizer, step, params, opt_state, next_batch, ms):
+    """One warm step, one profiled step (device ms by kind, the largest
+    "other" kernels, busy ms and the idle share of ``ms``), then one step in
+    its parts on CUDA events; for a MoE model also one layer's plain MoE
+    backward at the step's T tokens on CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.dense import _layer
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train.steps import loss_fn, value_and_grad
+
+    cfg = model.cfg
+    params, opt_state, _ = step(params, opt_state, next_batch())        # warm
+    torch.cuda.synchronize()
+    batch = next_batch()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    busy = device_time_by_kind(torch, prof, 1, f"{label} train step", moe=cfg.family == "moe",
+                               top_other=6)
+    if busy is not None:
+        print(f"[profile] {label}: device busy {busy:.3f} ms of {ms:.3f} ms per "
+              f"train step: idle share {1 - busy / ms:.3f}")
+    del prof
+    # the parts of make_train_step's step, one after another, on CUDA events
+    batch = next_batch()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    with torch.no_grad():
+        loss_fn(model, params, batch)
+    ev[1].record()
+    _, grads = value_and_grad(model, params, batch)
+    ev[2].record()
+    opt_state, params = optimizer.update(grads, opt_state, params, metrics["lr"])
+    ev[3].record()
+    torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    ev[4].record()
+    torch.cuda.synchronize()
+    part = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    print(f"[profile] {label}: one step in parts (CUDA events): forward+backward "
+          f"{part[1]:.3f} ms (a forward alone {part[0]:.3f} ms), AdamW update "
+          f"{part[2]:.3f} ms, grad norm {part[3]:.3f} ms")
+    del grads
+    if cfg.family == "moe":
+        # one layer's MoE backward (the plain recompute through
+        # fused_moe_mlp_ref) at the step's T tokens, its input drawn at
+        # unit scale (as the RMS-normed activations), on CUDA events
+        lp = _layer(params["blocks"], 0)["moe"]
+        T = batch["tokens"].numel()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(28)
+        x = torch.randn(T, cfg.d_model, generator=gen, device=dev).to(cfg.dtype)
+        args = [t.detach().requires_grad_() for t in
+                (x, lp["router"], lp["wi_gate"], lp["wi_up"], lp["wo"])]
+        C = expert_capacity(T, cfg.n_experts, cfg.experts_per_token, cfg.capacity_factor)
+        out, aux = ops.fused_moe_mlp(*args, k=cfg.experts_per_token, capacity=C)
+        g_out = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        torch.autograd.grad((out, aux), args, (g_out, torch.ones_like(aux)))
+        ev[1].record()
+        torch.cuda.synchronize()
+        bwd = ev[0].elapsed_time(ev[1])
+        print(f"[profile] {label}: the plain MoE backward {bwd:.3f} ms a layer at T {T} "
+              f"(CUDA events; aux {float(aux):.3f}), x {cfg.n_layers} layers = "
+              f"{bwd * cfg.n_layers:.3f} ms, {bwd * cfg.n_layers / ms:.3f} of the {ms:.3f} ms step")
 
 
 # ---------------------------------------------------------------------------
@@ -1028,11 +1164,97 @@ def profile_train(torch, train_session_factory, dev, step_ms):
 # ---------------------------------------------------------------------------
 
 
+def moe_gemm_combine_records(torch, R, F, x, router, wg, wu, wo, k, C, label, path, flush,
+                             timed=True):
+    """The expert GEMM (to one bf16 ulp of its largest output) and the
+    combine (bit for bit) on slot tables from ``moe_routing`` of ``x``
+    through ``router``, against their plain versions; when ``timed``, the
+    GEMM's gate/up and down kernels apart (``torch.profiler``), the three
+    products as ``torch.bmm`` on gathered rows as a note, and both
+    kernels' kernels-line records for ``path``."""
+    from repro_torch.kernels import fused_moe as FM
+
+    T, d = x.shape
+    E, _, f = wg.shape
+    bf16 = torch.bfloat16
+    slot_tok, slot_gate, _, _, keep, _ = FM.moe_routing(x, router, k, C)
+    live = slot_tok[:, 0] < T
+    n_live = int(live.sum())
+    n_exp = int(live.view(E, C).any(dim=1).sum())     # experts holding a token
+    route, croute = FM.gemm_route(T, d, f, E, C, x.dtype), FM.combine_route(E * C, T, d)
+    y = FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
+    want = R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate)
+    torch.cuda.synchronize()
+    err = (y.float() - want.float()).abs().max().item()
+    # one bf16 ulp of the largest output: both compute the same f32 value
+    # up to summation order, then round once to bf16
+    tol = want.float().abs().max().item() * 2.0 ** -7
+    ok = math.isfinite(err) and err <= tol
+    print(f"[check] fused_moe_gemm {label} T={T} C={C} (route {route}): {n_live} of "
+          f"{E * C} slots live ({n_exp} experts), {int((~keep).sum())} copies dropped; "
+          f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused_moe_gemm ({label}) disagrees with its plain version")
+    del want
+    out = FM.fused_moe_combine(y, slot_tok, T)
+    same = torch.equal(out, R.fused_moe_combine_ref(y, slot_tok, T))
+    print(f"[check] fused_moe_combine {label} (route {croute}): "
+          f"{'bit-equal' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError(f"fused_moe_combine ({label}) differs from its plain version")
+    if not timed:
+        return []
+    gemm = lambda: FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)  # noqa: E731
+    split = kernel_ms(torch, gemm, flush, {"gate/up": ("moe_gate_up",),
+                                           "down": ("moe_down",)})
+    gu, dn = ("not measured" if v is None else f"{v:.4f} ms" for v in split.values())
+    print(f"[time] fused_moe_gemm {label} (route {route}): gate/up {gu}, down {dn} "
+          f"(profiler, mean of 25)")
+    esz = x.element_size()
+    nbytes = n_exp * 3 * d * f * wg.element_size() + x.numel() * esz + y.numel() * esz \
+        + slot_tok.numel() * 8
+    b_ms, b_by = bound(nbytes, 6.0 * n_live * d * f, "bfloat16")
+    records = [dict(
+        name="fused_moe_gemm", path=path, shape=label, route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_moe.cu",
+        replaces="src/repro/kernels/fused_moe.py:140",
+        launches=0, max_abs_err=err,
+        ms=timed_ms(gemm, flush),
+        plain_ms=timed_ms(lambda: R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate),
+                          flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )]
+    kept = live.nonzero()[:, 0]
+    tok_kept, y_kept = slot_tok[kept, 0].long(), y[kept]
+    # a note, not a library time (no one call computes the whole
+    # function): the three products as torch.bmm on rows gathered beforehand
+    xs = torch.where(live[:, None], x[slot_tok[:, 0].long().clamp(max=T - 1)], 0)
+    xs = xs.view(E, C, d)
+    bmm_ms = timed_ms(
+        lambda: torch.bmm(F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu), wo), flush)
+    print(f"[time] fused_moe_gemm {label}: the three products as torch.bmm on gathered "
+          f"rows {bmm_ms:.4f} ms (h in bf16: a yardstick, not the same function)")
+    del xs
+    nbytes = n_live * d * esz + T * d * esz + slot_tok.numel() * 4
+    b_ms, b_by = bound(nbytes, float(n_live * d), "float32")
+    records.append(dict(
+        name="fused_moe_combine", path=path, shape=label, route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_moe.cu",
+        replaces="src/repro/kernels/fused_moe.py:200",
+        launches=0, max_abs_err=0.0,
+        ms=timed_ms(lambda: FM.fused_moe_combine(y, slot_tok, T), flush),
+        plain_ms=timed_ms(lambda: R.fused_moe_combine_ref(y, slot_tok, T), flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timed_ms(lambda: torch.zeros(T, d, dtype=bf16, device=x.device).index_add_(
+            0, tok_kept, y_kept), flush),
+    ))
+    return records
+
+
 def moe_kernel_checks(torch, R, F, dev):
     """Phase 9: the MoE path's kernels at its shapes against their plain
     versions on the card, slot tables from ``moe_routing``."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import fused_moe as FM
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.models.moe import expert_capacity
@@ -1053,82 +1275,13 @@ def moe_kernel_checks(torch, R, F, dev):
     wg, wu = rand(E, d, f, std=d ** -0.5), rand(E, d, f, std=d ** -0.5)
     wo = rand(E, f, d, std=f ** -0.5)
     router = torch.randn(d, E, generator=gen, device=dev) * d ** -0.5
-    w_bytes = 3 * d * f * wg.element_size()                 # one expert's weights
 
     for label, T, C in (("prefill", 4096, expert_capacity(4096, E, k, cfg.capacity_factor)),
                         ("decode", 8, expert_capacity(8, E, k, cfg.capacity_factor)),
                         ("overflow", 4096, 128)):
-        x = rand(T, d)
-        slot_tok, slot_gate, _, _, keep, _ = FM.moe_routing(x, router, k, C)
-        live = slot_tok[:, 0] < T
-        n_live = int(live.sum())
-        n_exp = int(live.view(E, C).any(dim=1).sum())     # experts holding a token
-        route, croute = FM.gemm_route(T, d, f, E, C, x.dtype), FM.combine_route(E * C, T, d)
-        y = FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
-        want = R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate)
-        torch.cuda.synchronize()
-        err = (y.float() - want.float()).abs().max().item()
-        # one bf16 ulp of the largest output: both compute the same f32 value
-        # up to summation order, then round once to bf16
-        tol = want.float().abs().max().item() * 2.0 ** -7
-        ok = math.isfinite(err) and err <= tol
-        print(f"[check] fused_moe_gemm {label} T={T} C={C} (route {route}): {n_live} of "
-              f"{E * C} slots live ({n_exp} experts), {int((~keep).sum())} copies dropped; "
-              f"max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"fused_moe_gemm ({label}) disagrees with its plain version")
-        out = FM.fused_moe_combine(y, slot_tok, T)
-        same = torch.equal(out, R.fused_moe_combine_ref(y, slot_tok, T))
-        print(f"[check] fused_moe_combine {label} (route {croute}): "
-              f"{'bit-equal' if same else 'DIFFERS'}")
-        if not same:
-            raise AssertionError(f"fused_moe_combine ({label}) differs from its plain version")
-        if label == "overflow":
-            continue
-        gemm = lambda: FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)  # noqa: E731
-        split = kernel_ms(torch, gemm, flush, {"gate/up": ("moe_gate_up",),
-                                               "down": ("moe_down",)})
-        gu, dn = ("not measured" if v is None else f"{v:.4f} ms" for v in split.values())
-        print(f"[time] fused_moe_gemm {label} (route {route}): gate/up {gu}, down {dn} "
-              f"(profiler, mean of 25)")
-        esz = x.element_size()
-        nbytes = n_exp * w_bytes + x.numel() * esz + y.numel() * esz + slot_tok.numel() * 8
-        b_ms, b_by = bound(nbytes, 6.0 * n_live * d * f, "bfloat16")
-        records.append(dict(
-            name="fused_moe_gemm", path="moe_serving", shape=label, route="cuda",
-            source="src/repro_torch/kernels/csrc/fused_moe.cu",
-            replaces="src/repro/kernels/fused_moe.py:140",
-            launches=0, max_abs_err=err,
-            ms=timed_ms(gemm, flush),
-            plain_ms=timed_ms(lambda: R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate),
-                              flush),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ))
-        kept = live.nonzero()[:, 0]
-        tok_kept, y_kept = slot_tok[kept, 0].long(), y[kept]
-        # a note, not a library time (no one call computes the whole
-        # function): the three products as torch.bmm on rows gathered beforehand
-        xs = torch.where(live[:, None], x[slot_tok[:, 0].long().clamp(max=T - 1)], 0)
-        xs = xs.view(E, C, d)
-        bmm_ms = timed_ms(
-            lambda: torch.bmm(F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu), wo), flush)
-        print(f"[time] fused_moe_gemm {label}: the three products as torch.bmm on gathered "
-              f"rows {bmm_ms:.4f} ms (h in bf16: a yardstick, not the same function)")
-        del xs
-        nbytes = n_live * d * esz + T * d * esz + slot_tok.numel() * 4
-        b_ms, b_by = bound(nbytes, float(n_live * d), "float32")
-        records.append(dict(
-            name="fused_moe_combine", path="moe_serving", shape=label, route="cuda",
-            source="src/repro_torch/kernels/csrc/fused_moe.cu",
-            replaces="src/repro/kernels/fused_moe.py:200",
-            launches=0, max_abs_err=0.0,
-            ms=timed_ms(lambda: FM.fused_moe_combine(y, slot_tok, T), flush),
-            plain_ms=timed_ms(lambda: R.fused_moe_combine_ref(y, slot_tok, T), flush),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=timed_ms(lambda: torch.zeros(T, d, dtype=bf16, device=dev).index_add_(
-                0, tok_kept, y_kept), flush),
-        ))
-        del x, slot_tok, slot_gate, keep, live, y, want, out, kept, tok_kept, y_kept
+        records += moe_gemm_combine_records(torch, R, F, rand(T, d), router, wg, wu, wo, k, C,
+                                            label, "moe_serving", flush,
+                                            timed=label != "overflow")
     del wg, wu, wo, router
     moe_edge_checks(torch, R, dev)
 
@@ -1137,13 +1290,7 @@ def moe_kernel_checks(torch, R, F, dev):
     q, kk, vv = rand(B, S, H, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
 
     def check(name, got, want):
-        err = (got.float() - want.float()).abs().max().item()
-        ok = math.isfinite(err) and err <= tol
-        print(f"[check] {name} GQA-8 bf16: max_abs_err={err:.3e} tol={tol:.0e} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} (GQA-8) disagrees with its plain version: {err}")
-        return err
+        return row_ulp_check(torch, f"{name} GQA-8 bf16", got, want)
 
     err = check("flash_attention", flash_attention_fwd(q, kk, vv, causal=True),
                 R.flash_attention_ref(q, kk, vv, causal=True))
@@ -2819,6 +2966,7 @@ SLICE_ARCHS = FAMILY_ARCHS + ("whisper-medium", "qwen2-vl-7b")
 # beside what it took; a run over budget is reported, not failed)
 SLICE_BUDGET_S = {"kernels": 30, "cross-device": 30, "25": 90, "26": 30, "27": 30}
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:133",
+            "flash_attention_q8": "src/repro/kernels/flash_attention.py:200",
             "decode_attention": "src/repro/kernels/decode_attention.py:327",
             "decode_attention_int8": "src/repro/kernels/decode_attention.py:378"}
 
@@ -3254,6 +3402,303 @@ def slice_phases(torch, ops, R, F, get_model, get_config, smoke_config, ServeSes
     return records, totals, step_ms
 
 
+# ---------------------------------------------------------------------------
+# Training the MoE, encoder-decoder and vision-language families (28-30)
+# ---------------------------------------------------------------------------
+
+# phases 29-30 through make_train_step: arch -> (layers, or None for all,
+# rows, decoder / text tokens, stub patches); all rows valid
+SIDE_TRAIN = {"whisper-medium": (None, 16, 256, 0), "qwen2-vl-7b": (8, 8, 512, 1024)}
+
+
+def train_family_kernel_checks(torch, R, F, dev):
+    """Before phase 28: phase 3's kernel checks at the training shapes of
+    phases 28-30, bf16, each held to its plain version on the card (flash
+    and int8-K/V flash to 2 bf16 ulps a row, the quantizer and the combine
+    bit for bit, the expert GEMM to one bf16 ulp of its largest output) and
+    timed: MT, qwen3-moe-30b-a3b's attention (60, 256, 32 over 4, 128) and
+    its expert GEMM and combine at T 15,360 / C 1,280 (128 experts top-8, d
+    2048, f 768); ET, whisper-medium's encoder (16, 1500, 16, 64)
+    bidirectional, its causal self-attention (16, 256, 16, 64) and its
+    cross-attention (256 rows against 1500 frames; float K/V under every
+    precision); VT, qwen2-vl-7b's (8, 1536, 28 over 4, 128).  Under
+    int8-fused each self-attention quantizes its K and V rows: the
+    quantizer is checked and timed over K's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.models.moe import expert_capacity
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2828)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    bf16 = torch.bfloat16
+    records = []
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf16)
+
+    def attention(path, shape, B, Sq, Skv, H, Hkv, D, causal, int8=True):
+        q, k, v = rand(B, Sq, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
+        run = lambda: flash_attention_fwd(q, k, v, causal=causal)               # noqa: E731
+        plain = lambda: R.flash_attention_ref(q, k, v, causal=causal)           # noqa: E731
+        err = row_ulp_check(torch, f"flash_attention {path} {shape}", run(), plain())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        flops = 4 * D * B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
+        records.append(_attention_record(
+            "flash_attention", path, shape, err, run, plain,
+            2 * (2 * q.numel() + 2 * k.numel()), flops,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=Hkv != H), flush))
+        del qt, kt, vt
+        if not int8:
+            return
+        rec = quant_record(torch, R, path, k.view(-1, D), flush)
+        records.append(dict(rec, shape=f"{shape}: K {rec['shape']}"))
+        kq, ks = (t.view(B, Skv, Hkv, -1) for t in quantize_rows(k.view(-1, D), 0.5))
+        vq, vs = (t.view(B, Skv, Hkv, -1) for t in quantize_rows(v.view(-1, D), 0.5))
+        del k, v
+        run8 = lambda: flash_attention_int8_fwd(q, kq, ks, vq, vs, causal=causal)  # noqa: E731
+        plain8 = lambda: R.flash_attention_ref(                                  # noqa: E731
+            q, R.dequantize_int8_ref(kq, ks), R.dequantize_int8_ref(vq, vs), causal=causal)
+        err8 = row_ulp_check(torch, f"flash_attention_q8 {path} {shape}", run8(), plain8())
+        records.append(_attention_record(
+            "flash_attention_q8", path, shape, err8, run8, plain8,
+            2 * q.numel() * 2 + kq.numel() + vq.numel() + (ks.numel() + vs.numel()) * 4,
+            flops, None, flush))
+        del q, kq, ks, vq, vs
+
+    attention("moe_training", "MT (60, 256, 32 over 4, 128)", 60, 256, 256, 32, 4, 128, True)
+    attention("encdec_training", "ET encoder (16, 1500, 16, 64)", 16, 1500, 1500, 16, 16, 64,
+              False)
+    attention("encdec_training", "ET self (16, 256, 16, 64)", 16, 256, 256, 16, 16, 64, True)
+    attention("encdec_training", "ET cross 256 rows x 1500 frames", 16, 256, 1500, 16, 16, 64,
+              False, int8=False)
+    attention("vlm_training", "VT (8, 1536, 28 over 4, 128)", 8, 1536, 1536, 28, 4, 128, True)
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.experts_per_token
+    T = 60 * 256
+    C = expert_capacity(T, E, k, cfg.capacity_factor)
+    wg, wu = rand(E, d, f, std=d ** -0.5), rand(E, d, f, std=d ** -0.5)
+    wo = rand(E, f, d, std=f ** -0.5)
+    router = rand(d, E, std=d ** -0.5)
+    records += moe_gemm_combine_records(torch, R, F, rand(T, d), router, wg, wu, wo, k, C,
+                                        f"MT T {T} C {C}", "moe_training", flush)
+    del wg, wu, wo, router, scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
+def moe_grad_check(torch, ops, R, dev):
+    """Before phase 28, as phase 17: the gradients of ``ops.fused_moe_mlp``
+    (the kernels forward, the plain recompute backward) on the card against
+    the plain op's autograd gradients, every input, at 4 rows of phase 28
+    (T 1,024; d 2048, 128 experts top-8, f 768, bf16), with a cotangent on
+    the aux loss; then the aux loss alone: its gradient reaches the router
+    (non-zero) and equals the plain op's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import expert_capacity
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.experts_per_token
+    T = 4 * 256
+    C = expert_capacity(T, E, k, cfg.capacity_factor)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1717)
+    bf16 = torch.bfloat16
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf16)
+
+    inputs = (rand(T, d), rand(d, E, std=d ** -0.5), rand(E, d, f, std=d ** -0.5),
+              rand(E, d, f, std=d ** -0.5), rand(E, f, d, std=f ** -0.5))
+
+    def grads_of(fn, cots):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out, aux = fn(*leaves)
+        loss = (out.float() * cots[0]).sum() + aux * cots[1]
+        return torch.autograd.grad(loss, leaves)
+
+    def kernel(*a):
+        return ops.fused_moe_mlp(*a, k=k, capacity=C)
+
+    def plain(*a):
+        return R.fused_moe_mlp_ref(*a, k, C)
+
+    cots = (torch.randn(T, d, generator=gen, device=dev), 1.0)
+    grad_check(torch, ("ops.fused_moe_mlp", ("x", "router", "wi_gate", "wi_up", "wo")),
+               grads_of(kernel, cots), grads_of(plain, cots), 2 ** -7)
+    aux_only = (torch.zeros(T, d, device=dev), 1.0)
+    got, want = grads_of(kernel, aux_only)[1], grads_of(plain, aux_only)[1]
+    size = want.float().abs().max().item()
+    print(f"[check] ops.fused_moe_mlp: the aux loss's router gradient, max |d router| "
+          f"{size:.3e}")
+    if not size > 0:
+        raise AssertionError("the aux loss does not reach the router's gradient")
+    close_check(torch, "ops.fused_moe_mlp d router of aux (bfloat16)", got, want, 0.0,
+                2 ** -7 * size)
+    torch.cuda.empty_cache()
+
+
+def fan_in_weights(torch, params, seed):
+    """``params`` with every stacked projection redrawn from ``seed`` at
+    N(0, 1/fan_in) over the axes it contracts (attention q/k/v over d_model,
+    its out-projection over heads x head dim, an MLP matrix over its input
+    width), as tests/test_torch_families.py::numpy_params draws them;
+    embeddings, norms and biases kept.  The port's init, as the reference's,
+    reads a stacked leaf's fan-in from its layer axis."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif v.dim() == 4 and k in ("wq", "wk", "wv", "wo"):
+                fan_in = v.shape[1] * (v.shape[2] if k == "wo" else 1)
+                out[k] = torch.randn(v.shape, generator=gen).to(v.dtype) / fan_in ** 0.5
+            elif v.dim() == 3 and k in ("wi", "wo", "wi_gate", "wi_up"):
+                out[k] = torch.randn(v.shape, generator=gen).to(v.dtype) / v.shape[1] ** 0.5
+            else:
+                out[k] = v
+        return out
+
+    return walk(params)
+
+
+def _side_batch(torch, cfg, rows, seq, n_patches, gen, dev):
+    """A training batch drawn from ``gen``: tokens and labels (rows, seq),
+    every position scored, and whisper's frames or the VLM's patch
+    embeddings (the VLM's logits cover [patches | text]; the loss scores
+    the text)."""
+    def toks():
+        return torch.randint(0, cfg.vocab, (rows, seq), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    return {"tokens": toks(), "labels": toks(),
+            "loss_mask": torch.ones(rows, seq, dtype=torch.float32, device=dev),
+            **_side_inputs(torch, cfg, rows, n_patches, gen, dev)}
+
+
+def _side_step(get_model, cfg, params, rows, steps, opt):
+    """make_train_step with ``opt`` and the goyal schedule at ``rows`` valid
+    rows -> (step, the optimizer's state of ``params``)."""
+    from repro_torch.optim import goyal_schedule
+    from repro_torch.train.steps import make_train_step
+
+    sched = goyal_schedule(1e-3, rows, base_batch=256, warmup_steps=20, total_steps=steps)
+    return make_train_step(get_model(cfg), opt, sched), opt.init(params)
+
+
+def cross_device_family_train(torch, ops, get_model, smoke_config, train_session_factory, dev):
+    """Before phase 28, as phase 7: the smoke configs in float32 from the
+    same weights, the plain path on the CPU against the kernels on the
+    card, in f32 and int8-fused: both MoE configs for 6 steps through
+    Session.run, whisper and qwen2-vl for 3 steps through make_train_step
+    with frames / patch embeddings in the batch; per-step losses within
+    phase 7's tolerances and every kernel launch of the card's run counted.
+    whisper and qwen2-vl train from ``fan_in_weights`` with SGD.  At the
+    port's init (the reference's: q/k/v at std 0.71 where 1/sqrt(d_model) is
+    0.125) the card's and the CPU's float32 rounding part their logits by
+    3.6e-3 (whisper) and 1.2e-3 (qwen2-vl) with the plain attention on both
+    as with the kernels (``scripts/init_rounding_probe.py``), and AdamW's
+    first update moves every coordinate by about +-lr, on a sign rounding
+    noise picks where a gradient is near zero: a 1e-6 perturbation of the
+    gradients moves their losses by 1e-3 at that init, 7e-5 at fan-in
+    weights under AdamW and 1e-7 under SGD
+    (``scripts/side_train_noise_probe.py``)."""
+    import copy
+
+    from repro_torch.optim import sgd_momentum
+
+    for arch in ("qwen3-moe-30b-a3b", "dbrx-132b"):
+        cross_device_train(torch, ops, train_session_factory, dev, arch)
+    rtol = {"f32": 1e-4, "int8-fused": 1e-2}   # phase 7's
+    steps, rows, seq, n_patches = 3, 4, 16, 4
+    for arch in SIDE_TRAIN:
+        for prec in ("f32", "int8-fused"):
+            cfg = smoke_config(arch).with_(train_precision=prec)
+            params = fan_in_weights(torch, get_model(cfg).init_params(seed=0, device="cpu")[0], 3)
+            gpu_params = _to(copy.deepcopy(params), dev)
+            gen = torch.Generator()
+            gen.manual_seed(28)
+            batches = [_side_batch(torch, cfg, rows, seq, n_patches, gen, "cpu")
+                       for _ in range(steps)]
+            losses = {}
+            for where, p in (("cpu", params), ("gpu", gpu_params)):
+                step, state = _side_step(get_model, cfg, p, rows, steps, sgd_momentum())
+                ops.reset_launches()
+                losses[where] = []
+                for b in batches:
+                    p, state, m = step(p, state, _to(b, dev) if where == "gpu" else b)
+                    losses[where].append(float(m["loss"]))
+            counts = dict(ops.LAUNCHES)
+            print(f"[cross-device] train {arch} {prec}: cpu="
+                  f"{[round(x, 6) for x in losses['cpu']]} gpu="
+                  f"{[round(x, 6) for x in losses['gpu']]} launches={counts}")
+            if not np.allclose(losses["gpu"], losses["cpu"], rtol=rtol[prec], atol=0.0):
+                raise AssertionError(f"{arch} {prec}: per-step losses differ between CPU and card")
+            _check_launches(counts, expected_train_launches(cfg, prec, steps),
+                            f"{arch} {prec} training")
+
+
+def full_width_side_train(torch, ops, get_model, get_config, dev, arch):
+    """Phases 29 and 30: ``arch`` at full width (depth from SIDE_TRAIN)
+    through make_train_step with AdamW (bf16 weights, float32 moments) for
+    5 steps in f32 and int8-fused, on batches
+    drawn from the seed on the card (stub frames or patch embeddings from
+    the seed too), reported as phase 8; the predicted peak is printed
+    before the weights are built, and they are freed after each run."""
+    from repro_torch.optim import adamw
+
+    layers, rows, seq, n_patches = SIDE_TRAIN[arch]
+    steps = 5
+    totals = {name: 0 for name in ops.LAUNCHES}
+    step_ms = {}
+    for prec in ("f32", "int8-fused"):
+        cfg = get_config(arch).with_(train_precision=prec)
+        if layers is not None:
+            cfg = cfg.with_(n_layers=layers)
+        torch.cuda.empty_cache()
+        print(f"[train] {cfg.name} {prec}: predicted peak "
+              f"{predicted_train_peak_gib(cfg, cfg.param_count(), rows, n_patches + seq, seq):.2f}"
+              f" GiB; allocated before {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+        params, _ = get_model(cfg).init_params(seed=0, device=dev)
+        step, state = _side_step(get_model, cfg, params, rows, steps, adamw())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        hist = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            td = time.perf_counter()
+            batch = _side_batch(torch, cfg, rows, seq, n_patches, gen, dev)
+            ts = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}   # waits for the card
+            metrics["step_time"] = time.perf_counter() - ts
+            metrics["data_time"] = ts - td
+            hist.append(metrics)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_ms[(arch, prec)] = report_train(cfg, arch, prec, hist, wall, rows, rows, seq, peak,
+                                             counts, steps, get_config)
+        _check_launches(counts, expected_train_launches(cfg, prec, steps),
+                        f"{cfg.name} {prec} training")
+        for name, c in counts.items():
+            totals[name] += c
+        del params, state, step, batch
+        torch.cuda.empty_cache()
+    return totals, step_ms
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3370,9 +3815,29 @@ def main() -> int:
         torch, ops, R, F, get_model, get_config, smoke_config, ServeSession, dev)
     records += slice_records
     lap("phases 25-27 (their kernel checks and smoke configs included)")
+    # training the MoE, encoder-decoder and vision-language families
+    torch.cuda.empty_cache()
+    records += train_family_kernel_checks(torch, R, F, dev)
+    moe_grad_check(torch, ops, R, dev)
+    lap("phases 28-30's kernel checks and the MoE gradient check")
+    cross_device_family_train(torch, ops, get_model, smoke_config, train_session_factory, dev)
+    lap("phases 28-30's smoke configs, CPU vs card")
+    family_train_totals = {}
+    family_train_totals["moe_training"], ms = full_width_train(
+        torch, ops, train_session_factory, get_config, dev, "qwen3-moe-30b-a3b")
+    train_ms[("qwen3-moe-30b-a3b", "f32")] = ms[("qwen3-moe-30b-a3b", "f32")]   # profiled
+    lap("phase 28")
+    side_ms = {}
+    for phase, path, arch in (("29", "encdec_training", "whisper-medium"),
+                              ("30", "vlm_training", "qwen2-vl-7b")):
+        family_train_totals[path], ms = full_width_side_train(
+            torch, ops, get_model, get_config, dev, arch)
+        side_ms[arch] = ms[(arch, "f32")]                                   # profiled
+        lap(f"phase {phase}")
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)
+    profile_side_train(torch, get_model, get_config, dev, side_ms)
     profile_serving(torch, get_model, get_config, dev, decode_ms)
     profile_moe_serving(torch, get_model, get_config, dev, moe_ms)
     profile_recurrent_serving(torch, get_model, get_config, dev, rec_ms)
@@ -3380,7 +3845,7 @@ def main() -> int:
     lap("phase 12")
     totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
               "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals,
-              "engine_serving": engine_totals, **slice_totals}
+              "engine_serving": engine_totals, **slice_totals, **family_train_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

@@ -9,6 +9,8 @@ devices.
       --seq 256 --precision int8-fused --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
       --full-config --seq 128 --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
+      --full-config --layers 3 --seq 256 --steps 5
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 50 \\
       --checkpoint-dir /path/to/ckpt
@@ -18,10 +20,17 @@ devices.
 ``--checkpoint-dir`` saves every ``SessionConfig.checkpoint_every`` (50)
 steps and resumes from the newest valid checkpoint there.  ``--device``
 defaults to ``cuda``, and the run fails when no card is found.  Not
-ported yet, each refused with its ROADMAP item: ``--cluster-processes > 1``,
-``--measured-tune`` and training the encoder-decoder and vision-language
-archs (whisper-medium, qwen2-vl-7b), whose loss needs frames or patch
-embeddings the batches do not carry.
+ported yet, each refused with its ROADMAP item: ``--cluster-processes > 1``
+and ``--measured-tune``.
+
+Every arch trains here as it does in the reference's launcher: the MoE
+archs with the router's aux loss in the loss (``SessionConfig.aux_weight``);
+qwen2-vl-7b text-only, as its forward takes no patch embeddings from the
+fleet's batches.  whisper-medium is refused: its encoder needs frames, and
+the fleet's data plane carries none (the reference's launcher fails inside
+its encoder).  Both side inputs train through
+``train.steps.make_train_step`` with ``frames`` / ``patch_embeds`` in the
+batch.
 """
 from __future__ import annotations
 
@@ -38,8 +47,6 @@ from repro_torch.optim import adamw, sgd_momentum
 from repro_torch.storage import DataConfig
 
 ROADMAP_MEASURED_TUNE = "ROADMAP item 14 'Drivers and benches'"
-# the loss passes no frames or patch embeddings (reference train/steps.py:52-73)
-ROADMAP_SIDE_INPUTS = "ROADMAP item 12, encoder-decoder and vision-language training"
 PRECISIONS = ("f32", "bf16", "int8-fused")
 
 
@@ -113,8 +120,10 @@ def main(argv=None) -> int:
         ap.error(f"--cluster-processes > 1 is not ported to repro_torch yet ({ROADMAP_CLUSTER})")
     if args.measured_tune:
         ap.error(f"--measured-tune is not ported to repro_torch yet ({ROADMAP_MEASURED_TUNE})")
-    if get_config(args.arch).family in ("encdec", "vlm"):
-        ap.error(f"training {args.arch} is not ported to repro_torch yet ({ROADMAP_SIDE_INPUTS})")
+    if get_config(args.arch).family == "encdec":
+        ap.error(f"{args.arch} trains on audio frames, which the fleet's batches do not "
+                 f"carry: train it through train.steps.make_train_step with 'frames' in "
+                 f"the batch")
 
     session = train_session_factory(
         arch=args.arch, steps=args.steps, seq=args.seq, csds=args.csds,

@@ -4,8 +4,8 @@ reference (dense, MoE, rwkv6, rglru, encoder-decoder, vision-language).
 ``get_model(cfg)`` returns a :class:`Model` whose methods dispatch to the
 family module.  ``forward`` and ``prefill`` pass side inputs through
 (``frames=`` for encdec, ``patch_embeds=`` for vlm), as the reference's
-``api.py:49-61`` does.  The MoE training forward raises
-``NotImplementedError`` naming its ROADMAP item.
+``api.py:49-61`` does.  ``forward`` returns ``(logits, aux)``: the MoE
+family's summed router loss, a float32 zero for every other family.
 """
 from __future__ import annotations
 
@@ -20,11 +20,6 @@ from repro_torch.models.config import ModelConfig
 
 _FAMILIES = {"dense": dense, "moe": moe, "rglru": rglru, "rwkv6": rwkv6,
              "encdec": encdec, "vlm": vlm}
-# families whose training forward is not ported yet, and the ROADMAP item
-_NO_FORWARD = {
-    # the router's load-balance loss must reach the training loss
-    "moe": "ROADMAP item 10, MoE training",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,14 +33,13 @@ class Model:
                                     dtype=dtype, device=device)
 
     def forward(self, params, tokens, **inputs) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Training forward -> (logits, aux loss); aux is 0 for every family
-        that trains here (the router's aux loss is MoE's)."""
-        if self.cfg.family in _NO_FORWARD:
-            raise NotImplementedError(
-                f"the {self.cfg.family} training forward is not ported yet "
-                f"({_NO_FORWARD[self.cfg.family]})")
-        logits = self.mod.forward(params, self.cfg, tokens, **inputs)
-        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        """Training forward -> (logits, aux loss): a family whose forward
+        returns a pair (MoE: the router's load-balance loss summed over its
+        layers) passes it on; every other family's aux is a float32 zero."""
+        out = self.mod.forward(params, self.cfg, tokens, **inputs)
+        if isinstance(out, tuple):
+            return out
+        return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
     def prefill(self, params, tokens, cache_len: int, **inputs):
         return self.mod.prefill(params, self.cfg, tokens, cache_len, **inputs)

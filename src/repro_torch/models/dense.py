@@ -98,8 +98,8 @@ def _scan_blocks(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _run_layer(cfg: ModelConfig, body: Callable[[PyTree, torch.Tensor], torch.Tensor],
-               lp: PyTree, x: torch.Tensor) -> torch.Tensor:
+def _run_layer(cfg: ModelConfig, body: Callable[[PyTree, torch.Tensor], Any],
+               lp: PyTree, x: torch.Tensor) -> Any:
     """One layer of a training forward: under ``cfg.remat`` only its input is
     kept and its forward recomputed in the backward (``jax.checkpoint``);
     without autograd (the encoder of a serving prefill) it just runs."""

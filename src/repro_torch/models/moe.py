@@ -8,8 +8,10 @@ CPU tensors).  The reference's unfused ``dense`` dispatch is its A/B
 baseline, and its group-local expert-parallel path (``local``) needs a
 ``model`` mesh; neither is ported.
 
-Entry points: ``init_params``, ``init_cache``, ``prefill``, ``decode_step``
-(serving).  The training ``forward`` comes with MoE training.
+Entry points: ``init_params``, ``forward`` (training: logits and the
+router's load-balance loss summed over the layers, which ``train.steps``
+adds to the loss at ``aux_weight``), ``init_cache``, ``prefill``,
+``decode_step`` (serving).
 """
 from __future__ import annotations
 
@@ -98,6 +100,33 @@ def init_params(
             L.init_embedding(b, "lm_head", cfg.vocab, cfg.d_model)
 
     return build(f, seed=seed, abstract=abstract, dtype=dtype or cfg.dtype, device=dev)
+
+
+def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = L.rms_norm(lp["ln1"], x)
+    h = L.attention_train(
+        lp["attn"], h, positions=positions, causal=True, window=cfg.window,
+        rope_theta=cfg.rope_theta, precision=cfg.train_precision,
+    )
+    x = x + h
+    y, aux = moe_mlp(lp["moe"], L.rms_norm(lp["ln2"], x), cfg)
+    return x + y, aux
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward. tokens (B, S) -> (logits (B, S, V), Σ_layers aux
+    (float32)); under ``cfg.remat`` each layer keeps only its input and
+    recomputes its forward, routing included, in the backward."""
+    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = dense._run_layer(cfg, lambda lp, h: _block_train(lp, h, cfg, positions),
+                                dense._layer(params["blocks"], i), x)
+        aux = aux + a
+    return dense._final(params, x, cfg), aux
 
 
 init_cache = dense.init_cache

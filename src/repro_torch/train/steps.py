@@ -38,9 +38,16 @@ def loss_fn(
     *,
     aux_weight: float = 0.01,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Masked global-mean LM loss (+ router aux for MoE)."""
-    logits, aux = model.forward(params, batch["tokens"])
-    ce = cross_entropy(logits, batch["labels"])
+    """Masked global-mean LM loss (+ router aux for MoE).  A batch's
+    ``frames`` (encdec) or ``patch_embeds`` (vlm) go to the forward; where
+    the logits are longer than the labels (the VLM's [patches | text]) only
+    the last ``labels.shape[1]`` positions, the text, are scored."""
+    side = {k: batch[k] for k in ("frames", "patch_embeds") if k in batch}
+    logits, aux = model.forward(params, batch["tokens"], **side)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    ce = cross_entropy(logits, labels)
     mask = batch["loss_mask"]
     loss = masked_mean_loss(ce, mask)
     total = loss + aux_weight * aux

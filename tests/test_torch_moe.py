@@ -25,6 +25,8 @@ Tolerances and why:
 * models: as tests/test_torch_models.py (atol 1e-4 on logits and caches,
   int8 bytes within 1 LSB, greedy tokens identical).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,7 @@ from repro_torch.kernels import fused_moe as FM
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.launch import serve as serve_driver
+from repro_torch.launch import train as train_driver
 from repro_torch.models import moe as M
 from repro_torch.models import param as P
 from repro_torch.models.api import get_model
@@ -439,12 +442,21 @@ def test_stacked_init_draws_one_layer_slice_at_a_time(monkeypatch):
     assert abs(wg.float().std().item() * d ** 0.5 - 1.0) < 0.05
 
 
-def test_moe_training_forward_raises_naming_its_roadmap_item():
-    cfg = smoke_config("qwen3-moe-30b-a3b")
-    model = get_model(cfg)
-    params, _ = model.init_params(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10, MoE training"):
-        model.forward(params, torch.zeros((1, 4), dtype=torch.long))
+def test_moe_training_forward_raises_naming_its_roadmap_item(capsys):
+    """The MoE trains: the training driver runs 2 steps of the smoke config
+    on the CPU, and its session's history carries the router's aux loss
+    (tests/test_torch_train_families.py holds the numbers to the JAX
+    package)."""
+    argv = ["--arch", "qwen3-moe-30b-a3b", "--device", "cpu", "--steps", "2", "--seq", "16"]
+    assert train_driver.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "arch=qwen3-moe-30b-a3b" in out and "2 steps in" in out
+    report = train_driver.train_session_factory(
+        arch="qwen3-moe-30b-a3b", device="cpu", steps=2, seq=16).run()
+    assert report.steps_run == 2
+    for h in report.history:
+        assert math.isfinite(h["loss"]) and h["aux"] >= 2.0      # a Switch loss >= 1 a layer
+        assert h["total"] == pytest.approx(h["loss"] + 0.01 * h["aux"], rel=1e-6)
 
 
 def test_serve_driver_runs_moe_on_cpu(capsys):

@@ -385,21 +385,19 @@ def test_uniform_init_draws_one_layer_slice_at_a_time(monkeypatch):
 
 
 def test_only_the_moe_training_forward_raises():
-    """The recurrent families train (tests/test_torch_recurrent_train.py);
-    the MoE training forward still raises, naming its ROADMAP item.  The
-    encoder-decoder forward takes its frames."""
+    """No family's training forward raises: every arch returns (logits,
+    aux), the MoE archs their summed router loss (positive), every other
+    family a zero.  The encoder-decoder forward takes its frames."""
     tokens = torch.zeros((1, 4), dtype=torch.long)
     for arch in ARCHS:
         model = get_model(smoke_config(arch))
         params, _ = model.init_params(seed=0, device="cpu")
         inputs = ({"frames": torch.zeros((1, model.cfg.n_frames, model.cfg.d_model))}
                   if model.cfg.family == "encdec" else {})
-        if model.cfg.family == "moe":
-            with pytest.raises(NotImplementedError, match="ROADMAP item 10, MoE training"):
-                model.forward(params, tokens)
-        else:
-            logits, aux = model.forward(params, tokens, **inputs)
-            assert tuple(logits.shape) == (1, 4, model.cfg.vocab) and float(aux) == 0.0
+        logits, aux = model.forward(params, tokens, **inputs)
+        assert tuple(logits.shape) == (1, 4, model.cfg.vocab)
+        assert aux.dtype == torch.float32 and aux.shape == ()
+        assert (float(aux) > 0.0) if model.cfg.family == "moe" else (float(aux) == 0.0)
 
 
 @pytest.mark.parametrize("arch", RECURRENT)
