@@ -244,11 +244,33 @@ weights, each freed before the next is built):
  "other" kernels named), phase 28's routing split out and the plain MoE
  backward of one layer timed on CUDA events.
 
+Multi-process cluster training, hostsync (after phase 30, before the
+profiles):
+ before 31, the row quantizer at the int8 codec's shapes (phase 31's two
+     bucket vectors as rows of 512 f32, 1,609,760 and 819,208 rows, and a
+     ragged vector's zero-padded last row) at noise 0.5, bit for bit and
+     timed beside its byte bound; the codec on the card against the codec
+     on the CPU (payload bytes and residuals, two steps, a ragged length);
+     flash at a worker's (20, 256, 32, 128);
+ 31. ``cluster_training``: deepseek-7b at full width, 2 of 30 layers, seq
+     256, FleetSpec.demo(3) (40 rows, 20 a worker) through a single-process
+     card Session for 4 steps, then through 2 worker processes sharing the
+     card (``ClusterCoordinator``) under ``TransportSpec.production()``
+     (int8, ring, 2 buckets, overlap): equal replica digests, the step-1
+     loss equal to the single process's at rtol 1e-5, steps 2-4 within
+     1e-2, each worker's launches (the quantizer once a bucket a step),
+     ms a step and its split, wire bytes, compression ratio, predicted and
+     measured peaks; card memory and the host's MemAvailable printed before
+     the launch; the kernels line's launches are the two workers' sums;
+ 32. the smoke config through 2 worker processes under ``TransportSpec()``
+     (star, no compression) against the single-process card Session:
+     losses at rtol 1e-5, equal digests.
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
 ``engine_serving``, ``families_serving``, ``encdec_serving``,
-``vlm_serving``, ``moe_training``, ``encdec_training`` or ``vlm_training``)
-whose shapes it was
+``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training`` or
+``cluster_training``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -3699,6 +3721,292 @@ def full_width_side_train(torch, ops, get_model, get_config, dev, arch):
     return totals, step_ms
 
 
+# ---------------------------------------------------------------------------
+# Multi-process cluster training, hostsync (phases 31-32)
+# ---------------------------------------------------------------------------
+
+# phase 31's cell, cluster_hostsync_deepseek7b: deepseek-7b at full width cut
+# to 2 layers (as phases 23-24), seq 256, through the training driver's
+# session (launch/train.py::train_session_factory, its --cluster-processes
+# route) on FleetSpec.demo(3)'s own batch caps: 4 dp-groups of 10 rows (40
+# rows, 16 valid), 2 groups and 20 rows a worker; f32 (bf16 weights), AdamW.
+# 2 worker processes share the card under TransportSpec.production() (int8,
+# ring, 2 buckets, overlap).  (The driver's own caps give 40 rows a worker,
+# which peaked at ~38 GiB in phase 23: two do not fit.)
+CLUSTER_CELL = dict(arch="deepseek-7b", full_config=True, n_layers=CKPT_LAYERS,
+                    seq=CKPT_SEQ, csds=3, fleet={})
+CLUSTER_STEPS = 4
+
+
+def _mem_available_gib() -> float:
+    """The host's MemAvailable (``/proc/meminfo``), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def cluster_bucket_lens():
+    """The lengths of phase 31's two bucket vectors (``plan_buckets`` over
+    the model's leaves in the reference's order)."""
+    from repro_torch.launch.train import train_session_factory
+    from repro_torch.train.steps import plan_buckets, tree_leaves_sorted
+
+    session = train_session_factory(device="cpu", **CLUSTER_CELL)
+    like, _ = session.model.init_params(abstract=True, device="cpu")
+    leaves = tree_leaves_sorted(like)
+    return [sum(leaves[i].numel() for i in grp) for grp in plan_buckets(like, 2)]
+
+
+def cluster_kernel_checks(torch, R, F, dev, bucket_lens):
+    """Before phase 31: the row quantizer at the int8 codec's shapes -- the
+    bucket vectors of phase 31 as rows of 512 f32, and a ragged vector whose
+    last row is padded with zeros -- at noise 0.5, bit for bit against its
+    plain version, timed, beside its byte bound; the codec itself on the
+    card against the codec on the CPU (its plain quantizer): payload bytes
+    and residuals equal over two steps at a ragged length; then flash at a
+    worker's shape, (20, 256, 32, 128) bf16, within 2 bf16 ulps a row."""
+    from repro_torch.core.topology import TransportSpec
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.transport import GradCodec
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3131)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    chunk = TransportSpec.production().chunk
+    records = []
+    for n in bucket_lens:
+        rows = -(-n // chunk)
+        x = torch.zeros(rows * chunk, device=dev)
+        x[:n] = torch.randn(n, generator=gen, device=dev) * 1e-3
+        records.append(quant_record(torch, R, "cluster_training", x.view(rows, chunk), flush))
+        del x
+        torch.cuda.empty_cache()
+    n = 1001 * chunk - 300                       # a ragged tail: 212 values + 300 zeros
+    x = torch.zeros(1001 * chunk, device=dev)
+    x[:n] = torch.randn(n, generator=gen, device=dev)
+    records.append(quant_record(torch, R, "cluster_training", x.view(1001, chunk), flush))
+
+    card, host = (GradCodec(TransportSpec(compression="int8", chunk=chunk)) for _ in range(2))
+    n = 3 * 2**20 + 77
+    for step in range(2):
+        vec = torch.randn(n, generator=gen, device=dev) * 10.0 ** -step
+        got, want = card.encode(0, vec), host.encode(0, vec.cpu())
+        same = (got["q"].tobytes() == want["q"].tobytes()
+                and got["s"].tobytes() == want["s"].tobytes()
+                and torch.equal(card._residual[0].cpu(), host._residual[0]))
+        print(f"[check] GradCodec int8 on the card vs on the CPU, n {n} (ragged), step "
+              f"{step + 1}: payload and residual {'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("the card's int8 codec differs from its CPU path")
+    del card, host, vec, x
+
+    B, S, H, D = 20, 256, 32, 128
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    err = row_ulp_check(torch, f"flash_attention cluster_training {(B, S, H, D)} bf16",
+                        flash_attention_fwd(q, k, v, causal=True),
+                        R.flash_attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    records.append(_attention_record(
+        "flash_attention", "cluster_training", f"a worker's ({B}, {S}, {H}, {D})", err,
+        lambda: flash_attention_fwd(q, k, v, causal=True),
+        lambda: R.flash_attention_ref(q, k, v, causal=True),
+        4 * q.numel() * q.element_size(), 4 * D * B * H * S * (S + 1) // 2,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush))
+    del q, k, v, qt, kt, vt, scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
+def predicted_cluster_peaks_gib(cfg, n_params, bucket_lens, rows, seq):
+    """A worker's predicted peaks, (device, host) GiB.  Device, the largest
+    of: the forward and backward over its rows -- bf16 weights and
+    gradients and f32 moments (12 B a parameter), 20 B a logit (one process
+    at 80 rows of this model peaked at 51.8 GiB on the H100: 12 B a
+    parameter and 19.4 B a logit), each layer's saved input -- beside the
+    f32 error-feedback residuals (4 B a parameter); the reduce (bf16
+    weights, f32 moments, residuals, the f32 bucket vectors, y and the int8
+    payload of the largest bucket); the apply (the bf16 gradients landed
+    from the host sums, their f32 quotients and AdamW's four temporaries of
+    the largest leaf, the (vocab, d_model) table).  Host:
+    the largest bucket's own and peer int8 payloads, its two decoded f32
+    vectors and their sum, and the other bucket's sum."""
+    w, big = n_params, max(bucket_lens)
+    fwd = 16 * w + rows * seq * (cfg.vocab * 20 + cfg.d_model * 2 * cfg.n_layers)
+    reduce = 10 * w + 4 * w + 4 * w + 4 * big + big
+    apply = 10 * w + 4 * w + 2 * w + 4 * w + 4 * 4 * cfg.vocab * cfg.d_model
+    host = 2 * big + 3 * 4 * big + 4 * (sum(bucket_lens) - big)
+    return max(fwd, reduce, apply) / 2**30, host / 2**30
+
+
+def _run_workers(coord, timeout):
+    """Launch the coordinator's workers, wait, and return their records in
+    process order; a non-zero return code fails with the workers' logs.
+    The workers' allocator maps segments on demand
+    (``expandable_segments``): they share the card, and blocks one keeps
+    cached in fixed segments the other cannot use."""
+    import os
+
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        coord.launch(resume_steps=0)
+    finally:
+        if old is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+    try:
+        result = coord.wait(timeout=timeout)
+    finally:
+        coord.close()
+    if not result.ok:
+        print(coord.tail_logs(60), file=sys.stderr)
+        raise AssertionError(f"cluster workers failed: return codes {result.returncodes}")
+    return [result.record(p) for p in range(len(result.returncodes))]
+
+
+def _cluster_report(rec, what):
+    """Phase 31-32's lines for one worker: ms a step and its split, wire
+    bytes, compression ratio, peak memory, launches."""
+    t, split = rec["transport"], rec["step_split"]
+    steps = max(1, split["steps"])
+    ms = statistics.median(rec["step_times"][1:]) * 1e3
+    print(f"[cluster] {what} worker {rec['process']} ({rec['device']}, groups "
+          f"{rec['local_workers']}, rows {rec['receipt']['rows_local']} of "
+          f"{rec['receipt']['rows_global']}): {ms:.3f} ms/step (median of steps "
+          f"2-{len(rec['step_times'])}), first step {rec['step_times'][0] * 1e3:.1f} ms; "
+          f"a step (mean of {steps}): grad {split['grad_s'] / steps * 1e3:.1f} ms, encode "
+          f"{t['encode_s_per_step'] * 1e3:.1f}, wire wait {t['wait_s_per_step'] * 1e3:.1f} "
+          f"(wire {t['wire_s_per_step'] * 1e3:.1f} and decode-sum "
+          f"{t['decode_s_per_step'] * 1e3:.1f} on the reducer's thread), apply (the sums "
+          f"landed leaf by leaf) {split['apply_s'] / steps * 1e3:.1f}")
+    print(f"[cluster] {what} worker {rec['process']}: {t['topology']} "
+          f"{t['spec']['compression']}, {t['spec']['buckets']} bucket(s), overlap "
+          f"{t['spec']['overlap']}: wire {t['wire_bytes_per_step']} bytes a step of "
+          f"{t['raw_bytes_per_step']} raw (compression {t['compression_ratio']}x); losses "
+          f"{[round(x, 6) for x in rec['losses']]}; digest {rec['param_digest']}; launches "
+          f"{ {k: v for k, v in rec['launches'].items() if v} }; addressable only "
+          f"{rec['addressable_only']}")
+    return ms
+
+
+def cluster_training(torch, ops, dev, bucket_lens, root: Path):
+    """Phase 31: phase 31's cell through a single-process card ``Session``
+    for CLUSTER_STEPS steps, then through 2 worker processes on the one card
+    (``ClusterCoordinator`` over the driver's ``train_session_factory``, as
+    ``launch/train.py --cluster-processes 2`` runs it) under
+    ``TransportSpec.production()``: equal replica digests, the step-1 loss
+    equal to the single-process run's at rtol 1e-5 (it is read from raw
+    sums, before any update), steps 2-4 within 1e-2, each worker's
+    launches (the quantizer once a bucket a step; flash as phase 8's count
+    for its steps), its ms a step and split, wire bytes, compression ratio,
+    predicted and measured peak.  Returns the workers' summed launches."""
+    import gc
+
+    from repro_torch.core.topology import ClusterSpec, TransportSpec
+    from repro_torch.launch.cluster import ClusterCoordinator
+    from repro_torch.launch.train import train_session_factory
+
+    single = train_session_factory(device=dev, steps=CLUSTER_STEPS, **CLUSTER_CELL)
+    cfg, sched = single.model.cfg, single.tune().schedule
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    report = single.run()
+    counts = dict(ops.LAUNCHES)
+    want = [h["loss"] for h in report.history]
+    single_ms = statistics.median(h["step_time"] for h in report.history[1:]) * 1e3
+    print(f"[cluster] single process: {cfg.name} {cfg.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B params, rows {sched.global_rows} "
+          f"({sched.valid_rows} valid) x seq {CLUSTER_CELL['seq']}: {single_ms:.3f} ms/step "
+          f"(median of steps 2-{CLUSTER_STEPS}), peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, losses "
+          f"{[round(x, 6) for x in want]}, launches { {k: v for k, v in counts.items() if v} }")
+    _check_launches(counts, expected_train_launches(cfg, "f32", CLUSTER_STEPS),
+                    "single-process training")
+    del single, report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = sched.global_rows // 2
+    dev_peak, host_peak = predicted_cluster_peaks_gib(cfg, cfg.param_count(), bucket_lens, rows,
+                                                      CLUSTER_CELL["seq"])
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[cluster] before the launch: card free {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+          f"(this process holds {torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved); "
+          f"host MemAvailable {_mem_available_gib():.1f} GiB; predicted a worker: device "
+          f"{dev_peak:.2f} GiB, host {host_peak:.2f} GiB beyond its interpreter; buckets "
+          f"{bucket_lens} f32 ({[-(-n // 512) for n in bucket_lens]} rows of 512)")
+    coord = ClusterCoordinator(
+        ClusterSpec(processes=2, transport=TransportSpec.production()),
+        "repro_torch.launch.train:train_session_factory",
+        {**CLUSTER_CELL, "cluster_processes": 2, "steps": CLUSTER_STEPS, "device": "cuda"},
+        run_dir=str(root / "cluster"))
+    recs = _run_workers(coord, timeout=900)
+    expect = {"quantize_int8": CLUSTER_STEPS * len(bucket_lens),
+              "flash_attention": expected_train_launches(cfg, "f32", CLUSTER_STEPS)[
+                  "flash_attention"]}
+    totals = {name: 0 for name in ops.LAUNCHES}
+    for rec in recs:
+        _cluster_report(rec, "phase 31")
+        print(f"[cluster] phase 31 worker {rec['process']}: peak {rec['peak_bytes'] / 2**30:.3f} "
+              f"GiB (predicted {dev_peak:.2f}); host peak resident "
+              f"{rec['host_peak_bytes'] / 2**30:.2f} GiB, its interpreter and torch included "
+              f"(predicted {host_peak:.2f} beyond them)")
+        _check_launches(rec["launches"], expect, f"worker {rec['process']}")
+        for name, c in rec["launches"].items():
+            totals[name] += c
+        if not (rec["addressable_only"] and rec["receipt"]["rows_local"] == rows):
+            raise AssertionError(f"worker {rec['process']} was fed {rec['receipt']}")
+        got = rec["losses"]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        print(f"[cluster] phase 31 worker {rec['process']}: losses against the single process "
+              f"{[round(x, 6) for x in want]}: relative differences {[f'{x:.2e}' for x in rel]}")
+        if not all(math.isfinite(x) for x in got) or rel[0] > 1e-5 or max(rel[1:]) > 1e-2:
+            raise AssertionError(f"worker {rec['process']}: losses {got} against {want}")
+    if recs[0]["param_digest"] != recs[1]["param_digest"]:
+        raise AssertionError(f"replica digests differ: {[r['param_digest'] for r in recs]}")
+    print(f"[cluster] phase 31: replica digests equal ({recs[0]['param_digest']}); the "
+          f"single process's {single_ms:.3f} ms/step against the workers' above")
+    return totals
+
+
+def cluster_smoke(smoke_config, dev, root: Path):
+    """Phase 32: the smoke config (``demo_session_factory``: FleetSpec.demo(3),
+    seq 16, 4 steps) through 2 worker processes on the card under
+    ``TransportSpec()`` (star, no compression) against the single-process
+    card ``Session`` of the same factory: losses at rtol 1e-5, equal
+    replica digests, flash launched as phase 7's count."""
+    from repro_torch.core.topology import ClusterSpec, TransportSpec
+    from repro_torch.launch.cluster import ClusterCoordinator, demo_session_factory
+
+    kw = dict(steps=CLUSTER_STEPS, seq_len=16)
+    report = demo_session_factory(processes=1, device=dev, **kw).run()
+    want = [h["loss"] for h in report.history]
+    coord = ClusterCoordinator(ClusterSpec(processes=2, transport=TransportSpec()),
+                               "repro_torch.launch.cluster:demo_session_factory",
+                               {"processes": 2, "device": "cuda", **kw},
+                               run_dir=str(root / "cluster-smoke"))
+    recs = _run_workers(coord, timeout=300)
+    cfg = smoke_config("deepseek-7b")
+    for rec in recs:
+        _cluster_report(rec, "phase 32")
+        _check_launches(rec["launches"], expected_train_launches(cfg, "f32", CLUSTER_STEPS),
+                        f"phase 32 worker {rec['process']}")
+        if not np.allclose(rec["losses"], want, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"worker {rec['process']}: losses {rec['losses']} against "
+                                 f"the single process's {want}")
+    if recs[0]["param_digest"] != recs[1]["param_digest"]:
+        raise AssertionError(f"replica digests differ: {[r['param_digest'] for r in recs]}")
+    print(f"[cluster] phase 32: losses equal the single process's {[round(x, 6) for x in want]} "
+          f"at rtol 1e-5; replica digests equal ({recs[0]['param_digest']})")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3834,6 +4142,19 @@ def main() -> int:
             torch, ops, get_model, get_config, dev, arch)
         side_ms[arch] = ms[(arch, "f32")]                                   # profiled
         lap(f"phase {phase}")
+    # multi-process cluster training: 2 worker processes share the card
+    torch.cuda.empty_cache()
+    bucket_lens = cluster_bucket_lens()
+    records += cluster_kernel_checks(torch, R, F, dev, bucket_lens)
+    lap("phase 31's kernel checks")
+    cluster_root = Path(tempfile.mkdtemp(prefix="chip-smoke-cluster-"))
+    try:
+        cluster_totals = cluster_training(torch, ops, dev, bucket_lens, cluster_root)
+        lap("phase 31")
+        cluster_smoke(smoke_config, dev, cluster_root)
+        lap("phase 32")
+    finally:
+        shutil.rmtree(cluster_root, ignore_errors=True)
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     profile_train(torch, train_session_factory, dev, train_ms)
@@ -3845,7 +4166,8 @@ def main() -> int:
     lap("phase 12")
     totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
               "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals,
-              "engine_serving": engine_totals, **slice_totals, **family_train_totals}
+              "engine_serving": engine_totals, **slice_totals, **family_train_totals,
+              "cluster_training": cluster_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

@@ -47,9 +47,10 @@ class ShardingPlan:
     The reference resolves a logical-axis rule table against a device mesh
     into ``NamedSharding`` trees (``repro/distributed/sharding.py``, JAX
     only); on one card every leaf and every batch key lives whole on
-    ``device``.  Keyed by ``global_rows`` like the reference's plan.
-    Multi-device plans come with the port's multi-device slice (ROADMAP
-    item 13).
+    ``device``.  Keyed by ``global_rows`` like the reference's plan.  A
+    cluster worker's compute plan covers its own row slab on its device.
+    Multi-device plans come with the port's multi-device half (ROADMAP
+    item 19).
     """
 
     device: torch.device

@@ -1,6 +1,6 @@
 """`FleetSpec`: declarative fleet construction with named presets (port of
-:mod:`repro.api.fleet`, without the cluster and sharding-rule knobs, which
-arrive with the port's multi-device slice).
+:mod:`repro.api.fleet`, without the sharding-rule knob, which arrives with
+the port's multi-device half, ROADMAP item 19).
 
 Every driver used to hand-roll its own ``WorkerClass(...)`` tuple (five
 slightly-divergent copies across launch/, examples/, and tests/).  A
@@ -21,7 +21,7 @@ import dataclasses
 from typing import List, Mapping, Optional, Tuple
 
 from repro_torch.core.privacy import Shard
-from repro_torch.core.topology import Fleet, WorkerClass, paper_fleet, tpu_fleet
+from repro_torch.core.topology import ClusterSpec, Fleet, WorkerClass, paper_fleet, tpu_fleet
 from repro_torch.storage import StorageSpec
 
 
@@ -31,12 +31,15 @@ class FleetSpec:
 
     ``storage`` selects the data plane: which
     :class:`~repro_torch.storage.StorageDevice` backend every worker's device
-    uses (``synthetic`` | ``flash``); see :meth:`with_storage`.
+    uses (``synthetic`` | ``flash`` | ``meshfeed``); see :meth:`with_storage`.
+    ``cluster`` (optional) runs the fleet across several worker processes;
+    see :meth:`with_cluster`.
     """
 
     classes: Tuple[WorkerClass, ...] = ()
     name: str = "custom"
     storage: StorageSpec = dataclasses.field(default_factory=StorageSpec)
+    cluster: Optional[ClusterSpec] = None
 
     # -- presets -----------------------------------------------------------
 
@@ -115,9 +118,40 @@ class FleetSpec:
         """Select the storage backend for every device in the fleet:
 
             FleetSpec.demo(3).with_storage("flash", root="/data/spool")
+            FleetSpec.demo(3).with_storage("meshfeed")
         """
         return dataclasses.replace(
             self, storage=StorageSpec(backend=backend, **kw)
+        )
+
+    def with_cluster(self, processes: int, **kw) -> "FleetSpec":
+        """Run the fleet across ``processes`` worker PROCESSES (see
+        :mod:`repro_torch.launch.cluster`):
+
+            FleetSpec.demo(3).with_cluster(processes=2)
+
+        Each process provisions only its own dp-groups' storage devices and
+        lands only its own row span on its device.  The data plane needs
+        span delivery, so a spec still on the default ``synthetic`` backend
+        is upgraded to ``meshfeed``; an explicit host-delivery choice is left
+        for ``Session`` to reject with a clear error.
+
+        The gradient-reduction wire is configured by ``transport=`` — a
+        :class:`~repro_torch.core.topology.TransportSpec` (or kwargs dict):
+        compression (``"int8"``/``"topk"`` with error feedback), bucket
+        overlap, and star vs peer-to-peer ring topology.
+        ``TransportSpec.production()`` is the tuned preset:
+
+            FleetSpec.demo(3).with_cluster(
+                processes=2, transport=TransportSpec.production())
+        """
+        storage = self.storage
+        if storage.backend == "synthetic":
+            storage = dataclasses.replace(storage, backend="meshfeed")
+        return dataclasses.replace(
+            self,
+            cluster=ClusterSpec(processes=processes, **kw),
+            storage=storage,
         )
 
     def build(self) -> Fleet:

@@ -22,8 +22,8 @@ is that converter, deliberately split in three pluggable pieces:
     session.
 
 The worker side is :class:`HeartbeatWriter`, a daemon thread that refreshes
-a process's heartbeat for its whole life (the cluster runtime that starts
-it comes with ROADMAP item 13).
+a process's heartbeat for its whole life; each cluster worker's
+:class:`~repro_torch.launch.cluster.WorkerRuntime` starts one.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """`Session`: the staged entry point of the Stannis training pipeline (port
-of :mod:`repro.api.session`, single process, one torch device).
+of :mod:`repro.api.session`, one torch device a process).
 
     session = Session(model=model, optimizer=adamw(),
                       fleet=FleetSpec.demo(2), data=DataConfig(...),
@@ -34,9 +34,17 @@ valid checkpoint, the batcher's cursors included, so a restart replays no
 data.
 
 The session runs on the card unless told otherwise (``device="cuda"``; it
-raises when no card is visible).  Cluster execution (hostsync /
-multi-process) is not ported yet and raises ``NotImplementedError`` naming
-its ROADMAP item.
+raises when no card is visible).
+
+Cluster mode (:meth:`Session.attach_cluster`, done by
+:class:`~repro_torch.launch.cluster.WorkerRuntime` in each worker process):
+the process provisions storage devices only for its own dp-groups
+(:meth:`process_map`), lands only its row span on its device, and the
+compiled step is the ``hostsync`` pair -- this process's partial gradient
+as flat bucket vectors, a :class:`~repro_torch.launch.transport.GradReducer`
+round (compression / overlap / star or ring per the ``TransportSpec``),
+then the identical update every replica applies.  Checkpoints go through
+:class:`~repro_torch.checkpoint.ClusterCheckpointManager`.
 """
 from __future__ import annotations
 
@@ -44,17 +52,20 @@ import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
+import torch
+
 from repro_torch.api.artifacts import (
     CompiledStep, ReplanResult, ShardingPlan, TrainReport, TunePlan,
 )
 from repro_torch.api.callbacks import CallbackRegistry
 from repro_torch.api.events import DriftDetected, FleetEvent, WorkerJoined, WorkerLost
 from repro_torch.api.fleet import FleetSpec
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint import CheckpointManager, ClusterCheckpointManager
 from repro_torch.core.hetero import BatchSchedule, schedule_from_tune
 from repro_torch.core.load_balance import EpochPlan, plan_epoch
 from repro_torch.core.privacy import Shard, place
-from repro_torch.core.topology import Fleet
+from repro_torch.core.topology import ClusterSpec, Fleet, ProcessMap, TransportSpec
 from repro_torch.core.tuner import BenchmarkFn, DriftMonitor, tune
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
@@ -64,11 +75,11 @@ from repro_torch.storage import (
     DataConfig, DeviceFleet, FleetBatcher, FleetManifest, StorageSpec,
     make_fleet_batcher, manifest_sources,
 )
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import (
+    make_bucketed_apply_step, make_bucketed_grad_step, make_train_step, plan_buckets,
+)
 
 PyTree = Any
-
-ROADMAP_CLUSTER = "ROADMAP item 13 'Multi-device and multi-process'"
 
 # stage dependency graph: invalidating a stage clears it plus everything
 # that derives from it ("shard"/"compile" depend only on the tune schedule)
@@ -135,6 +146,14 @@ class Session:
         self.callbacks = callbacks or CallbackRegistry()
         # the storage data plane: explicit arg > FleetSpec.storage > default
         self.storage: StorageSpec = storage or spec_storage or StorageSpec()
+        # cluster mode: the spec travels on the FleetSpec; the live process
+        # identity (ClusterContext) is attached by the WorkerRuntime
+        self.cluster_spec: Optional[ClusterSpec] = (
+            fleet.cluster if isinstance(fleet, FleetSpec) else None)
+        self._cluster = None
+        self._local_plan: Optional[ShardingPlan] = None
+        # seconds the hostsync step spent in its parts, over ``steps`` steps
+        self.cluster_timing: Dict[str, float] = {}
         # the device fleet persists across stage rebuilds (custody state)
         self._device_fleet: Optional[DeviceFleet] = None
         self._artifacts: Dict[str, Any] = {}
@@ -157,11 +176,45 @@ class Session:
             cls, idx = w.rsplit("/", 1)
             self._next_index[cls] = max(self._next_index.get(cls, 0), int(idx) + 1)
 
-    # -- cluster mode (not ported) ------------------------------------------
+    # -- cluster mode ------------------------------------------------------
 
-    def attach_cluster(self, ctx: Any) -> None:
-        raise NotImplementedError(
-            f"cluster execution is not ported to repro_torch yet ({ROADMAP_CLUSTER})")
+    @property
+    def cluster(self):
+        """The attached :class:`~repro_torch.launch.mesh.ClusterContext`, or None."""
+        return self._cluster
+
+    def attach_cluster(self, ctx) -> None:
+        """Bind this session to its worker-process identity (see
+        :class:`~repro_torch.launch.mesh.ClusterContext`).  Must happen before
+        the first stage builds — custody and the row span key off it."""
+        if self._artifacts or self._device_fleet is not None:
+            raise RuntimeError("attach_cluster() must run before any stage is built")
+        if self.storage.backend not in ("meshfeed",):
+            raise ValueError(
+                f"cluster execution needs the span-delivery storage backend, "
+                f"not {self.storage.backend!r} (use "
+                f"FleetSpec.with_cluster / with_storage('meshfeed'))")
+        if ctx.device is not None and torch.device(ctx.device) != self.device:
+            raise ValueError(f"the cluster context's device {ctx.device} is not the "
+                             f"session's {self.device}")
+        self._cluster = ctx
+
+    def _is_cluster(self) -> bool:
+        return self._cluster is not None and self._cluster.n_processes > 1
+
+    def process_map(self) -> Optional[ProcessMap]:
+        """dp-group -> process custody (None outside cluster mode)."""
+        if not self._is_cluster():
+            return None
+        tp = self.tune()
+        pmap = ProcessMap(tp.group_workers, self._cluster.n_processes)
+        if pmap.n_groups % pmap.n_processes != 0:
+            raise ValueError(
+                f"{pmap.n_groups} dp-groups do not split evenly over "
+                f"{pmap.n_processes} processes — the processes' equal row slabs "
+                f"would straddle process custody; size the fleet so "
+                f"groups % processes == 0")
+        return pmap
 
     # -- introspection -----------------------------------------------------
 
@@ -177,11 +230,16 @@ class Session:
 
     @property
     def devices(self) -> DeviceFleet:
-        """The live storage device fleet (provisioned on first access)."""
+        """The live storage device fleet (provisioned on first access).
+        In cluster mode only THIS process's dp-groups get real devices —
+        every other worker is a remote custody record."""
         if self._device_fleet is None:
             tp = self.tune()
+            pmap = self.process_map()
             self._device_fleet = DeviceFleet.provision(
                 tp.group_workers, self._shards, self.data, spec=self.storage,
+                process_map=pmap,
+                process_id=self._cluster.process_id if pmap else 0,
             )
         return self._device_fleet
 
@@ -296,7 +354,17 @@ class Session:
         if "shard" not in self._artifacts:
             self._artifacts["shard"] = ShardingPlan(
                 device=self.device, global_rows=tp.schedule.global_rows)
-        return self._artifacts["shard"]
+            self._local_plan = None
+        plan = self._artifacts["shard"]
+        if self._is_cluster() and self._local_plan is None:
+            # the hostsync COMPUTE plan: this process's row slab on its device
+            start, stop = self.process_map().row_span(
+                self._cluster.process_id, tp.schedule.max_local)
+            self._local_plan = ShardingPlan(device=self.device, global_rows=stop - start)
+        # (re-)hand the plan to the data plane: meshfeed lands this process's
+        # rows on the plan's device; idempotent, a no-op for other backends
+        self.devices.adopt_plan(plan, self._local_plan if self._is_cluster() else None)
+        return plan
 
     # -- stage 5: the train step -------------------------------------------
 
@@ -324,8 +392,11 @@ class Session:
                 warmup_steps=self.config.warmup_steps,
                 total_steps=self.config.total_steps,
             )
-            step = make_train_step(self.model, self.optimizer, sched,
-                                   aux_weight=self.config.aux_weight)
+            if self._is_cluster():
+                step = self._compile_hostsync(sched)
+            else:
+                step = make_train_step(self.model, self.optimizer, sched,
+                                       aux_weight=self.config.aux_weight)
             self._compile_count += 1
             self._artifacts["compile"] = CompiledStep(
                 step_fn=step,
@@ -336,6 +407,73 @@ class Session:
                 config_key=self._config_key(),
             )
         return self._artifacts["compile"]
+
+    def _transport_spec(self) -> TransportSpec:
+        """The TransportSpec in force: the attached context's (set by the
+        worker CLI) wins; the FleetSpec's ClusterSpec is the fallback."""
+        if self._cluster is not None and self._cluster.transport_spec is not None:
+            return self._cluster.transport_spec
+        if self.cluster_spec is not None:
+            return self.cluster_spec.transport
+        return TransportSpec()
+
+    def _compile_hostsync(self, sched):
+        """The cluster step: this process's partial gradient as per-bucket
+        flat f32 vectors on its device, a
+        :class:`~repro_torch.launch.transport.GradReducer` round (whose sums
+        come back on the host), and the apply half that lands them on the
+        device leaf by leaf as it unflattens them — one ``step_fn`` with the
+        standard signature, counted as ONE compile.  Numerically the single-program step (see
+        :func:`~repro_torch.train.steps.make_partial_grad_step`).
+        ``cluster_timing`` accumulates the seconds of its parts."""
+        from repro_torch.launch.transport import GradReducer, StarTransport
+
+        ctx = self._cluster
+        tspec = self._transport_spec()
+        params_abs, _ = self.model.init_params(abstract=True)
+        groups = plan_buckets(params_abs, tspec.buckets)
+        grad_step = make_bucketed_grad_step(self.model, groups,
+                                            aux_weight=self.config.aux_weight)
+        apply_step = make_bucketed_apply_step(self.optimizer, sched, params_abs, groups,
+                                              aux_weight=self.config.aux_weight)
+        reducer = None
+        if ctx.sync is not None:
+            # cached on the context so error-feedback residuals (and the
+            # ring's sockets) survive recompiles
+            reducer = ctx.grad_reducer
+            if reducer is None:
+                reducer = GradReducer(ctx.transport or StarTransport(ctx.sync), tspec,
+                                      ctx.process_id, ctx.n_processes)
+                ctx.grad_reducer = reducer
+        counter = iter(range(1 << 62))
+        device = self.device
+        timing = self.cluster_timing
+        for key in ("steps", "grad_s", "apply_s"):
+            timing.setdefault(key, 0.0)
+
+        def step_fn(params, opt_state, batch):
+            t0 = time.perf_counter()
+            vecs, sums = grad_step(params, batch)
+            if reducer is not None:
+                host_sums = {k: v.cpu().numpy() for k, v in sums.items()}   # waits
+                t1 = time.perf_counter()
+                timing["grad_s"] += t1 - t0
+                # deterministic pid-ordered reduction: every process gets
+                # identical totals, applies the identical update, and the
+                # replicas stay bit-synchronized without a broadcast
+                red_vecs, red_sums = reducer.reduce(f"step/{next(counter)}", vecs, host_sums)
+                vecs = [torch.from_numpy(v) for v in red_vecs]
+                sums = {k: torch.tensor(np.float32(v), device=device)
+                        for k, v in red_sums.items()}
+            t0 = time.perf_counter()
+            out = apply_step(params, opt_state, vecs, sums)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            timing["apply_s"] += time.perf_counter() - t0
+            timing["steps"] += 1
+            return out
+
+        return step_fn
 
     # -- state ---------------------------------------------------------------
 
@@ -373,7 +511,16 @@ class Session:
         compiled = self.compile()
         ckpt = None
         if cfg.checkpoint_dir:
-            ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
+            if self._is_cluster():
+                # coordinated save: the primary writes every leaf, barriers at
+                # the coordinator, the primary publishes — same call sites
+                ckpt = ClusterCheckpointManager(
+                    cfg.checkpoint_dir, keep=cfg.keep_checkpoints,
+                    process_index=self._cluster.process_id,
+                    num_processes=self._cluster.n_processes,
+                    sync=self._cluster.sync)
+            else:
+                ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
             self.checkpoints = ckpt
         start_step = 0
         if ckpt is not None and ckpt.latest_step() is not None:

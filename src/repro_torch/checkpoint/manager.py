@@ -1,5 +1,5 @@
-"""Atomic, CRC-checked, async checkpointing for one process (port of the
-single-process half of :mod:`repro.checkpoint.manager`).
+"""Atomic, CRC-checked, async checkpointing (port of
+:mod:`repro.checkpoint.manager`).
 
 Format (the reference's, byte for byte for the same values): one ``.npy``
 per leaf, named by its '/'-joined key path with '/' -> '__', plus
@@ -24,8 +24,15 @@ pytree order: dict keys sorted, ``OptState`` fields in order (``step``,
     thread's error.
   * Keep-K rotation bounds disk use.
 
-The multi-process half (``save_process``, ``finalize_process_save``,
-``ClusterCheckpointManager``) comes with cluster execution (ROADMAP item 13).
+Multi-process (cluster) checkpoints: every port tensor lives whole in one
+process and every replica holds the same state, so the PRIMARY (process 0)
+writes the whole checkpoint through the same atomic save, between a barrier
+that every process reaches at the step and one that holds them until it is
+published (:class:`ClusterCheckpointManager`).  A leaf sharded across
+processes, its per-shard chunks and the reference's partial manifests
+(``save_process`` / ``finalize_process_save``) come with the multi-device
+half of the port (ROADMAP item 19).  :func:`restore` reads the published
+checkpoint with any process count.
 """
 from __future__ import annotations
 
@@ -228,7 +235,7 @@ def restore(directory: str, like: PyTree, *, step: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
-# the manager
+# the managers
 # ---------------------------------------------------------------------------
 
 
@@ -295,3 +302,37 @@ class CheckpointManager:
                        if n.startswith("step_") and not n.endswith(".tmp"))
         for s in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:010d}"), ignore_errors=True)
+
+
+@dataclasses.dataclass
+class ClusterCheckpointManager(CheckpointManager):
+    """Coordinated multi-process saves behind the CheckpointManager API.
+
+    Each process holds one of these; ``save`` runs the single-writer
+    protocol (barrier -> the primary's atomic save + rotate -> barrier), so
+    a ``Session`` in cluster mode checkpoints through exactly the same call
+    sites as a single-process one.  Saves are synchronous — the
+    cross-process barrier IS the stall, a background thread would just hide
+    a torn save.  A peer lost before the first barrier leaves nothing
+    published.
+
+    ``sync`` duck-types the coordinator transport (``barrier(tag)``);
+    ``process_index == 0`` is the primary.
+    """
+
+    process_index: int = 0
+    num_processes: int = 1
+    sync: Any = None
+
+    def _barrier(self, tag: str):
+        if self.sync is not None and self.num_processes > 1:
+            self.sync.barrier(tag)
+
+    def save(self, step: int, tree: PyTree, metadata=None, *, async_: bool = False):
+        t0 = time.perf_counter()
+        self._barrier(f"ckpt-enter/{step}")
+        if self.process_index == 0:           # the primary is the single writer
+            _write(self.directory, step, _snapshot(tree), metadata)
+            self._rotate()
+        self._barrier(f"ckpt-publish/{step}")
+        self.last_snapshot_s, self.last_write_s = 0.0, time.perf_counter() - t0

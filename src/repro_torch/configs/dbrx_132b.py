@@ -5,8 +5,8 @@ Same dims as ``repro.configs.dbrx_132b``.
 The reference's config says ``norm="layernorm"``, but its ``models/moe.py``
 never reads the field and normalizes with ``rms_norm`` throughout; the port
 does the same and carries no ``norm`` field.  The reference's ``fsdp=True``
-is a sharding option (ROADMAP item 13).  At full width (264 GB of bf16
-weights) the model needs the expert-sharded multi-card path of item 13;
+is a sharding option (ROADMAP item 19).  At full width (264 GB of bf16
+weights) the model needs the expert-sharded multi-card path of item 19;
 only ``SMOKE`` runs on one card.
 """
 import torch

@@ -4,7 +4,7 @@ dims as ``repro.configs.qwen3_moe_30b_a3b``.
 
 As in the reference: no QK-norm, and capacity-factor dispatch (1.25) where
 the HF model routes without drops.  The reference's ``fsdp=True`` is a
-sharding option; it comes with the multi-device slice (ROADMAP item 13).
+sharding option; it comes with the multi-device half (ROADMAP item 19).
 """
 import torch
 

@@ -9,9 +9,9 @@ deployments (the technique's target at our scale).
 
 Everything here is *accounting* — pure Python over dataclasses — so the tuner,
 load balancer, energy benchmark, and trainer can share one consistent model.
-(A copy of ``repro/core/topology.py`` without its cluster process topology
-— ``ProcessMap``/``TransportSpec``/``ClusterSpec`` — which arrives with the
-port's multi-process slice.)
+(A copy of ``repro/core/topology.py``; its cluster process topology --
+``ProcessMap``/``TransportSpec``/``ClusterSpec`` -- drives the port's
+multi-process ``hostsync`` execution, :mod:`repro_torch.launch.cluster`.)
 
 Units: throughput in samples/s at a reference batch size, power in watts,
 bandwidth in GB/s.
@@ -237,3 +237,158 @@ def fleet_throughput(
     )
     total = sum(c.count * batches.get(c.name, 0) for c in fleet.classes)
     return total / t if t > 0 and not math.isinf(t) else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Cluster process topology
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMap:
+    """dp-group -> worker-process assignment for multi-process execution.
+
+    The Stannis global batch is group-major: group ``g`` owns rows
+    ``[g*max_local, (g+1)*max_local)``.  A cluster of ``n_processes`` worker
+    processes splits the groups into contiguous blocks (``g * P // G``), so a
+    process's rows are one contiguous span of the global batch -- the slab
+    its one device computes.  Each process provisions storage devices (shard
+    custody) ONLY for its own groups; every other group is a remote record
+    in the manifest.
+    """
+
+    group_workers: Tuple[str, ...]
+    n_processes: int
+
+    def __post_init__(self):
+        if self.n_processes < 1:
+            raise ValueError(f"n_processes must be >= 1, got {self.n_processes}")
+        if self.n_processes > max(1, len(self.group_workers)):
+            raise ValueError(
+                f"{self.n_processes} processes but only "
+                f"{len(self.group_workers)} dp-groups — a worker process with "
+                f"no group custody has nothing to feed"
+            )
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.group_workers)
+
+    def process_of_group(self, g: int) -> int:
+        if not 0 <= g < self.n_groups:
+            raise IndexError(g)
+        return g * self.n_processes // self.n_groups
+
+    def process_of(self, worker: str) -> int:
+        return self.process_of_group(self.group_workers.index(worker))
+
+    def local_groups(self, process: int) -> range:
+        g0 = math.ceil(process * self.n_groups / self.n_processes)
+        g1 = math.ceil((process + 1) * self.n_groups / self.n_processes)
+        return range(g0, g1)
+
+    def local_workers(self, process: int) -> Tuple[str, ...]:
+        return tuple(self.group_workers[g] for g in self.local_groups(process))
+
+    def row_span(self, process: int, max_local: int) -> Tuple[int, int]:
+        """This process's contiguous [start, stop) row window of the global
+        batch (group-major layout, ``max_local`` rows per group)."""
+        groups = self.local_groups(process)
+        return groups.start * max_local, groups.stop * max_local
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportSpec:
+    """Gradient-reduction transport knobs for hostsync cluster execution.
+
+    Three independently toggleable optimizations (all default off, so the
+    default spec reproduces the classic full-f32 star reduction):
+
+    * ``compression`` — ``"int8"`` per-chunk symmetric quantization (the row
+      quantizer kernel, round half up) or ``"topk"`` magnitude
+      sparsification (``topk_ratio`` of entries kept).  Both keep a per-host
+      *error-feedback* residual so the dropped mass re-enters later steps;
+      every worker decodes every peer's payload and sums in process-id
+      order, so replicas stay bit-identical.
+    * ``overlap`` — split the grad tree into ``buckets`` flat f32 vectors
+      and pipeline bucket *i*'s gather/decode (background thread, double
+      buffered) with bucket *i+1*'s encode.
+    * ``topology`` — ``"ring"`` peer-to-peer allgather (workers listen on
+      their own sockets; the coordinator is demoted to rendezvous +
+      membership) or the ``"star"`` coordinator fallback.
+
+    ``timeout`` bounds every blocking wire wait; a silent peer raises
+    ``SyncPeerLost`` instead of hanging the step.
+    """
+
+    compression: str = "none"       # "none" | "int8" | "topk"
+    topk_ratio: float = 0.01        # fraction of entries kept when "topk"
+    chunk: int = 512                # int8 quantization chunk (one scale each)
+    buckets: int = 1                # grad tree split into this many vectors
+    overlap: bool = False           # pipeline reduce(i) with encode(i+1)
+    topology: str = "star"          # "star" | "ring"
+    timeout: float = 120.0          # seconds before a wire wait raises
+
+    def __post_init__(self):
+        if self.compression not in ("none", "int8", "topk"):
+            raise ValueError(f"unknown compression {self.compression!r}")
+        if self.topology not in ("star", "ring"):
+            raise ValueError(f"unknown topology {self.topology!r}")
+        if self.buckets < 1:
+            raise ValueError(f"buckets must be >= 1, got {self.buckets}")
+        if not 0.0 < self.topk_ratio <= 1.0:
+            raise ValueError(f"topk_ratio must be in (0, 1], got {self.topk_ratio}")
+        if self.chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {self.chunk}")
+        if self.timeout <= 0:
+            raise ValueError(f"timeout must be > 0, got {self.timeout}")
+
+    @classmethod
+    def production(cls, **overrides) -> "TransportSpec":
+        """The all-optimizations-on preset used by benches and smoke rigs."""
+        kw = dict(compression="int8", buckets=2, overlap=True, topology="ring")
+        kw.update(overrides)
+        return cls(**kw)
+
+    def to_dict(self) -> Dict[str, object]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSpec:
+    """Declarative multi-process execution: how many worker processes, and
+    how they find each other.  Carried by ``FleetSpec.with_cluster`` so one
+    line turns a single-process session into a cluster launch.
+
+    ``local_devices`` is the per-process device count: 0 or 1 (one torch
+    device a process; more needs the multi-device half of the port, ROADMAP
+    item 19).  ``sync_port`` is the coordinator's sync service (0 picks a
+    free one at launch); it is also the ring's rendezvous.  ``membership_dir``
+    is where worker heartbeats land for the
+    :class:`~repro_torch.api.membership.MembershipWatcher` (a fresh tempdir
+    when omitted).  ``transport`` selects the gradient reduction path (see
+    :class:`TransportSpec`).  The reference's ``coordinator_port`` (the
+    ``jax.distributed`` rendezvous) and ``compile_cache_dir`` (a shared XLA
+    compilation cache) have nothing to point at in eager PyTorch.
+    """
+
+    processes: int = 1
+    local_devices: int = 0
+    sync_port: int = 0
+    membership_dir: Optional[str] = None
+    heartbeat_interval: float = 0.25
+    transport: TransportSpec = dataclasses.field(default_factory=TransportSpec)
+
+    def __post_init__(self):
+        if self.processes < 1:
+            raise ValueError(
+                f"cluster needs >= 1 process, got {self.processes}"
+            )
+        if self.local_devices > 1:
+            raise NotImplementedError(
+                f"local_devices={self.local_devices}: a worker process drives one "
+                f"torch device; several devices a process is the multi-device half "
+                f"of the port (ROADMAP item 19)"
+            )
+        if isinstance(self.transport, dict):
+            object.__setattr__(self, "transport", TransportSpec(**self.transport))

@@ -7,11 +7,15 @@ compiled at once, one ``nvcc`` process each, at first use, into
 ``kernels/_build/<hash>/`` next to this file; the hash covers the sources and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 The directory is listed in ``.gitignore``.  A failed build raises with
-``nvcc``'s output.
+``nvcc``'s output.  The build holds an exclusive file lock on
+``<hash>/.lock``, so processes that start together (a cluster's workers on
+one card) build once: the first builds, the others wait and load its
+libraries.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -97,6 +101,22 @@ class _Kernels:
         t0 = time.perf_counter()
         out_dir = BUILD_ROOT / source_hash()
         out_dir.mkdir(parents=True, exist_ok=True)
+        with open(out_dir / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)        # released when the file closes
+            self._build_locked(out_dir)
+        libs = {s.stem: ctypes.CDLL(str(out_dir / f"lib{s.stem}.so")) for s in sources()}
+        for name, (stem, argtypes) in SIGNATURES.items():
+            fn = getattr(libs[stem], name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._libs = libs
+        self.out_dir = out_dir
+        self.build_seconds = time.perf_counter() - t0
+        return libs
+
+    def _build_locked(self, out_dir: Path) -> None:
+        """Compile every source whose library ``out_dir`` lacks, one nvcc
+        each, all started together."""
         todo = [s for s in sources() if not (out_dir / f"lib{s.stem}.so").exists()]
         nvcc = nvcc_path() if todo else None
         procs = []
@@ -118,15 +138,6 @@ class _Kernels:
         self.build_log = "\n".join(logs)
         if failed:
             raise KernelBuildError(f"nvcc failed on {failed}:\n{self.build_log}")
-        libs = {s.stem: ctypes.CDLL(str(out_dir / f"lib{s.stem}.so")) for s in sources()}
-        for name, (stem, argtypes) in SIGNATURES.items():
-            fn = getattr(libs[stem], name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        self._libs = libs
-        self.out_dir = out_dir
-        self.build_seconds = time.perf_counter() - t0
-        return libs
 
     def fn(self, name: str):
         stem = SIGNATURES[name][0]

@@ -1,7 +1,10 @@
 """Training driver of the port: the Stannis pipeline through the staged
-Session on one device — Algorithm-1 tune, Eq.-1 epoch plan, privacy
-placement, then training steps on batches assembled inside the storage
-devices.
+Session — Algorithm-1 tune, Eq.-1 epoch plan, privacy placement, then
+training steps on batches assembled inside the storage devices, in one
+process or, with ``--cluster-processes N``, in N worker processes
+(:mod:`repro_torch.launch.cluster`, ``hostsync``), each provisioning only
+its own dp-groups' storage devices and landing only its own rows on its
+device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6 --seq 32
@@ -14,14 +17,18 @@ devices.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 50 \\
       --checkpoint-dir /path/to/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --cluster-processes 2 --csds 3 --steps 4 --seq 16
 
 ``--full-config`` runs the published dims (random weights from ``--seed``);
 ``--layers`` cuts the depth, the one cut a single card may need.
 ``--checkpoint-dir`` saves every ``SessionConfig.checkpoint_every`` (50)
 steps and resumes from the newest valid checkpoint there.  ``--device``
-defaults to ``cuda``, and the run fails when no card is found.  Not
-ported yet, each refused with its ROADMAP item: ``--cluster-processes > 1``
-and ``--measured-tune``.
+defaults to ``cuda``, and the run fails when no card is found (every
+cluster worker on the one card, or each on the CPU with ``--device cpu``).
+``--cluster-processes`` needs ``(1 + csds) % N == 0``.  Refused, each with
+its ROADMAP item: ``--cluster-local-devices`` above 1 (several devices a
+process, item 19) and ``--measured-tune`` (item 14).
 
 Every arch trains here as it does in the reference's launcher: the MoE
 archs with the router's aux loss in the loss (``SessionConfig.aux_weight``);
@@ -36,18 +43,21 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import Optional
+from typing import Dict, Optional
 
 from repro_torch.api import FleetSpec, Session, SessionConfig
-from repro_torch.api.session import ROADMAP_CLUSTER
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.device import DeviceLike
 from repro_torch.models.api import get_model
 from repro_torch.optim import adamw, sgd_momentum
 from repro_torch.storage import DataConfig
+from repro_torch.storage.meshfeed import ROADMAP_MULTI_DEVICE
 
 ROADMAP_MEASURED_TUNE = "ROADMAP item 14 'Drivers and benches'"
 PRECISIONS = ("f32", "bf16", "int8-fused")
+# the driver's fleet: FleetSpec.demo's keyword arguments beside n_csds
+DRIVER_FLEET = dict(host_tput=80.0, csd_tput=10.0, host_max_batch=64, csd_max_batch=8,
+                    host_idle=100.0, csd_idle=1.5)
 
 
 def train_session_factory(
@@ -64,19 +74,22 @@ def train_session_factory(
     checkpoint_every: int = SessionConfig.checkpoint_every,
     seed: int = 0,
     device: DeviceLike = "cuda",
+    cluster_processes: int = 1,
+    fleet: Optional[Dict[str, float]] = None,
 ) -> Session:
     """The driver's session: the reference's demo fleet (1 host + ``csds``
-    CSD-class workers), 256 private samples per CSD and a 65,536-sample
-    public pool."""
+    CSD-class workers; ``fleet`` replaces :data:`DRIVER_FLEET`, the rest of
+    ``FleetSpec.demo``'s keyword arguments), 256 private samples per CSD
+    and a 65,536-sample public pool; importable by name from cluster
+    workers (``cluster_processes`` above 1 puts the fleet in cluster
+    mode)."""
     cfg = get_config(arch) if full_config else smoke_config(arch)
     cfg = cfg.with_(train_precision=precision)
     if n_layers is not None:
         cfg = cfg.with_(n_layers=n_layers)
-    spec = FleetSpec.demo(
-        csds, host_tput=80.0, csd_tput=10.0,
-        host_max_batch=64, csd_max_batch=8,
-        host_idle=100.0, csd_idle=1.5,
-    )
+    spec = FleetSpec.demo(csds, **(DRIVER_FLEET if fleet is None else fleet))
+    if cluster_processes > 1:
+        spec = spec.with_cluster(processes=cluster_processes)
     return Session(
         model=get_model(cfg),
         optimizer=adamw() if optimizer == "adamw" else sgd_momentum(),
@@ -109,21 +122,60 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--measured-tune", action="store_true",
                     help=f"not ported ({ROADMAP_MEASURED_TUNE})")
     ap.add_argument("--cluster-processes", type=int, default=1,
-                    help=f"values above 1 are not ported ({ROADMAP_CLUSTER})")
+                    help="launch N worker processes (hostsync)")
+    ap.add_argument("--cluster-local-devices", type=int, default=0,
+                    help=f"devices a worker process: 0 or 1 (more is {ROADMAP_MULTI_DEVICE})")
     return ap
+
+
+def _run_cluster(args) -> int:
+    from repro_torch.core.topology import ClusterSpec
+    from repro_torch.launch.cluster import run_cluster
+
+    result = run_cluster(
+        ClusterSpec(processes=args.cluster_processes,
+                    local_devices=args.cluster_local_devices),
+        "repro_torch.launch.train:train_session_factory",
+        {
+            "arch": args.arch, "steps": args.steps, "seq": args.seq, "csds": args.csds,
+            "full_config": args.full_config, "n_layers": args.layers,
+            "precision": args.precision, "optimizer": args.optimizer,
+            "checkpoint_dir": args.checkpoint_dir, "seed": args.seed,
+            "device": args.device, "cluster_processes": args.cluster_processes,
+        },
+    )
+    for rec in result.records:
+        print(
+            f"[proc {rec['process']}/{rec['n_processes']} {rec['mode']}] "
+            f"workers={rec['local_workers']} device={rec['device']} "
+            f"local_rows={rec['receipt']['rows_local'] if rec['receipt'] else '-'}"
+            f"/{rec['global_rows']} compiles={rec['compile_count']} "
+            f"digest={rec['param_digest']}"
+        )
+        if rec["losses"]:
+            print(f"  loss {rec['losses'][0]:.4f} -> {rec['losses'][-1]:.4f} "
+                  f"addressable_only={rec['addressable_only']}")
+    if not result.ok:
+        print(f"cluster failed: returncodes={result.returncodes} "
+              f"(worker logs under {result.run_dir})", file=sys.stderr)
+        return 1
+    return 0
 
 
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.cluster_processes > 1:
-        ap.error(f"--cluster-processes > 1 is not ported to repro_torch yet ({ROADMAP_CLUSTER})")
+    if args.cluster_local_devices > 1:
+        ap.error(f"--cluster-local-devices {args.cluster_local_devices}: a worker process "
+                 f"drives one device; more is {ROADMAP_MULTI_DEVICE}")
     if args.measured_tune:
         ap.error(f"--measured-tune is not ported to repro_torch yet ({ROADMAP_MEASURED_TUNE})")
     if get_config(args.arch).family == "encdec":
         ap.error(f"{args.arch} trains on audio frames, which the fleet's batches do not "
                  f"carry: train it through train.steps.make_train_step with 'frames' in "
                  f"the batch")
+    if args.cluster_processes > 1:
+        return _run_cluster(args)
 
     session = train_session_factory(
         arch=args.arch, steps=args.steps, seq=args.seq, csds=args.csds,

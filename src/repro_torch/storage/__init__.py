@@ -1,5 +1,5 @@
 """`repro_torch.storage` — computational storage as a first-class subsystem
-(copy of :mod:`repro.storage` for one process).
+(copy of :mod:`repro.storage`).
 
 STANNIS's central claim is that training happens *inside* the storage
 devices: private data never crosses the device boundary, public data is
@@ -16,21 +16,24 @@ reading bytes out of them.  This package is that device model:
                            private tombstones (CustodyEvent log)
     host DMA / fabric      FleetBatcher.next_device_batch delivery
 
-Two interchangeable backends (select via ``StorageSpec`` /
+Three interchangeable backends (select via ``StorageSpec`` /
 ``FleetSpec.with_storage``):
 
   * ``synthetic`` — deterministic in-silico corpus, zero setup (default).
   * ``flash``     — memory-mapped file-backed shards, bit-identical to
     synthetic; models the paper's flash medium.
-
-The reference's third backend, ``meshfeed`` (batches born sharded over a
-device mesh), comes with the port's multi-device slice (ROADMAP item 13).
+  * ``meshfeed``  — each process lands only its own dp-groups' rows on its
+    one device (the cluster's data plane; one device a process, a
+    multi-device mesh is ROADMAP item 19).
 """
 from repro_torch.storage.device import BaseStorageDevice, StorageDevice
 from repro_torch.storage.flash import FlashDevice
 from repro_torch.storage.fleet import (
     BACKENDS, DeviceFleet, DeviceRecord, FleetBatcher, FleetManifest,
     StorageSpec, make_fleet_batcher, manifest_sources,
+)
+from repro_torch.storage.meshfeed import (
+    FeedReceipt, MeshFeedDevice, MeshFeeder, data_axis_size,
 )
 from repro_torch.storage.synthetic import DataConfig, SyntheticDevice, synth_sequence
 
@@ -40,12 +43,16 @@ __all__ = [
     "DataConfig",
     "DeviceFleet",
     "DeviceRecord",
+    "FeedReceipt",
     "FlashDevice",
     "FleetBatcher",
     "FleetManifest",
+    "MeshFeedDevice",
+    "MeshFeeder",
     "StorageDevice",
     "StorageSpec",
     "SyntheticDevice",
+    "data_axis_size",
     "make_fleet_batcher",
     "manifest_sources",
     "synth_sequence",

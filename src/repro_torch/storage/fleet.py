@@ -6,8 +6,8 @@ a replacement arrives) are custody events, not data copies.  This module is
 that control plane:
 
   * :class:`StorageSpec` — declarative backend selection (``synthetic`` /
-    ``flash``), carried by ``FleetSpec`` so one line switches the entire
-    data plane.
+    ``flash`` / ``meshfeed``), carried by ``FleetSpec`` so one line switches
+    the entire data plane.
   * :class:`DeviceFleet` — worker-id → :class:`StorageDevice` registry with
     the custody API: ``provision_worker`` (WorkerJoined), ``quarantine_workers``
     (WorkerLost: public shards re-home to survivors, private shards are
@@ -17,14 +17,16 @@ that control plane:
   * :class:`FleetBatcher` — the batch iterator ``Session.run()`` pulls from:
     each dp-group's rows are assembled *in its device* and stitched into the
     Stannis masked global batch; ``next_device_batch`` lands it on the
-    session's torch device.
+    session's torch device (in a cluster, only this process's row span).
   * :class:`FleetManifest` — what ``Session.place()`` returns: the core
     privacy :class:`~repro_torch.core.privacy.PlacementManifest` plus per-device
     custody records, so placement is auditable down to the device.
 
-A copy of ``repro/storage/fleet.py`` for one process: the ``meshfeed``
-backend and the cluster's process map (remote custody records, per-process
-row spans) arrive with the port's multi-device slice (ROADMAP item 13).
+A copy of ``repro/storage/fleet.py``.  Under a cluster's
+:class:`~repro_torch.core.topology.ProcessMap` only this process's dp-groups
+get storage devices; every other worker is a ``remote`` record in the
+manifest, its rows are never assembled here, and the ``meshfeed`` backend
+lands only this process's row span on its device.
 """
 from __future__ import annotations
 
@@ -39,13 +41,16 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.hetero import BatchSchedule
 from repro_torch.core.privacy import CustodyEvent, PlacementManifest, Shard
+from repro_torch.core.topology import ProcessMap
 from repro_torch.storage.device import BaseStorageDevice, StorageDevice
 from repro_torch.storage.flash import FlashDevice
+from repro_torch.storage.meshfeed import FeedReceipt, MeshFeedDevice, MeshFeeder
 from repro_torch.storage.synthetic import DataConfig, SyntheticDevice
 
 BACKENDS: Dict[str, Type[BaseStorageDevice]] = {
     "synthetic": SyntheticDevice,
     "flash": FlashDevice,
+    "meshfeed": MeshFeedDevice,
 }
 
 
@@ -54,12 +59,14 @@ class StorageSpec:
     """Declarative storage selection: which backend, and its knobs.
 
     ``root`` is the flash spool directory (a fresh tempdir when omitted);
-    ``codec`` is the flash spool width (``i32`` legacy, ``u8``/``u16``/``auto`` narrow — see
+    ``data_axis`` pins the meshfeed devices a process (one; more is the
+    port's multi-device half and raises); ``codec`` is the flash spool width (``i32`` legacy, ``u8``/``u16``/``auto`` narrow — see
     :mod:`repro_torch.storage.codec`; ignored by the in-memory backends).
     """
 
     backend: str = "synthetic"
     root: Optional[str] = None
+    data_axis: Optional[int] = None
     codec: str = "i32"
 
     def __post_init__(self):
@@ -78,21 +85,36 @@ class StorageSpec:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceRecord:
-    """One device's custody summary inside a :class:`FleetManifest`."""
+    """One device's custody summary inside a :class:`FleetManifest`.
+
+    ``process`` is the worker PROCESS that owns the device in a cluster
+    (0 single-process).  A record whose backend is ``"remote"`` describes a
+    device provisioned by ANOTHER process: this process knows it exists
+    (the manifest is the shared placement contract) but holds no custody
+    for it — its shard bytes never enter this process.
+    """
 
     worker: str
     backend: str
     custody: Tuple[str, ...]       # shard ids this device is custodian of
     n_samples: int                 # total samples under custody
+    process: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class FleetManifest(PlacementManifest):
-    """Fleet-aware placement: core assignments + per-device custody."""
+    """Fleet-aware placement: core assignments + per-device custody.
+
+    Process-aware in cluster mode: ``n_processes`` / ``local_process``
+    situate the manifest, :meth:`local_devices` picks this process's
+    records.
+    """
 
     devices: Tuple[DeviceRecord, ...] = ()
     backend: str = "synthetic"
     quarantined: Tuple[str, ...] = ()
+    n_processes: int = 1
+    local_process: int = 0
 
     def device_for(self, worker: str) -> Optional[DeviceRecord]:
         for d in self.devices:
@@ -100,21 +122,42 @@ class FleetManifest(PlacementManifest):
                 return d
         return None
 
+    def local_devices(self) -> Tuple[DeviceRecord, ...]:
+        """Records this process actually provisioned (never ``remote``)."""
+        return tuple(
+            d for d in self.devices
+            if d.process == self.local_process and d.backend != "remote"
+        )
+
 
 class DeviceFleet:
     """Worker-id-keyed registry of storage devices (see module docstring)."""
 
-    def __init__(self, cfg: DataConfig, spec: Optional[StorageSpec] = None):
+    def __init__(
+        self,
+        cfg: DataConfig,
+        spec: Optional[StorageSpec] = None,
+        *,
+        process_map: Optional[ProcessMap] = None,
+        process_id: int = 0,
+    ):
         self.cfg = cfg
         self.spec = spec or StorageSpec()
         self._devices: Dict[str, BaseStorageDevice] = {}
+        self._remote: Dict[str, int] = {}           # worker -> owner process
         self._shards: Dict[str, Shard] = {}
         self._custody: Dict[str, str] = {}          # shard_id -> custodian
         self.quarantined: set = set()
         self.custody_log: List[CustodyEvent] = []
+        self.process_map = process_map
+        self.process_id = int(process_id)
         self._flash_root = (
             (self.spec.root or tempfile.mkdtemp(prefix="repro-flash-"))
             if self.spec.backend == "flash" else None
+        )
+        self._feeder = (
+            MeshFeeder(self.spec.data_axis, process_index=self.process_id)
+            if self.spec.backend == "meshfeed" else None
         )
 
     # -- construction ------------------------------------------------------
@@ -126,13 +169,30 @@ class DeviceFleet:
         shards: Sequence[Shard],
         cfg: DataConfig,
         spec: Optional[StorageSpec] = None,
+        *,
+        process_map: Optional[ProcessMap] = None,
+        process_id: int = 0,
     ) -> "DeviceFleet":
-        fleet = cls(cfg, spec)
+        fleet = cls(cfg, spec, process_map=process_map, process_id=process_id)
         for s in shards:
             fleet.register_shard(s)
         for w in workers:
             fleet.provision_worker(w)
         return fleet
+
+    def is_local(self, worker: str) -> bool:
+        """Does THIS process own ``worker``'s storage device?
+
+        Always True single-process.  A worker unknown to the process map
+        (joined after the map was built) defaults to local — the elastic
+        controller that applies joins holds the full view.
+        """
+        if self.process_map is None:
+            return True
+        try:
+            return self.process_map.process_of(worker) == self.process_id
+        except ValueError:
+            return True
 
     def register_shard(self, shard: Shard) -> None:
         self._shards[shard.shard_id] = shard
@@ -146,10 +206,17 @@ class DeviceFleet:
                                codec=self.spec.codec)
         return klass(worker, self.cfg)
 
-    def provision_worker(self, worker: str) -> StorageDevice:
-        """WorkerJoined: bring up a fresh device holding the live shard set."""
+    def provision_worker(self, worker: str) -> Optional[StorageDevice]:
+        """WorkerJoined: bring up a fresh device holding the live shard set.
+
+        In a cluster, a worker owned by ANOTHER process gets a remote
+        record only — its shard bytes never enter this process."""
         if worker in self._devices:
             return self._devices[worker]
+        if not self.is_local(worker):
+            self._remote[worker] = self.process_map.process_of(worker)
+            return None
+        self._remote.pop(worker, None)
         dev = self._make_device(worker)
         dev.provision(list(self._shards.values()))
         for sid in self.quarantined:
@@ -178,6 +245,7 @@ class DeviceFleet:
         dead_set = set(dead)
         dead_devices: Dict[str, BaseStorageDevice] = {}
         for w in dead_set:
+            self._remote.pop(w, None)
             dev = self._devices.pop(w, None)
             if dev is not None:
                 dead_devices[w] = dev
@@ -250,7 +318,13 @@ class DeviceFleet:
     # -- manifest / delivery ------------------------------------------------
 
     def manifest(self, core: PlacementManifest) -> FleetManifest:
-        """Wrap the core privacy manifest with per-device custody records."""
+        """Wrap the core privacy manifest with per-device custody records.
+
+        Process-aware: locally provisioned devices carry their owner
+        process and real custody; workers owned by other processes appear
+        as ``remote`` records with empty custody — this process can audit
+        the full placement without ever holding the bytes."""
+        pmap, pid = self.process_map, self.process_id
         records = []
         for w, dev in self._devices.items():
             owned = sorted(
@@ -259,21 +333,61 @@ class DeviceFleet:
             records.append(DeviceRecord(
                 worker=w, backend=dev.backend, custody=tuple(owned),
                 n_samples=sum(self._shards[s].n_samples for s in owned),
+                process=pid if pmap else 0,
+            ))
+        for w, proc in sorted(self._remote.items()):
+            records.append(DeviceRecord(
+                worker=w, backend="remote", custody=(), n_samples=0,
+                process=proc,
             ))
         return FleetManifest(
             assignments=core.assignments,
             devices=tuple(records),
             backend=self.spec.backend,
             quarantined=tuple(sorted(self.quarantined)),
+            n_processes=pmap.n_processes if pmap else 1,
+            local_process=pid,
         )
 
+    def adopt_plan(self, plan, local_plan=None) -> None:
+        """Hand a session's :class:`~repro_torch.api.artifacts.ShardingPlan`
+        to the data plane: the meshfeed backend lands every batch on the
+        plan's device; with ``local_plan`` (a cluster worker's compute plan)
+        only this process's row span of the global batch.  Host-delivery
+        backends ignore both."""
+        if self._feeder is None:
+            return
+        span = None
+        if local_plan is not None and self.process_map is not None:
+            max_local = plan.global_rows // self.process_map.n_groups
+            span = self.process_map.row_span(self.process_id, max_local)
+        self._feeder.adopt(plan.device, plan.global_rows, span)
+
+    @property
+    def last_receipt(self) -> Optional[FeedReceipt]:
+        """The :class:`~repro_torch.storage.meshfeed.FeedReceipt` of the most
+        recent feed (None before the first, or for host-delivery backends)."""
+        return self._feeder.last_receipt if self._feeder is not None else None
+
     def to_device_batch(
-        self, batch: Dict[str, np.ndarray], device: torch.device,
+        self,
+        batch: Dict[str, np.ndarray],
+        device: torch.device,
+        *,
+        row_span: Optional[Tuple[int, int]] = None,
     ) -> Dict[str, torch.Tensor]:
         """Land host arrays on the session's device: one host-to-device copy
         per key and nothing else, held to that by
         :func:`transfer_guard_host_to_device` (the reference's meshfeed
-        guards its feed the same way)."""
+        guards its feed the same way).
+
+        The meshfeed backend first picks the rows to land and their device
+        (:meth:`MeshFeeder.feed`): with ``row_span``, this process's
+        [start, stop) window of the global batch (cluster mode), only those
+        rows — the rest of ``batch`` is never transferred."""
+        if self._feeder is not None:
+            batch = self._feeder.feed(batch, row_span=row_span)
+            device = self._feeder.device
         crossing = sum(v.nbytes for v in batch.values()) if device.type != "cpu" else 0
         with transfer_guard_host_to_device(crossing):
             return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
@@ -384,9 +498,20 @@ class FleetBatcher:
         while True:
             yield self.next_batch()
 
+    def local_row_span(self) -> Optional[Tuple[int, int]]:
+        """This process's [start, stop) rows of the global batch, or None
+        single-process (the whole batch is local)."""
+        pmap = self.fleet.process_map
+        if pmap is None:
+            return None
+        return pmap.row_span(self.fleet.process_id, self.schedule.max_local)
+
     def next_batch(self) -> Dict[str, np.ndarray]:
-        """One global-layout host batch; each group's rows are assembled by
-        its own storage device."""
+        """One global-layout host batch; only LOCAL groups' rows are
+        assembled (each by its own storage device).  Remote groups' rows
+        stay zero — their bytes live in another process and never enter
+        this one; every cursor still advances, so all processes agree on
+        the epoch position of every group."""
         R = self.schedule.global_rows
         S = self.cfg.seq_len
         ml = self.schedule.max_local
@@ -398,6 +523,8 @@ class FleetBatcher:
             space = self._space[w]
             cur = self._cursor[w]
             self._cursor[w] = (cur + b) % max(1, len(space))
+            if not self.fleet.is_local(w):
+                continue
             draws = [
                 space[(cur + r) % max(1, len(space))] for r in range(b)
             ]
@@ -411,10 +538,12 @@ class FleetBatcher:
         }
 
     def next_device_batch(self, device: torch.device) -> Dict[str, torch.Tensor]:
-        """One step's batch, landed on ``device``."""
+        """One step's batch, landed on ``device`` (in a cluster, only this
+        process's row span of it)."""
         b = self.next_batch()
         return self.fleet.to_device_batch(
             {k: b[k] for k in ("tokens", "labels", "loss_mask")}, device,
+            row_span=self.local_row_span(),
         )
 
 

@@ -6,13 +6,21 @@ combined row-validity x token mask, summed and normalized GLOBALLY, so
 heterogeneous group batch sizes are numerically exact.  ``make_serve_step``
 builds the one-token KV-cache decode step.
 
+Cluster (``hostsync``) training splits the step in two halves:
+``make_partial_grad_step`` (this process's unnormalized gradient over its
+row slab) and ``make_apply_step`` (the identical update every replica
+applies to the across-process sums); the bucketed forms carry the gradient
+as flat f32 vectors, the cluster transport's wire format, laid out in the
+reference's leaf order (:func:`tree_leaves_sorted`: dict keys sorted at
+every level, as ``jax.tree_util.tree_leaves``).
+
 The reference's abstract train state and ``build_sharding_plan`` resolve a
 rule table against a mesh; the port runs on one device and has neither
 (the session's one-device plan lives in :mod:`repro_torch.api.artifacts`).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -128,6 +136,231 @@ def residual_bytes(
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         loss_fn(model, live, batch, aux_weight=aux_weight)
     return total
+
+
+# ---------------------------------------------------------------------------
+# Cluster (hostsync) halves
+# ---------------------------------------------------------------------------
+
+
+def _sorted_paths(tree: PyTree, prefix: Tuple = ()) -> List[Tuple]:
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _sorted_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _sorted_paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def _at(tree: PyTree, path: Tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_leaves_sorted(tree: PyTree) -> List[Any]:
+    """Leaves in ``jax.tree_util.tree_leaves`` order: dict keys sorted at
+    every level (the port's :func:`tree_leaves` walks insertion order)."""
+    return [_at(tree, p) for p in _sorted_paths(tree)]
+
+
+def tree_unflatten_sorted(like: PyTree, leaves: List[Any]) -> PyTree:
+    """Inverse of :func:`tree_leaves_sorted` onto the structure of ``like``."""
+    by_path = dict(zip(_sorted_paths(like), leaves))
+
+    def build(t, prefix):
+        if isinstance(t, dict):
+            return {k: build(v, prefix + (k,)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v, prefix + (i,)) for i, v in enumerate(t))
+        return by_path[prefix]
+
+    return build(like, ())
+
+
+def make_partial_grad_step(model: Model, *, aux_weight: float = 0.01) -> Callable:
+    """The per-host half of cluster (hostsync) training.
+
+    Returns ``grad_step(params, batch) -> (grads, sums)`` computing this
+    host's UNNORMALIZED contribution to the global objective over its local
+    rows only:
+
+        F_p(params) = Σ_p mask·ce  +  aux_weight · den_p · aux_p
+        sums        = {num: Σ mask·ce, den: Σ mask, auxden: den_p · aux_p}
+
+    The global masked-mean step is ``total = (Σ_p F_p) / max(Σ_p den_p, 1)``
+    — a ratio of ACROSS-host sums — so summing each host's ``grads`` and
+    ``sums`` and applying :func:`make_apply_step` reproduces
+    :func:`make_train_step` (dense models; an MoE router aux becomes its
+    den-weighted mean, which coincides for P=1).  ``params`` are not
+    modified.
+    """
+
+    def objective(params, batch):
+        side = {k: batch[k] for k in ("frames", "patch_embeds") if k in batch}
+        logits, aux = model.forward(params, batch["tokens"], **side)
+        labels = batch["labels"]
+        mask = batch["loss_mask"]
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:]
+        ce = cross_entropy(logits, labels)
+        num = torch.sum(ce * mask)
+        den = torch.sum(mask)
+        auxden = den * aux
+        return num + aux_weight * auxden, {"num": num, "den": den, "auxden": auxden}
+
+    def grad_step(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        total, sums = objective(live, batch)
+        grads = torch.autograd.grad(total, tree_leaves(live))
+        it = iter(grads)
+        return tree_map(lambda _: next(it), live), {k: v.detach() for k, v in sums.items()}
+
+    return grad_step
+
+
+def make_apply_step(
+    optimizer: Optimizer,
+    lr_schedule: Callable[[int], torch.Tensor],
+    *,
+    aux_weight: float = 0.01,
+) -> Callable:
+    """The update half of cluster (hostsync) training.
+
+    ``apply_step(params, opt_state, grads, sums) -> (params, opt_state,
+    metrics)`` consumes the ACROSS-host sums of :func:`make_partial_grad_step`
+    outputs (0-d float32 tensors on the params' device).  Every host applies
+    the identical update to its identical params — replicas stay
+    bit-synchronized without a broadcast — in place, as
+    :func:`make_train_step`, whose metrics it reports.  A gradient is divided
+    in float32 whatever its dtype, as the reference's bf16 / f32 promotes.
+    """
+
+    def apply_step(params, opt_state: OptState, grads, sums):
+        den = torch.clamp(sums["den"], min=1.0)
+        loss = sums["num"] / den
+        aux = sums["auxden"] / den
+        grads = tree_map(lambda g: g.float() / den, grads)
+        lr = lr_schedule(opt_state.step)
+        opt_state, params = optimizer.update(grads, opt_state, params, lr)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in tree_leaves(grads)))
+        metrics = {
+            "loss": loss,
+            "aux": aux,
+            "total": loss + aux_weight * aux,
+            "lr": lr,
+            "grad_norm": gnorm,
+            "tokens": sums["den"],
+        }
+        return params, opt_state, metrics
+
+    return apply_step
+
+
+def plan_buckets(params_abs: PyTree, n_buckets: int) -> Tuple[Tuple[int, ...], ...]:
+    """Split the param-leaf list into contiguous, byte-balanced groups.
+
+    Buckets are the cluster transport's unit of pipelining: the hostsync
+    grad step emits one flat f32 vector per group, so bucket *i*'s
+    reduction overlaps bucket *i+1*'s encode.  Greedy contiguous packing
+    over :func:`tree_leaves_sorted` (the reference's leaf order, which every
+    worker shares); leaves may be tensors of any device, meta included.
+    """
+    leaves = tree_leaves_sorted(params_abs)
+    n_leaves = len(leaves)
+    n_buckets = max(1, min(int(n_buckets), n_leaves))
+    sizes = [leaf.element_size() * leaf.numel() for leaf in leaves]
+    groups = []
+    start = 0
+    left_bytes = float(sum(sizes))
+    for b in range(n_buckets):
+        buckets_left = n_buckets - b
+        if buckets_left == 1:
+            groups.append(tuple(range(start, n_leaves)))
+            break
+        target = left_bytes / buckets_left
+        take, acc = 1, sizes[start]
+        while (
+            start + take < n_leaves
+            and (n_leaves - start - take) > (buckets_left - 1)
+            and abs(acc + sizes[start + take] - target) <= abs(acc - target)
+        ):
+            acc += sizes[start + take]
+            take += 1
+        groups.append(tuple(range(start, start + take)))
+        start += take
+        left_bytes -= acc
+    return tuple(groups)
+
+
+def flatten_buckets(tree: PyTree, bucket_groups: Tuple[Tuple[int, ...], ...]
+                    ) -> Tuple[torch.Tensor, ...]:
+    """One flat float32 vector per bucket group, leaves in sorted order."""
+    leaves = tree_leaves_sorted(tree)
+    return tuple(
+        leaves[grp[0]].float().reshape(-1) if len(grp) == 1 else
+        torch.cat([leaves[i].float().reshape(-1) for i in grp])
+        for grp in bucket_groups
+    )
+
+
+def unflatten_buckets(like: PyTree, bucket_groups: Tuple[Tuple[int, ...], ...],
+                      bucket_vecs, device: Optional[torch.device] = None) -> PyTree:
+    """Exact inverse of :func:`flatten_buckets` onto ``like``'s shapes and
+    dtypes (a float32 round trip of f32/bf16 leaves is lossless), each leaf
+    on ``device`` (default: where its vector lies).  Vectors on the host land
+    leaf by leaf, so no device copy of a whole bucket is ever held."""
+    leaves_like = tree_leaves_sorted(like)
+    leaves: List[Any] = [None] * len(leaves_like)
+    for grp, vec in zip(bucket_groups, bucket_vecs):
+        off = 0
+        for i in grp:
+            n = leaves_like[i].numel()
+            leaves[i] = vec[off:off + n].reshape(leaves_like[i].shape).to(
+                device=device or vec.device, dtype=leaves_like[i].dtype)
+            off += n
+    return tree_unflatten_sorted(like, leaves)
+
+
+def make_bucketed_grad_step(
+    model: Model,
+    bucket_groups: Tuple[Tuple[int, ...], ...],
+    *,
+    aux_weight: float = 0.01,
+) -> Callable:
+    """:func:`make_partial_grad_step` with the grad tree flattened into one
+    f32 vector per bucket group — the cluster transport's wire format.
+    Returns ``grad_step(params, batch) -> (bucket_vecs, sums)``.
+    """
+    base = make_partial_grad_step(model, aux_weight=aux_weight)
+
+    def grad_step(params, batch):
+        grads, sums = base(params, batch)
+        return flatten_buckets(grads, bucket_groups), sums
+
+    return grad_step
+
+
+def make_bucketed_apply_step(
+    optimizer: Optimizer,
+    lr_schedule: Callable[[int], torch.Tensor],
+    params_abs: PyTree,
+    bucket_groups: Tuple[Tuple[int, ...], ...],
+    *,
+    aux_weight: float = 0.01,
+) -> Callable:
+    """:func:`make_apply_step` taking the reduced bucket vectors (float32,
+    on the params' device or on the host) instead of a grad tree; the
+    unflatten is :func:`unflatten_buckets` onto the params' device, so
+    bucketing never changes numerics.
+    """
+    base = make_apply_step(optimizer, lr_schedule, aux_weight=aux_weight)
+
+    def apply_step(params, opt_state: OptState, bucket_vecs, sums):
+        device = tree_leaves(params)[0].device
+        grads = unflatten_buckets(params_abs, bucket_groups, bucket_vecs, device)
+        return base(params, opt_state, grads, sums)
+
+    return apply_step
 
 
 def make_eval_step(model: Model, *, aux_weight: float = 0.01) -> Callable:

@@ -97,3 +97,19 @@ def test_ctypes_signature_matches_the_c_entry(entry):
 
 def test_every_ctypes_signature_has_a_c_entry():
     assert {e[1] for e in C_ENTRIES} == set(_build.SIGNATURES)
+
+
+def test_cluster_entry_points_default_to_cuda_and_refuse_the_cpu():
+    """The cluster's session factories run on the card unless told
+    otherwise, and a worker that sees no card raises instead of training on
+    the CPU (no card here)."""
+    from repro_torch.launch import cluster
+
+    assert inspect.signature(cluster.demo_session_factory).parameters["device"].default == "cuda"
+    assert "cluster_processes" in inspect.signature(train_driver.train_session_factory).parameters
+    runtime = cluster.WorkerRuntime(
+        process_id=0, num_processes=1, sync_address=None,
+        membership_dir=None, factory="repro_torch.launch.cluster:demo_session_factory",
+        factory_kwargs={"processes": 1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.run()

@@ -356,10 +356,18 @@ def test_drift_retune_keeps_compiled_step():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item(capsys):
-    s = _session()
+    # cluster execution is ported (tests/test_torch_cluster.py); what stays
+    # unported is several devices a process (the multi-device half) and the
+    # measured tune
+    from repro_torch.launch.mesh import ClusterContext
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.attach_cluster(None)
-    for argv in (["--cluster-processes", "2"], ["--measured-tune"]):
+        ClusterContext(process_id=0, n_processes=2, mode="spmd")
+    s = _session(storage={"backend": "meshfeed", "data_axis": 4})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        s.devices
+    for argv in (["--cluster-processes", "2", "--cluster-local-devices", "2"],
+                 ["--measured-tune"]):
         with pytest.raises(SystemExit):
             train_driver.main(["--device", "cpu", *argv])
         assert "ROADMAP" in capsys.readouterr().err
