@@ -74,7 +74,8 @@ MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
      prompt 512, 64 new tokens, native and int8 KV cache;
  12. profiles, after every timed run (a generate timed after the profiler ran
      measured slower decode steps): one training step per model of phases 8
-     and 19 and precision, the
+     and 19 and precision (the recurrent models' in f32 only:
+     PROFILE_F32_ONLY), the
      decode step of phase 5, the MoE decode step of phase 11, the
      recurrent decode steps of phase 15, a decode-only engine step of
      phase 22's cell (8 requests in 8 slots, native KV) and the native
@@ -130,7 +131,7 @@ Recurrent training (``launch/train.py``'s session, as phases 6-8):
      6 steps on the CPU and on the card in ``f32`` and ``int8-fused``;
      per-step losses agree, and the launch counters show every scan and
      attention call (the remat recompute included) went through its kernel;
- 19. rwkv6-7b (8 of 32 layers, seq 256) and recurrentgemma-2b (26 layers,
+ 19. rwkv6-7b (4 of 32 layers, seq 256) and recurrentgemma-2b (26 layers,
      seq 128) at full width: ``Session.run`` for 5 steps in ``f32`` and
      ``int8-fused``, reported as phase 8.  Phase 12 profiles one step of
      each.
@@ -266,11 +267,36 @@ profiles):
      (star, no compression) against the single-process card Session:
      losses at rtol 1e-5, equal digests.
 
+The measured tune, the serving example and the dry run (after phase 32,
+before the profiles):
+ 33. ``measured_tune``: ``train_session_factory(measured_tune=True)`` at
+     phase 8's cell (deepseek-7b, 8 of 30 layers, seq 256), the driver's
+     fleet with the host capped at TUNE_HOST_CAP rows, in f32 and
+     int8-fused: every timed (class, batch, ms), the tuned batches, margin
+     and reference class, the tune's weights released, then 3 steps of
+     ``Session.run`` at the tuned plan (ms a step, peak against
+     ``predicted_train_peak_gib`` and the dry run's trace of the same step,
+     the roofline fraction: 6 N seq x the valid rows over 989e12 FLOP/s x
+     the step, N without the embedding table, and beside it the fraction
+     with the table counted and over every row, padding included);
+     launches counted from before the tune to after the run, then flash,
+     the quantizer and the int8-K/V flash kernel at the plan's rows.
+     ``repro_torch.examples.serve_batched``'s flow on every arch's smoke
+     config: the card's greedy tokens equal the CPU's, each family's
+     kernels launched;
+ 34. the dry run's memory model: deepseek-7b's train_4k (4 rows, 2
+     layers), prefill_32k (batch 1) and decode_32k (batch 2), each cut
+     printed: ``launch/dryrun.py``'s predicted peak (a meta-device trace)
+     against ``torch.cuda.max_memory_allocated`` around the same step on
+     the card, within 10% or 2 GiB, the larger; finite outputs.  The
+     40-cell table is ``python -m repro_torch.launch.dryrun --out`` (no
+     card: meta tensors).
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
 ``engine_serving``, ``families_serving``, ``encdec_serving``,
-``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training`` or
-``cluster_training``) whose shapes it was
+``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training``,
+``cluster_training`` or ``measured_tune``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -293,8 +319,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_S = 3.35e12                      # H100 SXM device memory rate
-PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor-core bf16; f32 FMA
+if (ROOT / "src" / "repro_torch").is_dir():        # else main() fails before any phase
+    sys.path.insert(0, str(ROOT / "src"))
+    # the card's peaks (device.py, re-exported by launch/mesh.py) and the kernels' bound formulas
+    from repro_torch.roofline.cost import attention_ops, bound, wkv6_ops
+    from repro_torch.examples.serve_batched import generate_batched
 N_TIMED = 25
 MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel", "moe_gate_up_tc_kernel",
                "moe_down_tc_kernel", "moe_gate_up_skinny_kernel", "moe_down_skinny_kernel",
@@ -302,7 +331,6 @@ MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel", "moe_gate_up_tc_kernel",
 # the kernels that must run on the tensor cores (phase 2)
 TENSOR_CORE_KERNELS = (("flash_fwd_tc_kernel", "flash_fwd_int8_tc_kernel") + MOE_KERNELS[2:6]
                        + ("wkv6_chunk_kernel",))
-WKV6_CHUNK = 16                            # csrc/rwkv6_scan.cu's chunk of steps
 # the MoE routing's top-k, stable sort, slot scatters, count scan and softmax
 # (its elementwise ops fall in "other")
 ROUTING_KERNELS = ("sort", "topk", "scan", "scatter", "softmax")
@@ -416,19 +444,6 @@ def sass_report(lib_dir: Path, nvcc: str):
         short = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
                  for n in plain]
     return {s: tuple(counts[m]) for s, m in zip(short, mangled)}
-
-
-def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOP_S[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def wkv6_ops(B, S, H, D):
-    """The WKV-6 scan's least operations, the chunked form's (on the bf16
-    tensor cores): per step of a (b, h), 2 D^2 for r (.) decay times the
-    carried state, 2 D^2 for the state's update and 2 L D for the
-    intra-chunk term and its product with v (its triangle, L = 16)."""
-    return (4.0 * D * D + 2.0 * WKV6_CHUNK * D) * B * H * S
 
 
 def kernel_checks(torch, ops, R, F, dev):
@@ -989,13 +1004,15 @@ def cross_device_train(torch, ops, train_session_factory, dev, arch="deepseek-7b
                         f"{arch} {prec} training")
 
 
-# the full-width training cells: arch -> (layers, seq).  deepseek-7b and
-# rwkv6-7b are cut to 8 layers (the AdamW state of the full depth does not
-# fit 80 GB); recurrentgemma-2b runs all 26 at seq 128 (its 256,000-entry
-# vocabulary makes the logits the largest tensors of a step); qwen3-moe-30b-a3b
+# the full-width training cells: arch -> (layers, seq).  deepseek-7b is cut
+# to 8 layers (the AdamW state of the full depth does not fit 80 GB), rwkv6-7b
+# to 4 (its plain scan backward, ~0.5 s a layer a step, kept the whole run
+# over 1,130 s on a slow host at 8); recurrentgemma-2b runs all 26 at seq 128
+# (its 256,000-entry vocabulary makes the logits the largest tensors of a
+# step); qwen3-moe-30b-a3b
 # (phase 28) keeps 3 of 48 layers: 2.49 B params, 30 GB of weights and AdamW
 # state, beside logits of 151,936 columns
-TRAIN_CELLS = {"deepseek-7b": (8, 256), "rwkv6-7b": (8, 256), "recurrentgemma-2b": (26, 128),
+TRAIN_CELLS = {"deepseek-7b": (8, 256), "rwkv6-7b": (4, 256), "recurrentgemma-2b": (26, 128),
                "qwen3-moe-30b-a3b": (3, 256)}
 
 
@@ -1074,11 +1091,22 @@ def full_width_train(torch, ops, train_session_factory, get_config, dev, arch="d
     return totals, step_ms
 
 
+# the recurrent cells profiled in f32 only: their int8-fused steps profiled
+# within 0.6% of the f32 ones in every kind but the quantizer's 1.5-1.7 ms
+# (PERF.md §5), at 12-34 s a profile on a slow host; phase 19 still times
+# both precisions
+PROFILE_F32_ONLY = ("rwkv6-7b", "recurrentgemma-2b")
+
+
 def profile_train(torch, train_session_factory, dev, step_ms):
     """Phase 12, training: one profiled step per (arch, precision) at the
-    shapes of phases 8, 19 and 28, after a warm step, on fresh weights;
-    then one more step split into its parts (``profile_step``)."""
+    shapes of phases 8, 19 and 28 (PROFILE_F32_ONLY: f32 alone), after a
+    warm step, on fresh weights; then one more step split into its parts
+    (``profile_step``)."""
     for (arch, prec), ms in step_ms.items():
+        if prec != "f32" and arch in PROFILE_F32_ONLY:
+            continue
+        t0 = time.perf_counter()
         layers, seq = TRAIN_CELLS[arch]
         session = train_session_factory(arch=arch, device=dev, full_config=True,
                                         n_layers=layers, seq=seq, steps=2, precision=prec)
@@ -1088,6 +1116,8 @@ def profile_train(torch, train_session_factory, dev, step_ms):
                      lambda: session.dataset.next_device_batch(dev), ms)
         del session, params, opt_state
         torch.cuda.empty_cache()
+        print(f"[time] phase 12's {arch} {prec} training profile: "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 def profile_side_train(torch, get_model, get_config, dev, step_ms):
@@ -1834,33 +1864,6 @@ def recurrent_kernel_checks(torch, R, F, dev):
     return records
 
 
-def serve_batched(torch, model, params, prompt, n_new, cache_len):
-    """The flow of ``examples/serve_batched.py``: ``make_prefill_step`` then
-    ``n_new`` greedy ``make_serve_step`` steps.  -> (tokens (B, 1 + n_new),
-    prefill s, decode s), host clock after a synchronize on the card."""
-    from repro_torch.train.steps import make_prefill_step, make_serve_step
-
-    def sync():
-        if prompt.is_cuda:
-            torch.cuda.synchronize(prompt.device)
-
-    B, P = prompt.shape
-    step = make_serve_step(model)
-    sync()
-    t0 = time.perf_counter()
-    logits, cache = make_prefill_step(model, cache_len)(params, prompt)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-    sync()
-    t1 = time.perf_counter()
-    out = [tok]
-    for t in range(n_new):
-        pos = torch.full((B,), P + t, dtype=torch.int32, device=prompt.device)
-        tok, _, cache = step(params, tok, cache, pos)
-        out.append(tok)
-    sync()
-    return torch.cat(out, dim=1), t1 - t0, time.perf_counter() - t1
-
-
 def _expected_launches(cfg, kv, prefills, decode_steps):
     """Launches of the recurrent path's kernels for ``prefills`` batched
     prefills and ``decode_steps`` decode steps of ``cfg``."""
@@ -1922,9 +1925,9 @@ def cross_device_recurrent(torch, ops, get_model, smoke_config, ServeSession, de
         _check_launches(counts, expect, f"{arch} {kv} generate")
 
         cache_len = P + N + 1
-        want_b = serve_batched(torch, model, cpu_params, prompt, N, cache_len)[0]
+        want_b = generate_batched(model, cpu_params, prompt, N, cache_len)[0]
         ops.reset_launches()
-        got_b = serve_batched(torch, model, gpu_params, gprompt, N, cache_len)[0].cpu()
+        got_b = generate_batched(model, gpu_params, gprompt, N, cache_len)[0].cpu()
         counts = dict(ops.LAUNCHES)
         print(f"[cross-device] {arch} {kv} batched: cpu={want_b.tolist()} gpu={got_b.tolist()} "
               f"launches={counts}")
@@ -1970,7 +1973,7 @@ def full_width_recurrent(torch, ops, get_model, get_config, ServeSession, dev):
         del logits, cache
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
-        toks, pre_s, dec_s = serve_batched(torch, model, params, prompt, n_new, P_ + n_new + 1)
+        toks, pre_s, dec_s = generate_batched(model, params, prompt, n_new, P_ + n_new + 1)
         counts = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         ms_step = dec_s / n_new * 1e3
@@ -2315,6 +2318,9 @@ ENGINE_SMOKE = dict(max_slots=2, max_len=48, block_size=4, num_blocks=32, prefil
 ENGINE_FULL = dict(max_slots=8, max_len=128, block_size=8, num_blocks=128, prefill_chunk=16,
                    token_budget=64)
 ENGINE_LOAD = dict(n_requests=12, prompt_len=64, max_new_tokens=32, shared_prefix_len=32, seed=0)
+# the engine steps every prompt token through a batch-1 decode step on the
+# host, so its wall grows with depth: 8 of 30 layers keep phase 22 and its
+# profile near a minute on a slow host
 ENGINE_CASES = (("deepseek-7b", "native"), ("deepseek-7b", "int8"),
                 ("qwen3-moe-30b-a3b", "native"), ("qwen3-moe-30b-a3b", "int8"),
                 ("dbrx-132b", "native"), ("dbrx-132b", "int8"), ("rwkv6-7b", "native"),
@@ -3433,6 +3439,46 @@ def slice_phases(torch, ops, R, F, get_model, get_config, smoke_config, ServeSes
 SIDE_TRAIN = {"whisper-medium": (None, 16, 256, 0), "qwen2-vl-7b": (8, 8, 512, 1024)}
 
 
+def attention_records(torch, R, F, rand, flush, path, shape, B, Sq, Skv, H, Hkv, D, causal,
+                      int8=True):
+    """Flash at (B, Sq, H, D) over (B, Skv, Hkv, D) bf16 K/V from ``rand``,
+    held to its plain version at 2 bf16 ulps a row and timed beside SDPA;
+    with ``int8``, the quantizer over the K rows (bit for bit) and the
+    int8-K/V flash kernel too.  -> the kernels-line records."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
+    from repro_torch.kernels.quantize import quantize_rows
+
+    records = []
+    q, k, v = rand(B, Sq, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
+    run = lambda: flash_attention_fwd(q, k, v, causal=causal)               # noqa: E731
+    plain = lambda: R.flash_attention_ref(q, k, v, causal=causal)           # noqa: E731
+    err = row_ulp_check(torch, f"flash_attention {path} {shape}", run(), plain())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flops = attention_ops(B, H, Sq, Skv, D, causal)
+    records.append(_attention_record(
+        "flash_attention", path, shape, err, run, plain,
+        2 * (2 * q.numel() + 2 * k.numel()), flops,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=Hkv != H), flush))
+    del qt, kt, vt
+    if not int8:
+        return records
+    rec = quant_record(torch, R, path, k.view(-1, D), flush)
+    records.append(dict(rec, shape=f"{shape}: K {rec['shape']}"))
+    kq, ks = (t.view(B, Skv, Hkv, -1) for t in quantize_rows(k.view(-1, D), 0.5))
+    vq, vs = (t.view(B, Skv, Hkv, -1) for t in quantize_rows(v.view(-1, D), 0.5))
+    del k, v
+    run8 = lambda: flash_attention_int8_fwd(q, kq, ks, vq, vs, causal=causal)  # noqa: E731
+    plain8 = lambda: R.flash_attention_ref(                                  # noqa: E731
+        q, R.dequantize_int8_ref(kq, ks), R.dequantize_int8_ref(vq, vs), causal=causal)
+    err8 = row_ulp_check(torch, f"flash_attention_q8 {path} {shape}", run8(), plain8())
+    records.append(_attention_record(
+        "flash_attention_q8", path, shape, err8, run8, plain8,
+        2 * q.numel() * 2 + kq.numel() + vq.numel() + (ks.numel() + vs.numel()) * 4,
+        flops, None, flush))
+    return records
+
+
 def train_family_kernel_checks(torch, R, F, dev):
     """Before phase 28: phase 3's kernel checks at the training shapes of
     phases 28-30, bf16, each held to its plain version on the card (flash
@@ -3447,8 +3493,6 @@ def train_family_kernel_checks(torch, R, F, dev):
     int8-fused each self-attention quantizes its K and V rows: the
     quantizer is checked and timed over K's."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_int8_fwd
-    from repro_torch.kernels.quantize import quantize_rows
     from repro_torch.models.moe import expert_capacity
 
     gen = torch.Generator(device=dev)
@@ -3456,48 +3500,23 @@ def train_family_kernel_checks(torch, R, F, dev):
     scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     flush = scratch.zero_
     bf16 = torch.bfloat16
-    records = []
 
     def rand(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf16)
 
-    def attention(path, shape, B, Sq, Skv, H, Hkv, D, causal, int8=True):
-        q, k, v = rand(B, Sq, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
-        run = lambda: flash_attention_fwd(q, k, v, causal=causal)               # noqa: E731
-        plain = lambda: R.flash_attention_ref(q, k, v, causal=causal)           # noqa: E731
-        err = row_ulp_check(torch, f"flash_attention {path} {shape}", run(), plain())
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        flops = 4 * D * B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
-        records.append(_attention_record(
-            "flash_attention", path, shape, err, run, plain,
-            2 * (2 * q.numel() + 2 * k.numel()), flops,
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                   enable_gqa=Hkv != H), flush))
-        del qt, kt, vt
-        if not int8:
-            return
-        rec = quant_record(torch, R, path, k.view(-1, D), flush)
-        records.append(dict(rec, shape=f"{shape}: K {rec['shape']}"))
-        kq, ks = (t.view(B, Skv, Hkv, -1) for t in quantize_rows(k.view(-1, D), 0.5))
-        vq, vs = (t.view(B, Skv, Hkv, -1) for t in quantize_rows(v.view(-1, D), 0.5))
-        del k, v
-        run8 = lambda: flash_attention_int8_fwd(q, kq, ks, vq, vs, causal=causal)  # noqa: E731
-        plain8 = lambda: R.flash_attention_ref(                                  # noqa: E731
-            q, R.dequantize_int8_ref(kq, ks), R.dequantize_int8_ref(vq, vs), causal=causal)
-        err8 = row_ulp_check(torch, f"flash_attention_q8 {path} {shape}", run8(), plain8())
-        records.append(_attention_record(
-            "flash_attention_q8", path, shape, err8, run8, plain8,
-            2 * q.numel() * 2 + kq.numel() + vq.numel() + (ks.numel() + vs.numel()) * 4,
-            flops, None, flush))
-        del q, kq, ks, vq, vs
+    def attention(*args, **kw):
+        return attention_records(torch, R, F, rand, flush, *args, **kw)
 
-    attention("moe_training", "MT (60, 256, 32 over 4, 128)", 60, 256, 256, 32, 4, 128, True)
-    attention("encdec_training", "ET encoder (16, 1500, 16, 64)", 16, 1500, 1500, 16, 16, 64,
-              False)
-    attention("encdec_training", "ET self (16, 256, 16, 64)", 16, 256, 256, 16, 16, 64, True)
-    attention("encdec_training", "ET cross 256 rows x 1500 frames", 16, 256, 1500, 16, 16, 64,
-              False, int8=False)
-    attention("vlm_training", "VT (8, 1536, 28 over 4, 128)", 8, 1536, 1536, 28, 4, 128, True)
+    records = attention("moe_training", "MT (60, 256, 32 over 4, 128)", 60, 256, 256, 32, 4,
+                        128, True)
+    records += attention("encdec_training", "ET encoder (16, 1500, 16, 64)", 16, 1500, 1500,
+                         16, 16, 64, False)
+    records += attention("encdec_training", "ET self (16, 256, 16, 64)", 16, 256, 256, 16, 16,
+                         64, True)
+    records += attention("encdec_training", "ET cross 256 rows x 1500 frames", 16, 256, 1500,
+                         16, 16, 64, False, int8=False)
+    records += attention("vlm_training", "VT (8, 1536, 28 over 4, 128)", 8, 1536, 1536, 28, 4,
+                         128, True)
 
     cfg = get_config("qwen3-moe-30b-a3b")
     d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.experts_per_token
@@ -4007,6 +4026,200 @@ def cluster_smoke(smoke_config, dev, root: Path):
           f"at rtol 1e-5; replica digests equal ({recs[0]['param_digest']})")
 
 
+# phase 33: Algorithm 1 over real step times (``launch/train.py
+# --measured-tune``) at phase 8's cell.  A step's fixed cost (AdamW over 2.46 B
+# params) makes every batch look cheap, so the tune puts the host at its cap
+# and the plan pads every group to it: at the driver's cap of 64, 192 rows;
+# at 32, 96 rows ran out of the card's memory (62.9 GiB allocated and 9.4
+# asked on the H100 80GB HBM3); the cap is cut to 24 (72 rows)
+TUNE_CELL = dict(arch="deepseek-7b", full_config=True, n_layers=8, seq=256)
+TUNE_HOST_CAP = 24
+TUNE_STEPS = 3
+
+
+def measured_tune(torch, ops, R, F, train_session_factory, get_config, dev):
+    """Phase 33: ``train_session_factory(measured_tune=True)`` in f32 and
+    int8-fused: every timed (class, batch, ms), the tuned batches, margin
+    and reference class; the tune's weights freed; then ``Session.run`` for
+    TUNE_STEPS steps at the tuned plan (ms a step, peak, the roofline
+    fraction); launches counted from before the tune to after the run.
+    Then flash, the quantizer and int8-K/V flash at the plan's rows.
+    -> (launch totals, kernels-line records)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.train import DRIVER_FLEET
+
+    fleet = dict(DRIVER_FLEET, host_max_batch=TUNE_HOST_CAP)
+    print(f"[tune] fleet {fleet} (the driver's host_max_batch 64 cut to {TUNE_HOST_CAP}: "
+          f"see TUNE_CELL)")
+    seq = TUNE_CELL["seq"]
+    totals = {name: 0 for name in ops.LAUNCHES}
+    rows = {}
+    for prec in ("f32", "int8-fused"):
+        session = train_session_factory(device=dev, steps=TUNE_STEPS, precision=prec,
+                                        measured_tune=True, fleet=fleet, **TUNE_CELL)
+        cfg, bench = session.model.cfg, session.benchmark
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        plan = session.tune()
+        tune_s = time.perf_counter() - t0
+        tune_counts = dict(ops.LAUNCHES)
+        for name, batch, t in bench.timings:
+            print(f"[tune] {cfg.name} {prec}: {name} batch {batch}: {t * 1e3:.3f} ms")
+        print(f"[tune] {cfg.name} {prec}: tuned batches {plan.batches}, margin "
+              f"{plan.result.margin:.0%}, reference class {plan.result.reference_class}; "
+              f"{len(bench.timings)} timings, {4 * len(bench.timings)} steps in {tune_s:.1f} s")
+        _check_launches(tune_counts,
+                        expected_train_launches(cfg, prec, 4 * len(bench.timings)),
+                        f"{cfg.name} {prec} measured tune")
+        bench.release()
+        sched = plan.schedule
+        rows[prec] = sched.global_rows
+        traced = dryrun.trace(cfg, ShapeSpec("tuned", "train", seq, sched.global_rows)).peak
+        print(f"[tune] {cfg.name} {prec}: plan {sched.group_batches} -> {sched.global_rows} rows "
+              f"({sched.valid_rows} valid); predicted peak "
+              f"{predicted_train_peak_gib(cfg, cfg.param_count(), sched.global_rows, seq, seq):.2f}"
+              f" GiB, the dry run's trace of the step {traced / 2**30:.3f} GiB; allocated after "
+              f"the tune's release {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+        torch.cuda.reset_peak_memory_stats(dev)
+        report = session.run()
+        counts = dict(ops.LAUNCHES)
+        run_counts = {k: counts[k] - tune_counts[k] for k in counts}
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms = report_train(cfg, TUNE_CELL["arch"], prec, report.history, report.wall_time,
+                          sched.global_rows, sched.valid_rows, seq, peak, run_counts,
+                          TUNE_STEPS, get_config)
+        _check_launches(run_counts, expected_train_launches(cfg, prec, TUNE_STEPS),
+                        f"{cfg.name} {prec} training at the tuned plan")
+        # model work is 6 N tokens over the valid rows (padding rows are work,
+        # not progress); N without the input embedding table, a gather that
+        # does no matrix product, is the headline; the roofline module's
+        # convention (N = param_count, the table counted) and the count over
+        # every row, padding included, are printed beside it
+        n_all = cfg.param_count()
+        n_mm = n_all - cfg.vocab * cfg.d_model
+        step_s = ms / 1e3
+
+        def fraction(n, n_rows):
+            return 6.0 * n * n_rows * seq / (PEAK_FLOPS_BF16 * step_s)
+
+        print(f"[tune] {cfg.name} {prec}: roofline fraction "
+              f"{fraction(n_mm, sched.valid_rows):.4f} (6 N seq x {sched.valid_rows} valid rows, "
+              f"N = {n_mm:,} without the {cfg.vocab} x {cfg.d_model} embedding table, "
+              f"{6.0 * n_mm * sched.valid_rows * seq:.4e} FLOPs over 989e12 FLOP/s x "
+              f"{ms:.3f} ms); {fraction(n_all, sched.valid_rows):.4f} with the table counted "
+              f"(N = param_count {n_all:,}, the roofline module's 6 N tokens); "
+              f"{fraction(n_all, sched.global_rows):.4f} over all {sched.global_rows} rows, "
+              f"{sched.global_rows - sched.valid_rows} of them padding; on {card_line()}")
+        for name, c in counts.items():
+            totals[name] += c
+        del session, report, plan, bench
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3333)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    B = rows["f32"]
+    records = attention_records(torch, R, F, rand, scratch.zero_, "measured_tune",
+                                f"tuned plan ({B}, {seq}, 32, 128)", B, seq, seq, 32, 32,
+                                128, True)
+    del scratch
+    for rec in records:
+        print(json.dumps(rec))
+    return totals, records
+
+
+def serve_batched_examples(torch, ops, get_model, smoke_config, dev):
+    """Phase 33, serving: ``repro_torch.examples.serve_batched``'s flow
+    (``Model.prefill``, then greedy serve steps) on every arch's smoke
+    config, float32 weights from seed 0 on the CPU copied to the card:
+    the card's tokens must equal the CPU's, and each family's kernels must
+    launch."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.examples.serve_batched import side_inputs
+
+    B, P, N = 2, 16, 8
+    family_kernels = {"moe": "fused_moe_gemm", "rwkv6": "rwkv6_scan", "rglru": "rglru_scan"}
+    for arch in ARCHS:
+        model = get_model(smoke_config(arch))
+        params, _ = model.init_params(seed=0, device="cpu")
+        prompt = torch.from_numpy(
+            np.random.default_rng(0).integers(0, model.cfg.vocab, (B, P), dtype=np.int32))
+        want = generate_batched(model, params, prompt, N,
+                                **side_inputs(model, B, 0, torch.device("cpu")))[0]
+        ops.reset_launches()
+        got, pre_s, dec_s = generate_batched(model, _to(params, dev), prompt.to(dev), N,
+                                             **side_inputs(model, B, 0, dev))
+        counts = {k: c for k, c in ops.LAUNCHES.items() if c}
+        same = torch.equal(got.cpu(), want)
+        print(f"[serve_batched] {arch}: prefill {pre_s * 1e3:.1f} ms, {N} steps "
+              f"{dec_s * 1e3:.1f} ms, tokens CPU = card: {same}, launches {counts}")
+        if not same:
+            raise AssertionError(f"serve_batched {arch}: card tokens {got.tolist()} != CPU "
+                                 f"{want.tolist()}")
+        need = family_kernels.get(model.cfg.family, "decode_attention")
+        if not counts.get(need):
+            raise AssertionError(f"serve_batched {arch}: {need} never launched: {counts}")
+
+
+# phase 34: three cells of SHAPES cut to one card, (shape, rows, layers):
+# train_4k at 8 rows of 2 layers is predicted at 82.7 GiB, over the card
+DRYRUN_CELLS = (("train_4k", 4, 2), ("prefill_32k", 1, None), ("decode_32k", 2, None))
+DRYRUN_GATE = (0.10, 2.0)      # within 10% or 2 GiB of the card's peak, the larger
+
+
+def dryrun_memory(torch, dev):
+    """Phase 34: for each DRYRUN_CELLS cell of deepseek-7b, the dry run's
+    predicted peak (``launch/dryrun.py``, a meta-device trace) against
+    ``torch.cuda.max_memory_allocated`` around the same step on the card
+    (seed-0 weights, zero tokens), from the same inputs' allocation on; the
+    step's loss (train) or logits (prefill, decode) must be finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import get_model
+
+    for shape_name, batch, layers in DRYRUN_CELLS:
+        shape = SHAPES[shape_name]
+        cfg = get_config("deepseek-7b")
+        if layers is not None:
+            cfg = dryrun._with_layers(cfg, layers)
+        print(f"[dryrun] deepseek-7b {shape_name}: cut to batch {batch} of "
+              f"{shape.global_batch}, {dryrun._depth(cfg)} layers of 30, seq {shape.seq_len}")
+        rec = dryrun.dryrun_cell("deepseek-7b", shape_name, batch=batch, n_layers=layers)
+        pred = rec["memory"]["peak_bytes"]
+        model = get_model(cfg)
+        torch.cuda.empty_cache()
+        params, inputs = dryrun.step_inputs(model, shape, batch, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = dryrun.run_step(model, shape, params, inputs)
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+        meas = torch.cuda.max_memory_allocated(dev)
+        checked = {"train": lambda o: o[2]["loss"], "prefill": lambda o: o[0],
+                   "decode": lambda o: o[1]}[shape.kind](out)
+        finite = bool(torch.isfinite(checked).all())
+        gate = max(DRYRUN_GATE[0] * meas, DRYRUN_GATE[1] * 2**30)
+        print(f"[dryrun] deepseek-7b {shape_name}: predicted peak {pred / 2**30:.3f} GiB, "
+              f"card {meas / 2**30:.3f} GiB, gap {(pred - meas) / 2**30:+.3f} GiB "
+              f"({(pred - meas) / meas:+.2%}; gate {gate / 2**30:.3f} GiB), arguments "
+              f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB, step {step_s:.2f} s, "
+              f"outputs finite: {finite}; {rec['flops']:.4e} FLOPs counted")
+        del params, inputs, out, checked
+        torch.cuda.empty_cache()
+        if not finite:
+            raise AssertionError(f"dry-run cell {shape_name}: non-finite outputs on the card")
+        if abs(pred - meas) > gate:
+            raise AssertionError(f"dry-run cell {shape_name}: predicted {pred} B, card {meas} B")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4023,7 +4236,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         return fail("no CUDA device is available")
-    sys.path.insert(0, str(src))
     import torch.nn.functional as F
 
     from repro_torch.api.serving import ServeSession
@@ -4155,19 +4367,35 @@ def main() -> int:
         lap("phase 32")
     finally:
         shutil.rmtree(cluster_root, ignore_errors=True)
+    # the measured tune, the serving example on every arch, the dry run's memory model
+    torch.cuda.empty_cache()
+    tune_totals, tune_records = measured_tune(torch, ops, R, F, train_session_factory,
+                                              get_config, dev)
+    records += tune_records
+    lap("phase 33's measured tune")
+    serve_batched_examples(torch, ops, get_model, smoke_config, dev)
+    lap("phase 33's serving example")
+    dryrun_memory(torch, dev)
+    lap("phase 34")
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
+    t_profiles = time.perf_counter()
     profile_train(torch, train_session_factory, dev, train_ms)
+    lap("phase 12's training profiles")
     profile_side_train(torch, get_model, get_config, dev, side_ms)
+    lap("phase 12's phase 29-30 profiles")
     profile_serving(torch, get_model, get_config, dev, decode_ms)
+    lap("phase 12's serving and engine profiles")
     profile_moe_serving(torch, get_model, get_config, dev, moe_ms)
     profile_recurrent_serving(torch, get_model, get_config, dev, rec_ms)
+    lap("phase 12's MoE and recurrent serving profiles")
     profile_slice(torch, get_model, get_config, dev, slice_ms)
-    lap("phase 12")
+    lap("phase 12's phase 25-27 profiles")
+    print(f"[time] phase 12: {time.perf_counter() - t_profiles:.1f} s")
     totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
               "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals,
               "engine_serving": engine_totals, **slice_totals, **family_train_totals,
-              "cluster_training": cluster_totals}
+              "cluster_training": cluster_totals, "measured_tune": tune_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

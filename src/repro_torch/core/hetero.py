@@ -26,7 +26,7 @@ would be spent waiting at the allreduce barrier).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,6 +100,35 @@ def masked_mean_loss(
     return num / den
 
 
+def apply_row_mask(loss_mask: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """Combine token-level mask (B, S) with row validity (B,)."""
+    return loss_mask * row_mask[:, None]
+
+
+def weighted_grad_union_equivalence(
+    grad_fn: Callable,               # params, batch_x, batch_mask -> grads (mean-normalized)
+    params: Any,
+    xs: Sequence[torch.Tensor],      # per-group inputs, group g has batch b_g rows
+) -> Tuple[Any, Any]:
+    """Test helper: (masked-padded grads, union-batch grads) for equivalence.
+
+    Pads all groups to max batch, masks invalid rows, computes grads through
+    ``grad_fn`` (``torch.autograd``) with global normalization; separately
+    concatenates the true union batch.  Both must match to float tolerance.
+    """
+    bmax = max(x.shape[0] for x in xs)
+    padded, mask = [], []
+    for x in xs:
+        b = x.shape[0]
+        padded.append(torch.cat([x, x.new_zeros((bmax - b,) + tuple(x.shape[1:]))]))
+        mask.append(torch.cat([torch.ones(b), torch.zeros(bmax - b)]).to(x.device))
+    g_masked = grad_fn(params, torch.cat(padded), torch.cat(mask))
+
+    xu = torch.cat(list(xs))
+    g_union = grad_fn(params, xu, torch.ones(xu.shape[0], device=xu.device))
+    return g_masked, g_union
+
+
 def schedule_from_tune(
     tuned_batches: Dict[str, int],
     class_counts: Dict[str, int],
@@ -118,3 +147,15 @@ def schedule_from_tune(
             group_batches.append(tuned_batches[name])
             labels.append(f"{name}/{i}")
     return BatchSchedule(tuple(group_batches), round_to=round_to), labels
+
+
+def effective_batch_per_class(
+    schedule: BatchSchedule, labels: Sequence[str]
+) -> Dict[str, int]:
+    """Valid rows a class contributes to the global batch: the sum of its
+    groups' batches (``labels`` as :func:`schedule_from_tune` names them)."""
+    out: Dict[str, int] = {}
+    for b, lab in zip(schedule.group_batches, labels):
+        cls = lab.split("/")[0]
+        out[cls] = out.get(cls, 0) + b
+    return out

@@ -4,7 +4,12 @@ Each op picks its path from where its tensors lie:
 
 * a CPU tensor goes to the plain PyTorch version in :mod:`.ref`;
 * a CUDA tensor launches the hand-written CUDA kernel, or raises.  There is
-  no fallback and no ``use_kernel`` switch on the card.
+  no fallback and no ``use_kernel`` switch on the card;
+* a ``meta`` tensor (the dry run's trace, :mod:`repro_torch.launch.dryrun`)
+  takes the meta route: the kernel's outputs and scratch, made without any
+  arithmetic, and the kernel's operations and bytes reported to the active
+  count (:func:`repro_torch.roofline.cost.kernel_cost`) from the formulas of
+  its bound.  A meta tensor holds no data, so there is nothing to compute.
 
 The training ops are ``torch.autograd.Function``s with the reference's
 ``custom_vjp`` semantics: the forward runs the kernel (or, on the CPU, its
@@ -32,6 +37,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_scan_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan_int8 as _rglru_scan_int8_cuda
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_scan_cuda
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_int8 as _rwkv6_scan_int8_cuda
+from repro_torch.roofline import cost as C
 
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
@@ -63,6 +69,20 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _meta_kernel(name: str, flops: float, inputs, outputs, scratch=(), read: int = 0):
+    """The meta route of kernel ``name``: ``outputs`` (and ``scratch``, alive
+    for the call) are meta tensors the caller made; the kernel's work goes
+    to the active count: ``flops`` and every input read once (``read``
+    bytes besides), every output written once."""
+    C.kernel_cost(name, flops, read + C.nbytes(
+        *(t for t in inputs if isinstance(t, torch.Tensor)), *outputs))
+    return outputs[0] if len(outputs) == 1 else tuple(outputs)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # int8 row quantizer
 # ---------------------------------------------------------------------------
@@ -74,6 +94,9 @@ def quantize_int8(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: ``scale = max(absmax/127, 1e-12)``,
     ``q = clip(floor(x/scale + noise), -127, 127)``.  -> (q int8, scale f32 (R, 1))."""
+    if x.is_meta:
+        return _meta_kernel("quantize_int8", 0.0, (x, noise),
+                            (_meta(x.shape, torch.int8), _meta((x.shape[0], 1), torch.float32)))
     if not x.is_cuda:
         return R.quantize_int8_ref(x, noise)
     out = quantize_rows(x, noise)
@@ -93,6 +116,11 @@ def _quantize_q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+def _attention_ops(q, k, causal, window) -> float:
+    B, Sq, H, D = q.shape
+    return C.attention_ops(B, H, Sq, k.shape[1], D, causal, window)
+
+
 def _attention_vjp(q, k, v, g, causal, window):
     """Gradients of the plain attention at (q, k, v) against ``g``."""
     with torch.enable_grad():
@@ -106,6 +134,9 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if q.is_meta:
+            return _meta_kernel("flash_attention", _attention_ops(q, k, causal, window),
+                                (q, k, v), (torch.empty_like(q),))
         if not q.is_cuda:
             return R.flash_attention_ref(q, k, v, causal=causal, window=window)
         out = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -136,6 +167,9 @@ class _FlashAttentionQ8(torch.autograd.Function):
         ctx.save_for_backward(q, kq, ks, vq, vs)
         ctx.causal, ctx.window = causal, window
         ctx.k_dtype, ctx.v_dtype = k.dtype, v.dtype
+        if q.is_meta:
+            return _meta_kernel("flash_attention_q8", _attention_ops(q, k, causal, window),
+                                (q, kq, ks, vq, vs), (torch.empty_like(q),))
         if not q.is_cuda:
             return R.flash_attention_ref(
                 q, R.dequantize_int8_ref(kq, ks), R.dequantize_int8_ref(vq, vs),
@@ -172,6 +206,17 @@ def flash_attention_q8(
 # ---------------------------------------------------------------------------
 
 
+def _meta_decode(name, q, inputs, capacity, window, read=0):
+    """Decode's meta route: a meta tensor holds no valid lengths, so every
+    row of the cache (of the window) counts as live, as a full cache's
+    would; the split's partial states are the scratch."""
+    B, _, H, D = q.shape
+    plan = DA.split_plan(capacity, 1, DA.chunk_rows(D, q.dtype))
+    rows = min(window or capacity, capacity)
+    return _meta_kernel(name, 4.0 * D * B * H * rows, inputs, (torch.empty_like(q),),
+                        (_meta(B * H * plan.n_chunks * (D + 2), torch.float32),), read)
+
+
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: torch.Tensor,
     *,
@@ -179,6 +224,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query row per (batch, head) against a contiguous cache; positions
     ``< valid_len[b]`` attend.  q (B, 1, H, D), k/v (B, Skv, Hkv, D)."""
+    if q.is_meta:
+        return _meta_decode("decode_attention", q, (q, k, v, valid_len), k.shape[1], window)
     if not q.is_cuda:
         return R.decode_attention_ref(q, k, v, valid_len, window=window)
     out = DA.decode_attention(q, k, v, valid_len, window=window)
@@ -194,12 +241,21 @@ def decode_attention_int8(
 ) -> torch.Tensor:
     """:func:`decode_attention` over an int8 cache + per-row f32 scales,
     dequantized inside the kernel."""
+    if q.is_meta:
+        return _meta_decode("decode_attention_int8", q,
+                            (q, k, k_scale, v, v_scale, valid_len), k.shape[1], window)
     if not q.is_cuda:
         return R.decode_attention_int8_ref(
             q, k, k_scale, v, v_scale, valid_len, window=window)
     out = DA.decode_attention_int8(q, k, k_scale, v, v_scale, valid_len, window=window)
     LAUNCHES["decode_attention_int8"] += 1
     return out
+
+
+def _table_bytes(table, *pools) -> int:
+    """Bytes of the pages a block table addresses in each pool (what a paged
+    kernel reads of it)."""
+    return sum(table.numel() * p[0].numel() * p.element_size() for p in pools)
 
 
 def paged_decode_attention(
@@ -211,6 +267,10 @@ def paged_decode_attention(
     """:func:`decode_attention` over the pages of a shared pool: row ``r`` of
     sequence ``b`` is row ``r % page_size`` of page ``block_table[b, r //
     page_size]``.  q (B, 1, H, D), pages (P, page_size, Hkv, D), table (B, NP)."""
+    if q.is_meta:
+        return _meta_decode("paged_decode_attention", q, (q, block_table, valid_len),
+                            block_table.shape[1] * k_pages.shape[1], window,
+                            _table_bytes(block_table, k_pages, v_pages))
     if not q.is_cuda:
         return R.paged_decode_attention_ref(
             q, k_pages, v_pages, block_table, valid_len, window=window)
@@ -229,6 +289,10 @@ def paged_decode_attention_int8(
 ) -> torch.Tensor:
     """:func:`paged_decode_attention` over int8 pages + per-row f32 scales,
     dequantized inside the kernel."""
+    if q.is_meta:
+        return _meta_decode("paged_decode_attention_int8", q, (q, block_table, valid_len),
+                            block_table.shape[1] * k_pages.shape[1], window,
+                            _table_bytes(block_table, k_pages, k_scales, v_pages, v_scales))
     if not q.is_cuda:
         return R.paged_decode_attention_int8_ref(
             q, k_pages, k_scales, v_pages, v_scales, block_table, valid_len, window=window)
@@ -250,6 +314,12 @@ def fused_moe_gemm(
     """Dispatch gather + expert SwiGLU in float32 + gate per capacity slot.
     x (T, d), wg/wu (E, d, f), wo (E, f, d), slot_tok (E·C, 1) int32 (``T``
     for an empty slot), slot_gate (E·C, 1) f32 -> (E·C, d) in x.dtype."""
+    if x.is_meta:
+        # every slot counts as live: a meta slot table holds no tokens
+        S, (E, d, f) = slot_tok.shape[0], wg.shape
+        return _meta_kernel("fused_moe_gemm", 6.0 * S * d * f,
+                            (x, wg, wu, wo, slot_tok, slot_gate), (_meta((S, d), x.dtype),),
+                            (_meta((S, f), torch.float32),))
     if not x.is_cuda:
         return R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate)
     out = FM.fused_moe_gemm(x, wg, wu, wo, slot_tok, slot_gate)
@@ -260,6 +330,12 @@ def fused_moe_gemm(
 def fused_moe_combine(y: torch.Tensor, slot_tok: torch.Tensor, T: int) -> torch.Tensor:
     """``out[t] = Σ y[s]`` over the slots of token t, in float32, in
     ascending slot order, cast once.  y (E·C, d) -> (T, d)."""
+    if y.is_meta:
+        S, d = y.shape
+        scratch = ((_meta(T, torch.int32), _meta((T, FM.MAX_K), torch.int32))
+                   if FM.combine_route(S, T, d) == "two_pass" else ())
+        return _meta_kernel("fused_moe_combine", float(S * d), (y, slot_tok),
+                            (_meta((T, d), y.dtype),), scratch)
     if not y.is_cuda:
         return R.fused_moe_combine_ref(y, slot_tok, T)
     out = FM.fused_moe_combine(y, slot_tok, T)
@@ -348,10 +424,18 @@ def _rwkv6_vjp(r, k, v, w, u, g_out, g_state):
     return (*grads, du)
 
 
+def _meta_wkv(name, r, inputs, out_dtype):
+    B, S, H, D = r.shape
+    return _meta_kernel(name, C.wkv6_ops(B, S, H, D), inputs,
+                        (_meta(r.shape, out_dtype), _meta((B, H, D, D), torch.float32)))
+
+
 class _RWKV6Scan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u):
         ctx.save_for_backward(r, k, v, w, u)
+        if r.is_meta:
+            return _meta_wkv("rwkv6_scan", r, (r, k, v, w, u), r.dtype)
         if not r.is_cuda:
             return R.rwkv6_scan_ref(r, k, v, w, u)
         out = _rwkv6_scan_cuda(r, k, v, w, u)
@@ -380,6 +464,8 @@ class _RWKV6ScanQ8(torch.autograd.Function):
         (rq, rs), (kq, ks), (vq, vs) = (_quantize_q8(t) for t in (r, k, v))
         ctx.save_for_backward(rq, rs, kq, ks, vq, vs, w, u)
         ctx.dtypes = r.dtype, k.dtype, v.dtype
+        if r.is_meta:
+            return _meta_wkv("rwkv6_scan_q8", r, (rq, rs, kq, ks, vq, vs, w, u), r.dtype)
         if not r.is_cuda:
             out, s = R.rwkv6_scan_ref(R.dequantize_int8_ref(rq, rs), R.dequantize_int8_ref(kq, ks),
                                       R.dequantize_int8_ref(vq, vs), w.float(), u)
@@ -422,6 +508,8 @@ class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, x):
         ctx.save_for_backward(a, x)
+        if x.is_meta:
+            return _meta_kernel("rglru_scan", 2.0 * x.numel(), (a, x), (torch.empty_like(x),))
         if not x.is_cuda:
             return R.rglru_scan_ref(a, x)
         y = _rglru_scan_cuda(a, x)
@@ -446,6 +534,9 @@ class _RGLRUScanQ8(torch.autograd.Function):
         xq, xs = _quantize_q8(x)
         ctx.save_for_backward(a, xq, xs)
         ctx.x_dtype = x.dtype
+        if x.is_meta:
+            return _meta_kernel("rglru_scan_q8", 2.0 * x.numel(), (a, xq, xs),
+                                (torch.empty_like(a),)).to(x.dtype)
         if not x.is_cuda:
             return R.rglru_scan_ref(a, R.dequantize_int8_ref(xq, xs)).to(x.dtype)
         y = _rglru_scan_int8_cuda(a, xq, xs)

@@ -6,6 +6,12 @@ process, so what it keeps is :class:`ClusterContext` and the data-axis rule
 :func:`cluster_data_axis`.  Meshes of several devices (``make_host_mesh``,
 ``make_cluster_mesh``, the ``spmd`` mode) are the multi-device half of the
 port, ROADMAP item 19.
+
+The card's peaks, which the roofline (:mod:`repro_torch.roofline`) and
+``chip_smoke.py``'s kernel bounds read, are the counterparts of the
+reference's TPU constants: one NVIDIA H100 80GB HBM3 (SXM) at its 700 W
+power limit.  They live in :mod:`repro_torch.device`, below the kernels
+whose meta routes count against them, and are re-exported here.
 """
 from __future__ import annotations
 
@@ -14,7 +20,10 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.device import (HBM_BW, HBM_BYTES, NVLINK_BW, PEAK_FLOPS,  # noqa: F401
+                                PEAK_FLOPS_BF16, PEAK_FLOPS_F32)
 from repro_torch.storage.meshfeed import ROADMAP_MULTI_DEVICE
+
 
 
 def cluster_data_axis(global_rows: int, n_devices: int, n_processes: int) -> int:

@@ -19,6 +19,8 @@ device.
       --checkpoint-dir /path/to/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --cluster-processes 2 --csds 3 --steps 4 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --measured-tune \\
+      --steps 2 --seq 16
 
 ``--full-config`` runs the published dims (random weights from ``--seed``);
 ``--layers`` cuts the depth, the one cut a single card may need.
@@ -26,9 +28,10 @@ device.
 steps and resumes from the newest valid checkpoint there.  ``--device``
 defaults to ``cuda``, and the run fails when no card is found (every
 cluster worker on the one card, or each on the CPU with ``--device cpu``).
-``--cluster-processes`` needs ``(1 + csds) % N == 0``.  Refused, each with
-its ROADMAP item: ``--cluster-local-devices`` above 1 (several devices a
-process, item 19) and ``--measured-tune`` (item 14).
+``--cluster-processes`` needs ``(1 + csds) % N == 0``.
+``--cluster-local-devices`` above 1 (several devices a process) is refused:
+ROADMAP item 19.  ``--measured-tune`` runs Algorithm 1 over real step times
+(:class:`MeasuredTune`) instead of the fleet's analytic model.
 
 Every arch trains here as it does in the reference's launcher: the MoE
 archs with the router's aux loss in the loss (``SessionConfig.aux_weight``);
@@ -43,21 +46,74 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.api import FleetSpec, Session, SessionConfig
 from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.core.topology import Fleet
+from repro_torch.core.tuner import measured_benchmark
+from repro_torch.device import resolve_device
 from repro_torch.device import DeviceLike
-from repro_torch.models.api import get_model
+from repro_torch.models.api import Model, get_model
 from repro_torch.optim import adamw, sgd_momentum
 from repro_torch.storage import DataConfig
 from repro_torch.storage.meshfeed import ROADMAP_MULTI_DEVICE
+from repro_torch.train.steps import make_train_step
 
-ROADMAP_MEASURED_TUNE = "ROADMAP item 14 'Drivers and benches'"
 PRECISIONS = ("f32", "bf16", "int8-fused")
 # the driver's fleet: FleetSpec.demo's keyword arguments beside n_csds
 DRIVER_FLEET = dict(host_tput=80.0, csd_tput=10.0, host_max_batch=64, csd_max_batch=8,
                     host_idle=100.0, csd_idle=1.5)
+
+
+class MeasuredTune:
+    """Algorithm 1's benchmark over real step times (the reference's
+    ``--measured-tune``, ``launch/train.py:139-163`` there): a class's time
+    at a batch is the real train step timed at that batch on this process's
+    device (``core.tuner.measured_benchmark``: one warm-up, then the mean of
+    3 steps; each step ends in a device sync, reading its loss), scaled
+    by the fleet's ``peak_throughput`` ratio of the host to the class (one
+    device stands in for every class).
+
+    The step runs on weights of its own, drawn from ``seed`` at the first
+    call (the port's optimizer updates in place, so the session's weights
+    would move), with fresh optimizer state each call and zero tokens, as
+    the reference's.  :meth:`release` frees them (and the device's cached
+    blocks) before the session builds its own state; a later re-tune draws
+    them again.  ``timings`` lists every (class, batch, seconds) returned."""
+
+    def __init__(self, model: Model, optimizer: str, seq: int, fleet: Fleet,
+                 device="cuda", seed: int = 0):
+        self.model, self.optimizer, self.seq, self.fleet = model, optimizer, seq, fleet
+        self.device, self.seed = resolve_device(device), seed
+        self.timings: List[Tuple[str, int, float]] = []
+        self._params = None
+        self._time = measured_benchmark({"host": self._run_at})
+
+    def _run_at(self, batch: int) -> None:
+        if self._params is None:
+            self._params, _ = self.model.init_params(seed=self.seed, device=self.device)
+        opt = adamw() if self.optimizer == "adamw" else sgd_momentum()
+        step = make_train_step(self.model, opt, lambda s: 1e-3)
+        toks = torch.zeros((batch, self.seq), dtype=torch.int32, device=self.device)
+        b = {"tokens": toks, "labels": toks,
+             "loss_mask": torch.ones((batch, self.seq), dtype=torch.float32, device=self.device)}
+        _, _, metrics = step(self._params, opt.init(self._params), b)
+        float(metrics["loss"])                  # blocks until the step is done
+
+    def __call__(self, name: str, batch: int) -> float:
+        rel = (self.fleet.by_name("host").peak_throughput
+               / self.fleet.by_name(name).peak_throughput)
+        t = self._time("host", batch) * rel
+        self.timings.append((name, batch, t))
+        return t
+
+    def release(self) -> None:
+        self._params = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def train_session_factory(
@@ -76,13 +132,15 @@ def train_session_factory(
     device: DeviceLike = "cuda",
     cluster_processes: int = 1,
     fleet: Optional[Dict[str, float]] = None,
+    measured_tune: bool = False,
 ) -> Session:
     """The driver's session: the reference's demo fleet (1 host + ``csds``
     CSD-class workers; ``fleet`` replaces :data:`DRIVER_FLEET`, the rest of
     ``FleetSpec.demo``'s keyword arguments), 256 private samples per CSD
     and a 65,536-sample public pool; importable by name from cluster
     workers (``cluster_processes`` above 1 puts the fleet in cluster
-    mode)."""
+    mode).  ``measured_tune`` gives the session a :class:`MeasuredTune`
+    (``session.benchmark``) in place of the analytic model."""
     cfg = get_config(arch) if full_config else smoke_config(arch)
     cfg = cfg.with_(train_precision=precision)
     if n_layers is not None:
@@ -90,8 +148,11 @@ def train_session_factory(
     spec = FleetSpec.demo(csds, **(DRIVER_FLEET if fleet is None else fleet))
     if cluster_processes > 1:
         spec = spec.with_cluster(processes=cluster_processes)
+    model = get_model(cfg)
+    benchmark = (MeasuredTune(model, optimizer, seq, spec.build(), device, seed)
+                 if measured_tune else None)
     return Session(
-        model=get_model(cfg),
+        model=model,
         optimizer=adamw() if optimizer == "adamw" else sgd_momentum(),
         fleet=spec,
         data=DataConfig(vocab=cfg.vocab, seq_len=seq, seed=seed),
@@ -99,6 +160,7 @@ def train_session_factory(
                              checkpoint_every=checkpoint_every, seed=seed),
         shards=spec.shards(private_per_worker={"csd": 256}, public=65536),
         device=device,
+        benchmark=benchmark,
     )
 
 
@@ -120,7 +182,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save here, and resume from the newest valid checkpoint here")
     ap.add_argument("--measured-tune", action="store_true",
-                    help=f"not ported ({ROADMAP_MEASURED_TUNE})")
+                    help="tune with real step timings instead of the analytic model")
     ap.add_argument("--cluster-processes", type=int, default=1,
                     help="launch N worker processes (hostsync)")
     ap.add_argument("--cluster-local-devices", type=int, default=0,
@@ -168,8 +230,9 @@ def main(argv=None) -> int:
     if args.cluster_local_devices > 1:
         ap.error(f"--cluster-local-devices {args.cluster_local_devices}: a worker process "
                  f"drives one device; more is {ROADMAP_MULTI_DEVICE}")
-    if args.measured_tune:
-        ap.error(f"--measured-tune is not ported to repro_torch yet ({ROADMAP_MEASURED_TUNE})")
+    if args.measured_tune and args.cluster_processes > 1:
+        ap.error("--measured-tune times the step in one process; run it without "
+                 "--cluster-processes")
     if get_config(args.arch).family == "encdec":
         ap.error(f"{args.arch} trains on audio frames, which the fleet's batches do not "
                  f"carry: train it through train.steps.make_train_step with 'frames' in "
@@ -181,10 +244,14 @@ def main(argv=None) -> int:
         arch=args.arch, steps=args.steps, seq=args.seq, csds=args.csds,
         full_config=args.full_config, n_layers=args.layers, precision=args.precision,
         optimizer=args.optimizer, checkpoint_dir=args.checkpoint_dir, seed=args.seed,
-        device=args.device,
+        device=args.device, measured_tune=args.measured_tune,
     )
     cfg = session.model.cfg
     tune_plan = session.tune()
+    if args.measured_tune:
+        for name, batch, t in session.benchmark.timings:
+            print(f"  measured {name} batch {batch}: {t * 1e3:.1f} ms")
+        session.benchmark.release()
     epoch = session.plan()
     shard_plan = session.shard()
     print(f"arch={cfg.name} layers={cfg.n_layers} params={cfg.param_count():,} "

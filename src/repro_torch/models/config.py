@@ -83,15 +83,18 @@ class ModelConfig:
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-    def param_count(self) -> int:
+    def param_count(self, active_only: bool = False) -> int:
         """Analytic parameter count (as the reference's ``param_count``
         counts it: norms, biases and whisper's position table are not
-        counted)."""
+        counted).  ``active_only``: a MoE layer counts the
+        ``experts_per_token`` experts a token runs plus the whole router (the
+        roofline's model FLOPs, 6·N·tokens with active N)."""
         d, ff, V = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim()
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
         if self.family == "moe":
-            n = self.n_layers * (attn + (3 * d * ff + d) * self.n_experts)  # + router
+            e = self.experts_per_token if active_only else self.n_experts
+            n = self.n_layers * (attn + 3 * d * ff * e + d * self.n_experts)  # + router
         elif self.family == "rglru":
             lw = self.lru_width or d
             rec = 2 * d * lw + lw * d + self.conv_width * lw + 3 * lw  # in/out + conv + gates

@@ -88,9 +88,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: Tuple[int, .
     if sum(sections) != d // 2:
         raise ValueError(f"mrope sections {sections} do not sum to head_dim/2 = {d // 2}")
     freqs = rope_freqs(d, theta, device=x.device)                # (D/2,)
-    sec_ids = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))                 # (D/2,)
+    sec_ids = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                           device=x.device)                      # (D/2,)
     pos = positions.movedim(0, -1).float()                      # (B, S, 3)
     angles = pos[..., sec_ids][..., None, :] * freqs            # (B, S, 1, D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

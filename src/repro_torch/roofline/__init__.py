@@ -1,0 +1,8 @@
+"""The roofline of the port on one NVIDIA H100 (port of :mod:`repro.roofline`).
+
+:mod:`.cost` counts a step's work and holds the kernels' bound formulas;
+:mod:`.analysis` turns the dry run's records into the three-term roofline.
+The reference's ``collectives.py`` parses XLA HLO for the wire bytes of a
+mesh's collectives; its port counts the NCCL collectives of the
+multi-device half (ROADMAP item 19), and a one-card record has none.
+"""

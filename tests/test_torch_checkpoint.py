@@ -29,6 +29,8 @@ from repro_torch.checkpoint import manager as M
 from repro_torch.optim import adamw
 from repro_torch.optim.optimizers import OptState
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 
 def _values(seed=0):
     rng = np.random.default_rng(seed)

@@ -34,6 +34,8 @@ from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6_scan
 from repro.kernels.rwkv6_scan import rwkv6_scan_int8 as jax_rwkv6_scan_int8
 from repro_torch.kernels import ref as R
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 BF16 = torch.bfloat16
 L = 16                  # the chunk
 

@@ -43,6 +43,8 @@ from repro_torch.launch.cluster import ClusterCoordinator, _params_digest, demo_
 from repro_torch.launch.mesh import ClusterContext, cluster_data_axis
 from repro_torch.storage.meshfeed import MeshFeeder
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 SEQ_LEN = 16
 STEPS = 4
 

@@ -40,6 +40,8 @@ from repro.analysis import Project, run_analysis
 from repro.analysis.project import Module
 from repro_torch.storage.fleet import transfer_guard_host_to_device
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ("src/repro_torch",)
 PORT_FILES = sorted(f.relative_to(ROOT).as_posix() for f in (ROOT / PORT[0]).rglob("*.py"))

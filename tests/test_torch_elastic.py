@@ -53,6 +53,8 @@ from repro_torch.models.api import get_model
 from repro_torch.optim import adamw
 from repro_torch.storage import DataConfig
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 SEQ = 16
 
 

@@ -46,6 +46,8 @@ from repro_torch.models.api import get_model
 from repro_torch.serve import EngineConfig, ServeEngine
 from tests.test_torch_families import assert_int8_cache_close, carried_weights, jax_serving
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 B, P, N_NEW = 2, 12, 6
 ATOL = 1e-4
 N_PATCH = 4

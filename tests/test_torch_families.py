@@ -46,6 +46,8 @@ from repro_torch.optim import sgd_momentum
 from repro_torch.serve import EngineConfig, ServeEngine
 from repro_torch.train import steps as S
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 DENSE = ["qwen1.5-4b", "minitron-8b", "deepseek-coder-33b"]
 B, P, CACHE_LEN, N_NEW = 2, 13, 20, 6
 ATOL = 1e-4

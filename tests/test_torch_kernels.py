@@ -17,6 +17,8 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 # f32 tolerance: the Pallas kernels fold the softmax block by block (online
 # rescaling) while the plain versions take one softmax over the whole row, so
 # the two differ by float32 reassociation only.

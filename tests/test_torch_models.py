@@ -28,6 +28,8 @@ from repro_torch.kernels import ref as R
 from repro_torch.models import layers as L
 from repro_torch.models.api import get_model
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 ATOL = 1e-4
 B, P, CACHE_LEN, N_DECODE = 2, 13, 20, 3
 

@@ -54,6 +54,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import param as P
 from repro_torch.models.api import get_model
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 MOE_ARCHS = ["qwen3-moe-30b-a3b", "dbrx-132b"]
 
 

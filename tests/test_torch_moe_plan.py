@@ -13,6 +13,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import fused_moe as FM
 from repro_torch.models.moe import expert_capacity
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 SOURCE = Path(FM.__file__).resolve().parent / "csrc" / "fused_moe.cu"
 BF16, F32 = torch.bfloat16, torch.float32
 

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.kernels import quantize as Q
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 SOURCE = Path(Q.__file__).resolve().parent / "csrc" / "quantize.cu"
 BF16, F32 = torch.bfloat16, torch.float32
 

@@ -47,6 +47,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.api import get_model
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 RECURRENT = ["rwkv6-7b", "recurrentgemma-2b"]
 # (arch, kv cache): rwkv6 has no KV cache, recurrentgemma's A layers have both
 CASES = [("rwkv6-7b", "native"), ("recurrentgemma-2b", "native"),

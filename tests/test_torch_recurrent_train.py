@@ -49,6 +49,8 @@ from repro_torch.models.api import get_model
 from repro_torch.optim import adamw, goyal_schedule
 from repro_torch.train import steps as S
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 RECURRENT = ["rwkv6-7b", "recurrentgemma-2b"]
 PRECISIONS = ["f32", "bf16", "int8-fused"]
 CASES = [(a, p) for a in RECURRENT for p in PRECISIONS]

@@ -49,6 +49,8 @@ from repro_torch.serve.runner import StepRunner
 from repro_torch.serve.sampling import request_generator
 from tests._hypothesis_compat import given, settings, st
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 SMOKE = dict(max_slots=2, max_len=48, block_size=4, num_blocks=32,
              prefill_chunk=8, token_budget=16)
 SMOKE_CONFIG = EngineConfig(**SMOKE)

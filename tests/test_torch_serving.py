@@ -22,6 +22,8 @@ from repro_torch.launch import serve as serve_driver
 from repro_torch.models.api import get_model
 from repro_torch.serve.sampling import SamplingParams
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 B, P, N_NEW = 2, 13, 6
 
 

@@ -45,6 +45,8 @@ from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.storage import DataConfig
 from repro_torch.train import steps as S
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 SEQ, STEPS = 32, 6
 PRECISIONS = ["f32", "int8-fused"]
 
@@ -356,9 +358,9 @@ def test_drift_retune_keeps_compiled_step():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item(capsys):
-    # cluster execution is ported (tests/test_torch_cluster.py); what stays
-    # unported is several devices a process (the multi-device half) and the
-    # measured tune
+    # cluster execution is ported (tests/test_torch_cluster.py), and so is
+    # the measured tune (tests/test_torch_tune.py); what stays unported is
+    # several devices a process (the multi-device half)
     from repro_torch.launch.mesh import ClusterContext
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -366,11 +368,10 @@ def test_unported_paths_raise_naming_their_roadmap_item(capsys):
     s = _session(storage={"backend": "meshfeed", "data_axis": 4})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.devices
-    for argv in (["--cluster-processes", "2", "--cluster-local-devices", "2"],
-                 ["--measured-tune"]):
-        with pytest.raises(SystemExit):
-            train_driver.main(["--device", "cpu", *argv])
-        assert "ROADMAP" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        train_driver.main(["--device", "cpu", "--cluster-processes", "2",
+                           "--cluster-local-devices", "2"])
+    assert "ROADMAP" in capsys.readouterr().err
 
 
 def test_train_driver_runs_on_cpu(capsys):

@@ -65,6 +65,8 @@ from repro_torch.train import steps as S
 from tests.test_torch_families import numpy_params
 from tests.test_torch_train import _demo, _flat, _shards, jax_pallas
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "dbrx-132b")
 # int8-fused changes only the attention, which both MoE archs share: one
 # arch keeps the file's JAX compiles few

@@ -41,6 +41,8 @@ from repro_torch.train.steps import (
     tree_leaves_sorted, unflatten_buckets,
 )
 
+torch.set_num_threads(1)   # the suite runs files in parallel processes: one thread each
+
 
 # ---------------------------------------------------------------------------
 # specs
