@@ -292,11 +292,36 @@ before the profiles):
      40-cell table is ``python -m repro_torch.launch.dryrun --out`` (no
      card: meta tensors).
 
+Data-parallel training over ``torch.distributed`` (after phase 34, before
+the profiles):
+ 35. ``spmd_training``: phase 31's cell (deepseek-7b, 2 of 30 layers, seq
+     256, FleetSpec.demo(3)'s 40 rows, f32, AdamW, 4 steps) through the
+     ``spmd`` worker path (``WorkerRuntime`` with mode ``spmd``: the
+     launch/train.py factory, ``Session.shard()`` on the ``DeviceMesh``,
+     ``make_spmd_train_step``) as the one rank of an NCCL group on the card
+     (the card's machine has one card, and NCCL puts no two ranks on one):
+     the backend, world size, mesh, ``plan.describe()``, the fed span's
+     ``FeedReceipt``, ms a step and its split, flash launches against the
+     expected count, the losses against the single-process card Session's
+     of phase 31 at rtol 1e-6 (the largest gap printed); then
+     ``compressed_allreduce`` on the phase's first 64 MiB gradient bucket
+     (seed-0 weights, the first batch: 256 rows of 65,536 f32, the
+     quantizer's ``scalar`` route) as a path of its own,
+     ``compressed_allreduce`` (the spmd step sums with ``dist.all_reduce``
+     and never calls it), its counts set to 0 just before that one call and
+     read just after; then ``ring_allreduce``, ``hierarchical_allreduce`` and
+     ``pipeline_apply`` at n = 1 (equal to their input, or to ``stage_fn``),
+     the kernel's ``(q, scale)`` at the bucket's shape bit-equal to the
+     plain quantizer's, both timed beside the byte bound, the compressed
+     allreduce's time, and flash at a rank's (40, 256, 32, 128).  Its lap
+     is printed beside SPMD_BUDGET_S.
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
 ``engine_serving``, ``families_serving``, ``encdec_serving``,
 ``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training``,
-``cluster_training`` or ``measured_tune``) whose shapes it was
+``cluster_training``, ``measured_tune``, ``spmd_training`` or
+``compressed_allreduce``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -3925,7 +3950,8 @@ def cluster_training(torch, ops, dev, bucket_lens, root: Path):
     sums, before any update), steps 2-4 within 1e-2, each worker's
     launches (the quantizer once a bucket a step; flash as phase 8's count
     for its steps), its ms a step and split, wire bytes, compression ratio,
-    predicted and measured peak.  Returns the workers' summed launches."""
+    predicted and measured peak.  Returns the workers' summed launches and
+    the single process's losses."""
     import gc
 
     from repro_torch.core.topology import ClusterSpec, TransportSpec
@@ -3992,7 +4018,7 @@ def cluster_training(torch, ops, dev, bucket_lens, root: Path):
         raise AssertionError(f"replica digests differ: {[r['param_digest'] for r in recs]}")
     print(f"[cluster] phase 31: replica digests equal ({recs[0]['param_digest']}); the "
           f"single process's {single_ms:.3f} ms/step against the workers' above")
-    return totals
+    return totals, want
 
 
 def cluster_smoke(smoke_config, dev, root: Path):
@@ -4220,6 +4246,183 @@ def dryrun_memory(torch, dev):
             raise AssertionError(f"dry-run cell {shape_name}: predicted {pred} B, card {meas} B")
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel training over torch.distributed, spmd (phase 35)
+# ---------------------------------------------------------------------------
+
+# phase 35's cell, spmd_deepseek7b_world1: phase 31's cell (CLUSTER_CELL) as the
+# one rank of an NCCL group; seconds the phase should take (printed beside
+# what it took)
+SPMD_BUDGET_S = 60.0
+SPMD_RTOL = 1e-6
+
+
+def spmd_training(torch, ops, R, F, dev, single_losses, root: Path):
+    """Phase 35 (see the module doc): -> (the spmd path's launches, the
+    compressed allreduce's, kernels-line records).  The process group is the phase's own, up for the phase and
+    destroyed at its end on every exit path."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.allreduce import (
+        bucketize, compressed_allreduce, flatten_grads, hierarchical_allreduce, payload_rows,
+        ring_allreduce,
+    )
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.quantize import quantize_plan, quantize_rows
+    from repro_torch.launch.cluster import WorkerRuntime
+    from repro_torch.launch.mesh import ClusterContext, make_host_mesh
+    from repro_torch.launch.train import train_session_factory
+    from repro_torch.train.steps import make_partial_grad_step
+
+    t0 = time.perf_counter()
+    ctx = ClusterContext(0, 1, mode="spmd", device=dev)
+    ctx.init_process_group(f"file://{root / 'spmd-store'}", timeout=300.0)
+    try:
+        # -- the main path: counts set to 0 before, read after --
+        ops.reset_launches()
+        rec = WorkerRuntime(
+            process_id=0, num_processes=1, sync_address=None, membership_dir=None,
+            factory="repro_torch.launch.train:train_session_factory",
+            factory_kwargs={**CLUSTER_CELL, "cluster_processes": 1, "steps": CLUSTER_STEPS,
+                            "device": "cuda"},
+            mode="spmd").run(resume_steps=0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_run = time.perf_counter()
+        # the phase's first gradient bucket: seed-0 weights on the first batch
+        session = train_session_factory(device=dev, steps=1, **CLUSTER_CELL)
+        cfg = session.model.cfg
+        params, _ = session.init_state(init_opt=False)
+        batch = session.dataset.next_device_batch(dev)
+        grads, _ = make_partial_grad_step(session.model)(params, batch)
+        del params, session, batch
+        flat, _ = flatten_grads(grads)
+        del grads
+        bucket = bucketize(flat)[0].clone()
+        del flat
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3535)
+        noise = torch.rand(bucket.shape, generator=gen, device=dev)
+        residual = torch.zeros_like(bucket)
+        counts = {k: rec["launches"].get(k, 0) for k in ops.LAUNCHES}
+        # -- compressed_allreduce, a path of its own (the spmd step sums with
+        #    dist.all_reduce): counts set to 0 before, read after --
+        ops.reset_launches()
+        total, new_res = compressed_allreduce(bucket, residual, noise)
+        torch.cuda.synchronize(dev)
+        comp_counts = dict(ops.LAUNCHES)
+        t_path = time.perf_counter()
+
+        # -- what the path printed --
+        ms = statistics.median(rec["step_times"][1:]) * 1e3
+        split, steps = rec["step_split"], max(1, rec["step_split"]["steps"])
+        print(f"[spmd] backend {rec['backend']}, world size {rec['world_size']}, mesh "
+              f"{rec['mesh']}; {rec['plan']}; on {rec['device']}")
+        print(f"[spmd] fed span: {rec['receipt']} (addressable only "
+              f"{rec['addressable_only']}); groups {rec['local_workers']}")
+        print(f"[spmd] {cfg.name} {cfg.n_layers} layers, {CLUSTER_STEPS} steps: {ms:.3f} ms/step "
+              f"(median of steps 2-{CLUSTER_STEPS}), first step "
+              f"{rec['step_times'][0] * 1e3:.1f} ms; a step (mean of {steps}): grad "
+              f"{split['grad_s'] / steps * 1e3:.1f} ms, all_reduce "
+              f"{split['allreduce_s'] / steps * 1e3:.1f}, apply "
+              f"{split['apply_s'] / steps * 1e3:.1f}; peak {rec['peak_bytes'] / 2**30:.3f} GiB; "
+              f"digest {rec['param_digest']}")
+        if (rec["backend"], rec["world_size"], rec["mode"]) != ("nccl", 1, "spmd"):
+            raise AssertionError(f"phase 35 ran {rec['mode']} over {rec['backend']} at world "
+                                 f"{rec['world_size']}")
+        if not (rec["addressable_only"] and rec["receipt"]["rows_local"]
+                == rec["receipt"]["rows_global"] == rec["global_rows"]):
+            raise AssertionError(f"the spmd rank was fed {rec['receipt']}")
+        _check_launches(rec["launches"], {"flash_attention": expected_train_launches(
+            cfg, "f32", CLUSTER_STEPS)["flash_attention"]}, "spmd training")
+        got = rec["losses"]
+        gaps = [abs(g - w) / abs(w) for g, w in zip(got, single_losses)]
+        print(f"[spmd] losses {[round(x, 6) for x in got]} against the single-process card "
+              f"Session's {[round(x, 6) for x in single_losses]}: largest relative gap "
+              f"{max(gaps):.3e} (rtol {SPMD_RTOL:g})")
+        if len(got) != len(single_losses) or not all(math.isfinite(x) for x in got) \
+                or max(gaps) > SPMD_RTOL:
+            raise AssertionError(f"spmd losses {got} against {single_losses}")
+
+        # -- the library at n = 1 (not counted) --
+        x = torch.randn(1037, generator=gen, device=dev)
+        mesh = make_host_mesh(data=1, model=1)
+        w = torch.randn(1, 16, 16, generator=gen, device=dev) * 0.3
+        mb = torch.randn(8, 2, 16, generator=gen, device=dev)
+
+        def stage(p, h):
+            return torch.tanh(h @ p["w"])
+
+        same = {
+            "ring_allreduce": torch.equal(ring_allreduce(x), x),
+            "hierarchical_allreduce": torch.equal(hierarchical_allreduce(
+                x, intra_group=mesh.get_group("data"), inter_group=mesh.get_group("model")), x),
+            "pipeline_apply": torch.equal(pipeline_apply(stage, {"w": w}, mb), torch.stack(
+                [stage({"w": w[0]}, mb[t]) for t in range(mb.shape[0])])),
+            "compressed_allreduce": torch.equal(new_res, bucket - total),
+        }
+        print(f"[spmd] at n = 1 on {mesh}: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"a collective at n = 1 changed its input: {same}")
+
+        # -- the kernels at the path's shapes, against their plain versions --
+        scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+        flush = scratch.zero_
+        mat, nmat = payload_rows(bucket + residual, noise)
+        route = quantize_plan(*mat.shape, mat.dtype, mat.data_ptr() % 16 == 0)
+        (qk, sk), (qp, sp) = quantize_rows(mat, nmat), R.quantize_int8_ref(mat, nmat)
+        torch.cuda.synchronize(dev)
+        q_same = torch.equal(qk, qp) and torch.equal(sk, sp)
+        print(f"[check] quantize_int8 compressed_allreduce rows "
+              f"{tuple(mat.shape)} f32 (route {route}), random noise: "
+              f"{'bit-equal' if q_same else 'DIFFERS'}")
+        if not q_same:
+            raise AssertionError("the quantizer at compressed_allreduce's shape differs from "
+                                 "its plain version")
+        nbytes = mat.numel() * 4 + nmat.numel() * 4 + mat.numel() + mat.shape[0] * 4
+        b_ms, b_by = bound(nbytes, 0.0, "float32")
+        records = [dict(
+            name="quantize_int8", path="compressed_allreduce",
+            shape=f"rows {tuple(mat.shape)} float32, random noise, route {route}",
+            route="cuda", source="src/repro_torch/kernels/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:38", launches=0, max_abs_err=0.0,
+            ms=timed_ms(lambda: quantize_rows(mat, nmat), flush),
+            plain_ms=timed_ms(lambda: R.quantize_int8_ref(mat, nmat), flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+        comp_ms = timed_ms(lambda: compressed_allreduce(bucket, residual, noise), flush)
+        print(f"[spmd] compressed_allreduce of the first bucket ({bucket.numel():,} f32): "
+              f"{comp_ms:.4f} ms (CUDA events, median of {N_TIMED}); the quantizer alone "
+              f"{records[0]['ms']:.4f}, bound {b_ms:.4f} ({b_by})")
+        del mat, nmat, qk, sk, qp, sp, bucket, noise, residual, total, new_res
+        B, S, H, D = rec["global_rows"], CLUSTER_CELL["seq"], 32, 128
+        q, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        err = row_ulp_check(torch, f"flash_attention spmd_training {(B, S, H, D)} bf16",
+                            flash_attention_fwd(q, k, v, causal=True),
+                            R.flash_attention_ref(q, k, v, causal=True))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        records.append(_attention_record(
+            "flash_attention", "spmd_training", f"a rank's ({B}, {S}, {H}, {D})", err,
+            lambda: flash_attention_fwd(q, k, v, causal=True),
+            lambda: R.flash_attention_ref(q, k, v, causal=True),
+            4 * q.numel() * q.element_size(), 4 * D * B * H * S * (S + 1) // 2,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), flush))
+        del q, k, v, qt, kt, vt, scratch
+        torch.cuda.empty_cache()
+        for r in records:
+            print(json.dumps(r))
+    finally:
+        dist.destroy_process_group()
+    took = time.perf_counter() - t0
+    print(f"[spmd] phase 35: {took:.1f} s (budget {SPMD_BUDGET_S:.0f}; the worker path "
+          f"{t_run - t0:.1f}, the bucket and its compressed allreduce {t_path - t_run:.1f})")
+    return counts, comp_counts, records
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4361,7 +4564,8 @@ def main() -> int:
     lap("phase 31's kernel checks")
     cluster_root = Path(tempfile.mkdtemp(prefix="chip-smoke-cluster-"))
     try:
-        cluster_totals = cluster_training(torch, ops, dev, bucket_lens, cluster_root)
+        cluster_totals, cluster_losses = cluster_training(torch, ops, dev, bucket_lens,
+                                                          cluster_root)
         lap("phase 31")
         cluster_smoke(smoke_config, dev, cluster_root)
         lap("phase 32")
@@ -4377,6 +4581,16 @@ def main() -> int:
     lap("phase 33's serving example")
     dryrun_memory(torch, dev)
     lap("phase 34")
+    # data-parallel training through the spmd worker path, one NCCL rank
+    torch.cuda.empty_cache()
+    spmd_root = Path(tempfile.mkdtemp(prefix="chip-smoke-spmd-"))
+    try:
+        spmd_totals, comp_totals, spmd_records = spmd_training(
+            torch, ops, R, F, dev, cluster_losses, spmd_root)
+    finally:
+        shutil.rmtree(spmd_root, ignore_errors=True)
+    records += spmd_records
+    lap("phase 35")
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     t_profiles = time.perf_counter()
@@ -4395,7 +4609,8 @@ def main() -> int:
     totals = {"serving": serve_totals, "training": train_totals, "moe_serving": moe_totals,
               "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals,
               "engine_serving": engine_totals, **slice_totals, **family_train_totals,
-              "cluster_training": cluster_totals, "measured_tune": tune_totals}
+              "cluster_training": cluster_totals, "measured_tune": tune_totals,
+              "spmd_training": spmd_totals, "compressed_allreduce": comp_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

@@ -6,7 +6,7 @@ Each pipeline stage returns one immutable artifact:
     Session.tune()    -> TunePlan            (Algorithm 1 + group schedule)
     Session.plan()    -> core EpochPlan      (Eq. 1 dataset shares)
     Session.place()   -> FleetManifest       (privacy placement, per device)
-    Session.shard()   -> ShardingPlan        (one device in this port)
+    Session.shard()   -> ShardingPlan        (rules resolved against the mesh)
     Session.compile() -> CompiledStep        (the train step)
     Session.run()     -> TrainReport
 """
@@ -15,10 +15,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
-import torch
-
 from repro_torch.core.hetero import BatchSchedule
 from repro_torch.core.tuner import TuneResult
+# the sharding plan lives beside the rule tables that build it (as the
+# reference's does); re-exported here with the other stage artifacts
+from repro_torch.distributed.sharding import ShardingPlan  # noqa: F401
 
 PyTree = Any
 
@@ -38,26 +39,6 @@ class TunePlan:
     @property
     def batches(self) -> Dict[str, int]:
         return self.result.batches
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardingPlan:
-    """Where the step's state and batches live: one torch device.
-
-    The reference resolves a logical-axis rule table against a device mesh
-    into ``NamedSharding`` trees (``repro/distributed/sharding.py``, JAX
-    only); on one card every leaf and every batch key lives whole on
-    ``device``.  Keyed by ``global_rows`` like the reference's plan.  A
-    cluster worker's compute plan covers its own row slab on its device.
-    Multi-device plans come with the port's multi-device half (ROADMAP
-    item 19).
-    """
-
-    device: torch.device
-    global_rows: int
-
-    def describe(self) -> str:
-        return f"ShardingPlan(device={self.device}, rows={self.global_rows})"
 
 
 @dataclasses.dataclass(frozen=True)

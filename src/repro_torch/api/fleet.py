@@ -1,6 +1,5 @@
 """`FleetSpec`: declarative fleet construction with named presets (port of
-:mod:`repro.api.fleet`, without the sharding-rule knob, which arrives with
-the port's multi-device half, ROADMAP item 19).
+:mod:`repro.api.fleet`).
 
 Every driver used to hand-roll its own ``WorkerClass(...)`` tuple (five
 slightly-divergent copies across launch/, examples/, and tests/).  A
@@ -18,7 +17,7 @@ A spec is immutable; ``add`` returns a new spec, so specs chain:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Tuple
+from typing import Any, List, Mapping, Optional, Tuple
 
 from repro_torch.core.privacy import Shard
 from repro_torch.core.topology import ClusterSpec, Fleet, WorkerClass, paper_fleet, tpu_fleet
@@ -32,6 +31,9 @@ class FleetSpec:
     ``storage`` selects the data plane: which
     :class:`~repro_torch.storage.StorageDevice` backend every worker's device
     uses (``synthetic`` | ``flash`` | ``meshfeed``); see :meth:`with_storage`.
+    ``sharding`` carries fleet-wide logical-axis rule OVERRIDES (see
+    :meth:`with_sharding`): ``Session.shard()`` merges them into the rule
+    table before resolving the :class:`~repro_torch.api.artifacts.ShardingPlan`.
     ``cluster`` (optional) runs the fleet across several worker processes;
     see :meth:`with_cluster`.
     """
@@ -39,6 +41,7 @@ class FleetSpec:
     classes: Tuple[WorkerClass, ...] = ()
     name: str = "custom"
     storage: StorageSpec = dataclasses.field(default_factory=StorageSpec)
+    sharding: Tuple[Tuple[str, Any], ...] = ()
     cluster: Optional[ClusterSpec] = None
 
     # -- presets -----------------------------------------------------------
@@ -153,6 +156,23 @@ class FleetSpec:
             cluster=ClusterSpec(processes=processes, **kw),
             storage=storage,
         )
+
+    def with_sharding(self, **rules: Any) -> "FleetSpec":
+        """Override logical-axis -> mesh-axis rules fleet-wide:
+
+            FleetSpec.demo(3).with_sharding(embed="data")      # FSDP weights
+            FleetSpec.demo(3).with_sharding(experts=("data",)) # EP over data
+            FleetSpec.demo(3).with_sharding(heads=None)        # replicate
+
+        Values are a mesh-axis name, a tuple of axis names, or ``None``
+        (replicate).  ``Session.shard()`` merges these over the per-arch
+        defaults when it resolves the plan; a plan that then places a
+        weight on several devices raises (the second half of ROADMAP item
+        19).
+        """
+        merged = dict(self.sharding)
+        merged.update(rules)
+        return dataclasses.replace(self, sharding=tuple(sorted(merged.items())))
 
     def build(self) -> Fleet:
         if not self.classes:

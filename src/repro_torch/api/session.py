@@ -7,7 +7,7 @@ of :mod:`repro.api.session`, one torch device a process).
     tune_plan = session.tune()      # Algorithm 1 -> TunePlan
     epoch     = session.plan()      # Eq. 1       -> EpochPlan
     manifest  = session.place()     # privacy     -> FleetManifest (device-aware)
-    shard     = session.shard()     # one device  -> ShardingPlan
+    shard     = session.shard()     # rules x mesh -> ShardingPlan
     step      = session.compile()   # train step  -> CompiledStep
     report    = session.run()       # training    -> TrainReport
 
@@ -36,14 +36,24 @@ data.
 The session runs on the card unless told otherwise (``device="cuda"``; it
 raises when no card is visible).
 
+``shard()`` resolves the logical-axis rule table
+(:mod:`repro_torch.distributed.sharding`, with the fleet's
+``FleetSpec.with_sharding`` overrides) against the session's mesh into a
+:class:`ShardingPlan`.  The port keeps every parameter and optimizer leaf
+whole on each device: a plan that would place one on several devices
+raises ``NotImplementedError`` (the second half of ROADMAP item 19).
+
 Cluster mode (:meth:`Session.attach_cluster`, done by
 :class:`~repro_torch.launch.cluster.WorkerRuntime` in each worker process):
 the process provisions storage devices only for its own dp-groups
-(:meth:`process_map`), lands only its row span on its device, and the
-compiled step is the ``hostsync`` pair -- this process's partial gradient
-as flat bucket vectors, a :class:`~repro_torch.launch.transport.GradReducer`
-round (compression / overlap / star or ring per the ``TransportSpec``),
-then the identical update every replica applies.  Checkpoints go through
+(:meth:`process_map`) and lands only its row span on its device.  The
+compiled step follows the context's mode: ``spmd``, the partial gradient,
+``dist.all_reduce`` over the mesh's ``data`` group and the identical update
+(:func:`~repro_torch.train.steps.make_spmd_train_step`); ``hostsync``, this
+process's partial gradient as flat bucket vectors, a
+:class:`~repro_torch.launch.transport.GradReducer` round (compression /
+overlap / star or ring per the ``TransportSpec``), then the identical
+update every replica applies.  Checkpoints go through
 :class:`~repro_torch.checkpoint.ClusterCheckpointManager`.
 """
 from __future__ import annotations
@@ -68,6 +78,7 @@ from repro_torch.core.privacy import Shard, place
 from repro_torch.core.topology import ClusterSpec, Fleet, ProcessMap, TransportSpec
 from repro_torch.core.tuner import BenchmarkFn, DriftMonitor, tune
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import ProcessMesh, check_replicated
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, tree_map
 from repro_torch.optim.schedules import goyal_schedule
@@ -76,7 +87,8 @@ from repro_torch.storage import (
     make_fleet_batcher, manifest_sources,
 )
 from repro_torch.train.steps import (
-    make_bucketed_apply_step, make_bucketed_grad_step, make_train_step, plan_buckets,
+    build_sharding_plan, make_bucketed_apply_step, make_bucketed_grad_step,
+    make_spmd_train_step, make_train_step, plan_buckets,
 )
 
 PyTree = Any
@@ -150,9 +162,12 @@ class Session:
         # identity (ClusterContext) is attached by the WorkerRuntime
         self.cluster_spec: Optional[ClusterSpec] = (
             fleet.cluster if isinstance(fleet, FleetSpec) else None)
+        # fleet-wide logical-axis rule overrides (FleetSpec.with_sharding)
+        self.sharding_overrides: Dict[str, Any] = (
+            dict(fleet.sharding) if isinstance(fleet, FleetSpec) else {})
         self._cluster = None
         self._local_plan: Optional[ShardingPlan] = None
-        # seconds the hostsync step spent in its parts, over ``steps`` steps
+        # seconds the cluster step spent in its parts, over ``steps`` steps
         self.cluster_timing: Dict[str, float] = {}
         # the device fleet persists across stage rebuilds (custody state)
         self._device_fleet: Optional[DeviceFleet] = None
@@ -200,7 +215,11 @@ class Session:
         self._cluster = ctx
 
     def _is_cluster(self) -> bool:
-        return self._cluster is not None and self._cluster.n_processes > 1
+        """A cluster context governs the step: several processes, or an
+        ``spmd`` group of any size (its step runs the collectives even on
+        one rank)."""
+        ctx = self._cluster
+        return ctx is not None and (ctx.n_processes > 1 or ctx.mode == "spmd")
 
     def process_map(self) -> Optional[ProcessMap]:
         """dp-group -> process custody (None outside cluster mode)."""
@@ -340,31 +359,67 @@ class Session:
             )
         return self._artifacts["dataset"]
 
-    # -- stage 4: the (one-device) sharding plan -------------------------------
+    # -- stage 4: the sharding plan -------------------------------------------
 
     def shard(self, *, force: bool = False) -> ShardingPlan:
-        """The placement every downstream consumer reads; keyed by the
-        schedule's ``global_rows`` like the reference's plan."""
+        """Resolve the rule table against the mesh ONCE; keyed by the
+        schedule's ``global_rows`` like the reference's plan (an elastic
+        resize re-derives it, and the compiled step with it).
+
+        The mesh: one process, a 1 x 1 :class:`ProcessMesh` on the session's
+        device; a cluster, the context's global mesh (``spmd``: the
+        ``DeviceMesh`` over every rank).  The compute plan, the global one
+        (``hostsync``: this process's one-device plan), must keep every
+        parameter and optimizer leaf whole on each device
+        (:func:`~repro_torch.distributed.sharding.check_replicated`)."""
+        from repro_torch.launch.mesh import make_single_mesh
+
         if force:
             self._invalidate("shard")
         tp = self.tune()
         cached = self._artifacts.get("shard")
         if cached is not None and cached.global_rows != tp.schedule.global_rows:
             self._invalidate("shard")
+        hostsync = self._is_cluster() and self._cluster.mode == "hostsync"
         if "shard" not in self._artifacts:
-            self._artifacts["shard"] = ShardingPlan(
-                device=self.device, global_rows=tp.schedule.global_rows)
+            rows = tp.schedule.global_rows
+            mesh = (self._cluster.global_mesh(rows) if self._is_cluster()
+                    else make_single_mesh(device=self.device))
+            plan = self._plan_on(mesh, rows)
             self._local_plan = None
+            if not hostsync:
+                check_replicated(plan)
+            self._artifacts["shard"] = plan
         plan = self._artifacts["shard"]
-        if self._is_cluster() and self._local_plan is None:
-            # the hostsync COMPUTE plan: this process's row slab on its device
-            start, stop = self.process_map().row_span(
-                self._cluster.process_id, tp.schedule.max_local)
-            self._local_plan = ShardingPlan(device=self.device, global_rows=stop - start)
+        span = None
+        if self._is_cluster():
+            span = self.process_map().row_span(self._cluster.process_id,
+                                               tp.schedule.max_local)
+            if hostsync and self._local_plan is None:
+                # the hostsync COMPUTE plan: this process's row slab on its device
+                self._local_plan = check_replicated(self._plan_on(
+                    self._cluster.local_mesh(span[1] - span[0],
+                                             data_axis=plan.data_axis // self._cluster.n_processes),
+                    span[1] - span[0]))
         # (re-)hand the plan to the data plane: meshfeed lands this process's
         # rows on the plan's device; idempotent, a no-op for other backends
-        self.devices.adopt_plan(plan, self._local_plan if self._is_cluster() else None)
+        self.devices.adopt_plan(plan, span)
         return plan
+
+    def _plan_on(self, mesh, rows: int) -> ShardingPlan:
+        return build_sharding_plan(self.model, self.optimizer, mesh=mesh, global_rows=rows,
+                                   seq_len=self.data.seq_len,
+                                   extra_rules=self.sharding_overrides or None,
+                                   device=self.device)
+
+    def spmd_plan(self, n_ranks: int) -> ShardingPlan:
+        """The plan ``n_ranks`` ``spmd`` replicas of this session would
+        resolve (a ``data`` axis of ``n_ranks``, on a :class:`ProcessMesh`):
+        what :meth:`ClusterContext.detect
+        <repro_torch.launch.mesh.ClusterContext.detect>` holds to keep every
+        leaf whole.  Builds no stage, so it may run before
+        :meth:`attach_cluster`."""
+        return self._plan_on(ProcessMesh(device=self.device, shape=(n_ranks, 1)), n_ranks)
 
     # -- stage 5: the train step -------------------------------------------
 
@@ -384,7 +439,7 @@ class Session:
             self._invalidate("compile")
         if "compile" not in self._artifacts:
             tp = self.tune()
-            self.shard()
+            plan = self.shard()
             sched = goyal_schedule(
                 self.config.base_lr,
                 tp.schedule.valid_rows,
@@ -392,7 +447,12 @@ class Session:
                 warmup_steps=self.config.warmup_steps,
                 total_steps=self.config.total_steps,
             )
-            if self._is_cluster():
+            if self._is_cluster() and self._cluster.mode == "spmd":
+                step = make_spmd_train_step(self.model, self.optimizer, sched,
+                                            group=plan.mesh.get_group("data"),
+                                            aux_weight=self.config.aux_weight,
+                                            timing=self.cluster_timing)
+            elif self._is_cluster():
                 step = self._compile_hostsync(sched)
             else:
                 step = make_train_step(self.model, self.optimizer, sched,

@@ -30,9 +30,9 @@ writes the whole checkpoint through the same atomic save, between a barrier
 that every process reaches at the step and one that holds them until it is
 published (:class:`ClusterCheckpointManager`).  A leaf sharded across
 processes, its per-shard chunks and the reference's partial manifests
-(``save_process`` / ``finalize_process_save``) come with the multi-device
-half of the port (ROADMAP item 19).  :func:`restore` reads the published
-checkpoint with any process count.
+(``save_process`` / ``finalize_process_save``) come with sharded weights,
+the second half of ROADMAP item 19 (an ``spmd`` replica holds every leaf).
+:func:`restore` reads the published checkpoint with any process count.
 """
 from __future__ import annotations
 

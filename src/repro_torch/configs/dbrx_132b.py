@@ -4,10 +4,10 @@ Same dims as ``repro.configs.dbrx_132b``.
 
 The reference's config says ``norm="layernorm"``, but its ``models/moe.py``
 never reads the field and normalizes with ``rms_norm`` throughout; the port
-does the same and carries no ``norm`` field.  The reference's ``fsdp=True``
-is a sharding option (ROADMAP item 19).  At full width (264 GB of bf16
-weights) the model needs the expert-sharded multi-card path of item 19;
-only ``SMOKE`` runs on one card.
+does the same and carries no ``norm`` field.  ``fsdp=True`` is the
+reference's sharding option.  At full width (264 GB of bf16 weights) the
+model needs the expert-sharded multi-card path, the second half of ROADMAP
+item 19; only ``SMOKE`` runs on one card.
 """
 import torch
 
@@ -28,11 +28,12 @@ CONFIG = ModelConfig(
     capacity_factor=1.25,
     mlp="swiglu",
     rope_theta=500000.0,
+    fsdp=True,
     dtype=torch.bfloat16,
 )
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=96, vocab=256, n_experts=4, experts_per_token=2,
-    dtype=torch.float32,
+    fsdp=False, dtype=torch.float32,
 )

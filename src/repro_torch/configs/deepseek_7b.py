@@ -17,10 +17,11 @@ CONFIG = ModelConfig(
     d_ff=11008,
     vocab=102400,
     mlp="swiglu",
+    fsdp=True,
     dtype=torch.bfloat16,
 )
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
-    d_ff=192, vocab=256, dtype=torch.float32,
+    d_ff=192, vocab=256, fsdp=False, dtype=torch.float32,
 )

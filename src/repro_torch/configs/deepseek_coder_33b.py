@@ -19,10 +19,11 @@ CONFIG = ModelConfig(
     vocab=32256,
     mlp="swiglu",
     rope_theta=100000.0,    # deepseek-coder long-context base
+    fsdp=True,
     dtype=torch.bfloat16,
 )
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-    d_ff=192, vocab=256, dtype=torch.float32,
+    d_ff=192, vocab=256, fsdp=False, dtype=torch.float32,
 )

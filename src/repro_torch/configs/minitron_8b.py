@@ -17,10 +17,11 @@ CONFIG = ModelConfig(
     d_ff=16384,
     vocab=256000,
     mlp="relu2",            # nemotron squared-ReLU
+    fsdp=True,
     dtype=torch.bfloat16,
 )
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-    d_ff=256, vocab=256, dtype=torch.float32,
+    d_ff=256, vocab=256, fsdp=False, dtype=torch.float32,
 )

@@ -18,10 +18,11 @@ CONFIG = ModelConfig(
     qkv_bias=True,
     mlp="swiglu",
     rope_theta=1000000.0,
+    fsdp=True,
     dtype=torch.bfloat16,
 )
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
-    d_ff=192, vocab=256, dtype=torch.float32,
+    d_ff=192, vocab=256, fsdp=False, dtype=torch.float32,
 )

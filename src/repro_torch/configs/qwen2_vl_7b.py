@@ -23,11 +23,12 @@ CONFIG = ModelConfig(
     rope_theta=1000000.0,
     mrope_sections=(16, 24, 24),   # freq pairs: temporal / height / width (sum=64=D/2)
     n_vision_patches=1024,         # stub patch-grid prefix (32x32)
+    fsdp=True,
     dtype=torch.bfloat16,
 )
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=192, vocab=256, mrope_sections=(4, 2, 2), n_vision_patches=4,
-    dtype=torch.float32,
+    fsdp=False, dtype=torch.float32,
 )

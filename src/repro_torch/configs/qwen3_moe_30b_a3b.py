@@ -3,8 +3,9 @@ d_ff=768, vocab=151936, MoE 128 experts top-8 [hf:Qwen/Qwen3-30B-A3B].  Same
 dims as ``repro.configs.qwen3_moe_30b_a3b``.
 
 As in the reference: no QK-norm, and capacity-factor dispatch (1.25) where
-the HF model routes without drops.  The reference's ``fsdp=True`` is a
-sharding option; it comes with the multi-device half (ROADMAP item 19).
+the HF model routes without drops.  ``fsdp=True`` (the reference's) shards
+the ``embed`` axis over ``data``: a plan that does so on more than one
+device is the second half of ROADMAP item 19 and raises.
 """
 import torch
 
@@ -25,11 +26,12 @@ CONFIG = ModelConfig(
     capacity_factor=1.25,
     mlp="swiglu",
     rope_theta=1000000.0,
+    fsdp=True,
     dtype=torch.bfloat16,
 )
 
 SMOKE = CONFIG.with_(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=64, vocab=256, n_experts=8, experts_per_token=2,
-    dtype=torch.float32,
+    fsdp=False, dtype=torch.float32,
 )

@@ -361,15 +361,19 @@ class ClusterSpec:
     line turns a single-process session into a cluster launch.
 
     ``local_devices`` is the per-process device count: 0 or 1 (one torch
-    device a process; more needs the multi-device half of the port, ROADMAP
-    item 19).  ``sync_port`` is the coordinator's sync service (0 picks a
-    free one at launch); it is also the ring's rendezvous.  ``membership_dir``
-    is where worker heartbeats land for the
+    device a process; more is the second half of ROADMAP item 19).
+    ``sync_port`` is the coordinator's sync service (0 picks a free one at
+    launch); it is also the ring's rendezvous.  ``membership_dir`` is where
+    worker heartbeats land for the
     :class:`~repro_torch.api.membership.MembershipWatcher` (a fresh tempdir
-    when omitted).  ``transport`` selects the gradient reduction path (see
-    :class:`TransportSpec`).  The reference's ``coordinator_port`` (the
-    ``jax.distributed`` rendezvous) and ``compile_cache_dir`` (a shared XLA
-    compilation cache) have nothing to point at in eager PyTorch.
+    when omitted).  ``transport`` selects the hostsync gradient reduction
+    path (see :class:`TransportSpec`).  ``mode`` is the execution mode,
+    ``"spmd"`` or ``"hostsync"``; ``None`` lets each worker's
+    ``ClusterContext.detect`` pick it.  The ``spmd`` process group meets
+    at a file store in the coordinator's run directory (the reference's
+    ``coordinator_port`` is the ``jax.distributed`` rendezvous); the
+    reference's ``compile_cache_dir`` (a shared XLA compilation cache) has
+    nothing to point at in eager PyTorch.
     """
 
     processes: int = 1
@@ -378,6 +382,7 @@ class ClusterSpec:
     membership_dir: Optional[str] = None
     heartbeat_interval: float = 0.25
     transport: TransportSpec = dataclasses.field(default_factory=TransportSpec)
+    mode: Optional[str] = None
 
     def __post_init__(self):
         if self.processes < 1:
@@ -387,8 +392,10 @@ class ClusterSpec:
         if self.local_devices > 1:
             raise NotImplementedError(
                 f"local_devices={self.local_devices}: a worker process drives one "
-                f"torch device; several devices a process is the multi-device half "
-                f"of the port (ROADMAP item 19)"
+                f"torch device; several devices a process is the second half of "
+                f"ROADMAP item 19 'Multi-device'"
             )
+        if self.mode not in (None, "spmd", "hostsync"):
+            raise ValueError(f"unknown cluster mode {self.mode!r}")
         if isinstance(self.transport, dict):
             object.__setattr__(self, "transport", TransportSpec(**self.transport))

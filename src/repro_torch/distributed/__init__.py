@@ -1,0 +1,31 @@
+"""Multi-device training over ``torch.distributed`` (port of
+:mod:`repro.distributed`): the sharding rule tables resolved to
+``DeviceMesh`` placements (:mod:`.sharding`), the explicit allreduce
+schedules (:mod:`.allreduce`) and the GPipe schedule (:mod:`.pipeline`).
+
+The ``spmd`` cluster mode (:mod:`repro_torch.launch.cluster`) trains one
+replica a rank and sums gradients with these collectives: NCCL between
+cards, ``gloo`` between CPU processes.
+"""
+from repro_torch.distributed.sharding import (
+    SHARDED_WEIGHTS, Layout, ProcessMesh, ShardingPlan, arg_shardings_for_tree,
+    check_replicated, get_rules, make_rules, mesh_axis_sizes, placements_for, set_rules,
+    spec_for, specs_for_tree, use_rules,
+)
+
+__all__ = [
+    "SHARDED_WEIGHTS",
+    "Layout",
+    "ProcessMesh",
+    "ShardingPlan",
+    "arg_shardings_for_tree",
+    "check_replicated",
+    "get_rules",
+    "make_rules",
+    "mesh_axis_sizes",
+    "placements_for",
+    "set_rules",
+    "spec_for",
+    "specs_for_tree",
+    "use_rules",
+]

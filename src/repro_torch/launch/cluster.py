@@ -1,5 +1,5 @@
-"""Multi-process cluster execution (``hostsync``): per-worker storage
-custody, one model replicated across processes (port of
+"""Multi-process cluster execution (``spmd`` and ``hostsync``): per-worker
+storage custody, one model replicated across processes (port of
 :mod:`repro.launch.cluster`).
 
 STANNIS's rack is a *cluster*: every computational storage device trains
@@ -18,14 +18,28 @@ aggregates.  This module is the process-level realization of that topology:
     own dp-groups' storage devices and lands only its row slab on its
     device, receipted every step.
 
-The execution mode is ``hostsync``: each process computes the PARTIAL
-gradient over its row slab, the gradients meet in a pid-ordered f32 sum
-over the socket transport (:mod:`repro_torch.launch.transport`), and every
-process applies the identical update — the paper's host aggregation,
-numerically the single-program step (dense models exactly; see
-:func:`repro_torch.train.steps.make_partial_grad_step`).  Several CUDA
-processes may share one card.  One program across several devices
-(``spmd``, NCCL) is the multi-device half of the port, ROADMAP item 19.
+Execution strategy is ``ClusterContext.mode`` (``ClusterContext.detect``
+picks it unless the spec names one):
+
+  * ``spmd`` -- one ``torch.distributed`` group, a rank a process (NCCL for
+    CUDA workers, ``gloo`` for CPU workers), rendezvous at a
+    file store in the coordinator's run directory: each rank computes the
+    partial gradient over its row slab and ``dist.all_reduce`` sums
+    gradients and the loss's numerator and denominator
+    (:func:`repro_torch.train.steps.make_spmd_train_step`).
+  * ``hostsync`` -- no process group: the partial gradients meet in a
+    pid-ordered f32 sum over the socket transport
+    (:mod:`repro_torch.launch.transport`), the paper's host aggregation;
+    several CUDA processes may share one card.
+
+Where the machine has a card a worker, worker ``p`` binds ``cuda:{p}``
+before it builds its session; ``detect`` picks ``spmd`` only for workers so
+bound whose replicas keep every parameter and optimizer leaf whole.
+
+Either way every process applies the identical update: numerically the
+single-program step (dense models exactly; see
+:func:`repro_torch.train.steps.make_partial_grad_step`).  Weights sharded
+over several devices are the second half of ROADMAP item 19.
 
 CLI (the worker entry the coordinator spawns, also usable by hand):
 
@@ -364,48 +378,65 @@ class WorkerRuntime:
     factory_kwargs: Dict[str, Any]
     heartbeat_interval: float = 0.25
     transport: Optional[Dict[str, Any]] = None   # TransportSpec kwargs
+    mode: Optional[str] = None         # "spmd" | "hostsync"; None: detect
+    rendezvous: Optional[str] = None   # spmd process group init_method
 
     def run(self, resume_steps: int = 2) -> Dict[str, Any]:
         from repro_torch.launch.mesh import ClusterContext
 
+        n = self.num_processes
+        if 1 < n <= (torch.cuda.device_count() if torch.cuda.is_available() else 0):
+            # a card a worker: the factory's "cuda" resolves to cuda:{rank}
+            torch.cuda.set_device(self.process_id)
         tspec = TransportSpec(**(self.transport or {}))
         sync = (
             SyncClient(self.sync_address, self.process_id, timeout=tspec.timeout)
-            if self.sync_address and self.num_processes > 1 else None
+            if self.sync_address and n > 1 else None
         )
-        wire = build_wire_transport(tspec, sync, self.process_id, self.num_processes)
-        session = _resolve_factory(self.factory)(**self.factory_kwargs)
-        ctx = ClusterContext(
-            self.process_id, self.num_processes, sync=sync,
-            member=f"proc-{self.process_id}",
-            transport=wire, transport_spec=tspec, device=session.device,
-        )
-        if self.num_processes > 1:
-            session.attach_cluster(ctx)
-
-        tp = session.tune()
-        pmap = session.process_map()
-        local_workers = pmap.local_workers(self.process_id) if pmap else tp.group_workers
-        beat = None
-        if self.membership_dir:
-            from repro_torch.api.membership import HeartbeatWriter
-
-            beat = HeartbeatWriter(
-                self.membership_dir, ctx.member or f"proc-{self.process_id}",
-                local_workers, interval=self.heartbeat_interval,
-            ).start()
-
+        wire, beat, owns_group, ctx = None, None, False, None
         try:
+            session = _resolve_factory(self.factory)(**self.factory_kwargs)
+            kw = dict(sync=sync, member=f"proc-{self.process_id}", transport_spec=tspec,
+                      device=session.device)
+            if self.mode is not None:
+                ctx = ClusterContext(self.process_id, n, mode=self.mode, **kw)
+            elif n > 1:
+                ctx = ClusterContext.detect(self.process_id, n, plan=session.spmd_plan(n), **kw)
+            else:
+                # the degenerate one-process launch trains unattached, as the reference's
+                ctx = ClusterContext(self.process_id, self.num_processes, **kw)
+            if ctx.mode == "hostsync":
+                wire = build_wire_transport(tspec, sync, self.process_id, self.num_processes)
+                ctx.transport = wire
+            else:
+                owns_group = ctx.init_process_group(self.rendezvous, tspec.timeout)
+            if self.num_processes > 1 or ctx.mode == "spmd":
+                session.attach_cluster(ctx)
+
+            tp = session.tune()
+            pmap = session.process_map()
+            local_workers = pmap.local_workers(self.process_id) if pmap else tp.group_workers
+            if self.membership_dir:
+                from repro_torch.api.membership import HeartbeatWriter
+
+                beat = HeartbeatWriter(
+                    self.membership_dir, ctx.member or f"proc-{self.process_id}",
+                    local_workers, interval=self.heartbeat_interval,
+                ).start()
             record = self._train(session, ctx, pmap, resume_steps=resume_steps)
         finally:
             if beat is not None:
                 beat.stop()
-            if ctx.grad_reducer is not None:
+            if ctx is not None and ctx.grad_reducer is not None:
                 ctx.grad_reducer.close()      # also closes the wire
             elif wire is not None:
                 wire.close()
             if sync is not None:
                 sync.close()
+            if owns_group:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
         return record
 
     def _train(self, session, ctx, pmap, *, resume_steps: int) -> Dict[str, Any]:
@@ -450,6 +481,10 @@ class WorkerRuntime:
             "process": self.process_id,
             "n_processes": self.num_processes,
             "mode": ctx.mode if session.cluster else "single",
+            "backend": ctx.backend if ctx.mode == "spmd" else None,
+            "world_size": self.num_processes,
+            "mesh": str(plan.mesh),
+            "plan": plan.describe(),
             "device": str(dev),
             "local_devices": len(local_ids),
             "losses": [h["loss"] for h in report.history],
@@ -463,7 +498,7 @@ class WorkerRuntime:
                 "spec": dataclasses.asdict(reducer.spec),
                 **reducer.stats.snapshot(),
             },
-            # seconds of the hostsync step's parts over the first run
+            # seconds of the cluster step's parts over both runs
             "step_split": dict(session.cluster_timing),
             "launches": launches,
             "peak_bytes": peak,
@@ -576,7 +611,10 @@ class ClusterCoordinator:
                 "--resume-steps", str(resume_steps),
                 "--heartbeat-interval", str(self.spec.heartbeat_interval),
                 "--transport", json.dumps(self.spec.transport.to_dict()),
-            ]
+                # the spmd process group's rendezvous: a file store no other
+                # launch shares (no port to collide on)
+                "--rendezvous", f"file://{os.path.join(self.run_dir, 'pg-store')}",
+            ] + (["--mode", self.spec.mode] if self.spec.mode else [])
             with open(os.path.join(self.run_dir, f"log.p{pid}.txt"), "w") as out:
                 self._procs.append(subprocess.Popen(
                     cmd, env=env, stdout=out, stderr=subprocess.STDOUT,
@@ -719,6 +757,10 @@ def _worker_main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--resume-steps", type=int, default=2)
     ap.add_argument("--heartbeat-interval", type=float, default=0.25)
     ap.add_argument("--transport", default="{}")
+    ap.add_argument("--mode", choices=("spmd", "hostsync"), default=None,
+                    help="execution mode (default: ClusterContext.detect)")
+    ap.add_argument("--rendezvous", default=None,
+                    help="spmd process group init_method (file://... or tcp://host:port)")
     args = ap.parse_args(argv)
 
     runtime = WorkerRuntime(
@@ -730,6 +772,8 @@ def _worker_main(argv: Optional[Sequence[str]] = None) -> int:
         factory_kwargs=json.loads(args.factory_kwargs),
         heartbeat_interval=args.heartbeat_interval,
         transport=json.loads(args.transport),
+        mode=args.mode,
+        rendezvous=args.rendezvous,
     )
     record = runtime.run(resume_steps=args.resume_steps)
     body = json.dumps(record, indent=1)

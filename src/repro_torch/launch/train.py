@@ -2,9 +2,8 @@
 Session — Algorithm-1 tune, Eq.-1 epoch plan, privacy placement, then
 training steps on batches assembled inside the storage devices, in one
 process or, with ``--cluster-processes N``, in N worker processes
-(:mod:`repro_torch.launch.cluster`, ``hostsync``), each provisioning only
-its own dp-groups' storage devices and landing only its own rows on its
-device.
+(:mod:`repro_torch.launch.cluster`), each provisioning only its own
+dp-groups' storage devices and landing only its own rows on its device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6 --seq 32
@@ -26,12 +25,17 @@ device.
 ``--layers`` cuts the depth, the one cut a single card may need.
 ``--checkpoint-dir`` saves every ``SessionConfig.checkpoint_every`` (50)
 steps and resumes from the newest valid checkpoint there.  ``--device``
-defaults to ``cuda``, and the run fails when no card is found (every
-cluster worker on the one card, or each on the CPU with ``--device cpu``).
-``--cluster-processes`` needs ``(1 + csds) % N == 0``.
+defaults to ``cuda``, and the run fails when no card is found (cluster
+worker ``p`` on ``cuda:p`` where there is a card a worker, else every worker
+on one card; each on the CPU with ``--device cpu``).
+``--cluster-processes`` needs ``(1 + csds) % N == 0``; each worker's
+``ClusterContext.detect`` picks ``spmd`` (NCCL, a card a worker, every
+weight whole on each) or ``hostsync`` (CPU workers, workers sharing a card,
+or weights the plan would shard).
 ``--cluster-local-devices`` above 1 (several devices a process) is refused:
-ROADMAP item 19.  ``--measured-tune`` runs Algorithm 1 over real step times
-(:class:`MeasuredTune`) instead of the fleet's analytic model.
+the second half of ROADMAP item 19.  ``--measured-tune`` runs Algorithm 1
+over real step times (:class:`MeasuredTune`) instead of the fleet's
+analytic model.
 
 Every arch trains here as it does in the reference's launcher: the MoE
 archs with the router's aux loss in the loss (``SessionConfig.aux_weight``);
@@ -59,7 +63,7 @@ from repro_torch.device import DeviceLike
 from repro_torch.models.api import Model, get_model
 from repro_torch.optim import adamw, sgd_momentum
 from repro_torch.storage import DataConfig
-from repro_torch.storage.meshfeed import ROADMAP_MULTI_DEVICE
+from repro_torch.distributed.sharding import SHARDED_WEIGHTS
 from repro_torch.train.steps import make_train_step
 
 PRECISIONS = ("f32", "bf16", "int8-fused")
@@ -130,7 +134,7 @@ def train_session_factory(
     checkpoint_every: int = SessionConfig.checkpoint_every,
     seed: int = 0,
     device: DeviceLike = "cuda",
-    cluster_processes: int = 1,
+    cluster_processes: Optional[int] = None,
     fleet: Optional[Dict[str, float]] = None,
     measured_tune: bool = False,
 ) -> Session:
@@ -138,15 +142,16 @@ def train_session_factory(
     CSD-class workers; ``fleet`` replaces :data:`DRIVER_FLEET`, the rest of
     ``FleetSpec.demo``'s keyword arguments), 256 private samples per CSD
     and a 65,536-sample public pool; importable by name from cluster
-    workers (``cluster_processes`` above 1 puts the fleet in cluster
-    mode).  ``measured_tune`` gives the session a :class:`MeasuredTune`
-    (``session.benchmark``) in place of the analytic model."""
+    workers (a ``cluster_processes`` count puts the fleet in cluster mode,
+    1 included: a one-rank ``spmd`` worker).  ``measured_tune`` gives the
+    session a :class:`MeasuredTune` (``session.benchmark``) in place of the
+    analytic model."""
     cfg = get_config(arch) if full_config else smoke_config(arch)
     cfg = cfg.with_(train_precision=precision)
     if n_layers is not None:
         cfg = cfg.with_(n_layers=n_layers)
     spec = FleetSpec.demo(csds, **(DRIVER_FLEET if fleet is None else fleet))
-    if cluster_processes > 1:
+    if cluster_processes is not None:
         spec = spec.with_cluster(processes=cluster_processes)
     model = get_model(cfg)
     benchmark = (MeasuredTune(model, optimizer, seq, spec.build(), device, seed)
@@ -184,9 +189,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--measured-tune", action="store_true",
                     help="tune with real step timings instead of the analytic model")
     ap.add_argument("--cluster-processes", type=int, default=1,
-                    help="launch N worker processes (hostsync)")
+                    help="launch N worker processes")
     ap.add_argument("--cluster-local-devices", type=int, default=0,
-                    help=f"devices a worker process: 0 or 1 (more is {ROADMAP_MULTI_DEVICE})")
+                    help=f"devices a worker process: 0 or 1 (more is {SHARDED_WEIGHTS})")
     return ap
 
 
@@ -208,7 +213,8 @@ def _run_cluster(args) -> int:
     )
     for rec in result.records:
         print(
-            f"[proc {rec['process']}/{rec['n_processes']} {rec['mode']}] "
+            f"[proc {rec['process']}/{rec['n_processes']} {rec['mode']}"
+            f"{' ' + rec['backend'] if rec.get('backend') else ''}] "
             f"workers={rec['local_workers']} device={rec['device']} "
             f"local_rows={rec['receipt']['rows_local'] if rec['receipt'] else '-'}"
             f"/{rec['global_rows']} compiles={rec['compile_count']} "
@@ -229,7 +235,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.cluster_local_devices > 1:
         ap.error(f"--cluster-local-devices {args.cluster_local_devices}: a worker process "
-                 f"drives one device; more is {ROADMAP_MULTI_DEVICE}")
+                 f"drives one device; more is {SHARDED_WEIGHTS}")
     if args.measured_tune and args.cluster_processes > 1:
         ap.error("--measured-tune times the step in one process; run it without "
                  "--cluster-processes")

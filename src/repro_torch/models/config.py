@@ -3,9 +3,11 @@
 It holds the fields the ported families read.  The reference's
 ``modality`` and ``norm`` are labels its models never read (each family
 builds its own norm: LayerNorm in encdec and rwkv6, RMSNorm elsewhere), so
-the port carries neither.  The reference's sharding
-switches (``scan_layers``, ``fsdp``) have no counterpart: the port runs its
-layers in a Python loop on one device.
+the port carries neither.  ``fsdp`` is the reference's: it maps the
+``embed`` axis to ``data`` in the sharding rules
+(:mod:`repro_torch.distributed.sharding`).  The reference's
+``scan_layers`` has no counterpart: the port runs its layers in a Python
+loop.
 """
 from __future__ import annotations
 
@@ -61,6 +63,9 @@ class ModelConfig:
     # vlm (Qwen2-VL)
     mrope_sections: Tuple[int, ...] = ()
     n_vision_patches: int = 0         # stubbed patch-embedding prefix length
+
+    # sharding: ZeRO-3-style extra sharding of the embed axis over "data"
+    fsdp: bool = False
 
     # numerics
     dtype: torch.dtype = torch.float32

@@ -23,8 +23,8 @@ Three interchangeable backends (select via ``StorageSpec`` /
   * ``flash``     — memory-mapped file-backed shards, bit-identical to
     synthetic; models the paper's flash medium.
   * ``meshfeed``  — each process lands only its own dp-groups' rows on its
-    one device (the cluster's data plane; one device a process, a
-    multi-device mesh is ROADMAP item 19).
+    one device (the cluster's data plane, ``spmd`` and ``hostsync``; several
+    devices a process is the second half of ROADMAP item 19).
 """
 from repro_torch.storage.device import BaseStorageDevice, StorageDevice
 from repro_torch.storage.flash import FlashDevice

@@ -59,8 +59,9 @@ class StorageSpec:
     """Declarative storage selection: which backend, and its knobs.
 
     ``root`` is the flash spool directory (a fresh tempdir when omitted);
-    ``data_axis`` pins the meshfeed devices a process (one; more is the
-    port's multi-device half and raises); ``codec`` is the flash spool width (``i32`` legacy, ``u8``/``u16``/``auto`` narrow — see
+    ``data_axis`` pins the meshfeed data axis (1, or the cluster's world:
+    one device a process; anything else raises); ``codec`` is the flash
+    spool width (``i32`` legacy, ``u8``/``u16``/``auto`` narrow — see
     :mod:`repro_torch.storage.codec`; ignored by the in-memory backends).
     """
 
@@ -156,7 +157,8 @@ class DeviceFleet:
             if self.spec.backend == "flash" else None
         )
         self._feeder = (
-            MeshFeeder(self.spec.data_axis, process_index=self.process_id)
+            MeshFeeder(self.spec.data_axis, process_index=self.process_id,
+                       world=process_map.n_processes if process_map else 1)
             if self.spec.backend == "meshfeed" else None
         )
 
@@ -349,18 +351,14 @@ class DeviceFleet:
             local_process=pid,
         )
 
-    def adopt_plan(self, plan, local_plan=None) -> None:
+    def adopt_plan(self, plan, span: Optional[Tuple[int, int]] = None) -> None:
         """Hand a session's :class:`~repro_torch.api.artifacts.ShardingPlan`
         to the data plane: the meshfeed backend lands every batch on the
-        plan's device; with ``local_plan`` (a cluster worker's compute plan)
-        only this process's row span of the global batch.  Host-delivery
-        backends ignore both."""
+        plan's device; with ``span`` (a cluster worker's [start, stop) rows)
+        only that span of the global batch.  Host-delivery backends ignore
+        both."""
         if self._feeder is None:
             return
-        span = None
-        if local_plan is not None and self.process_map is not None:
-            max_local = plan.global_rows // self.process_map.n_groups
-            span = self.process_map.row_span(self.process_id, max_local)
         self._feeder.adopt(plan.device, plan.global_rows, span)
 
     @property

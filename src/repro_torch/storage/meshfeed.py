@@ -14,9 +14,11 @@ alike.  The per-feed :class:`FeedReceipt` records which device receives how
 many bytes.  A span outside the rows this process holds raises (feed plan
 and shard custody disagree), as the reference's does.
 
-A mesh of several devices a process (``StorageSpec(data_axis=...)`` above
-1) is the multi-device half of the port (ROADMAP item 19) and raises
-``NotImplementedError``.
+``StorageSpec(data_axis=...)`` pins the feed's data axis.  Above 1 it is
+accepted where it equals the cluster's world (its processes, one device
+each: the ``spmd`` mesh's data axis), and each rank lands only its own
+span.  Any other value would put several devices in a process, the second
+half of ROADMAP item 19, and raises ``NotImplementedError``.
 
 Sampling custody is inherited from :class:`SyntheticDevice` -- mesh feeding
 changes where batches *land*, never who may *read* a shard.
@@ -29,9 +31,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import SHARDED_WEIGHTS
 from repro_torch.storage.synthetic import SyntheticDevice
-
-ROADMAP_MULTI_DEVICE = "ROADMAP item 19 'Multi-device'"
 
 
 class MeshFeedDevice(SyntheticDevice):
@@ -81,11 +82,13 @@ class MeshFeeder:
     given.
     """
 
-    def __init__(self, data_axis: Optional[int] = None, *, process_index: int = 0):
-        if data_axis is not None and data_axis > 1:
+    def __init__(self, data_axis: Optional[int] = None, *, process_index: int = 0,
+                 world: int = 1):
+        if data_axis is not None and data_axis > 1 and data_axis != world:
             raise NotImplementedError(
-                f"a meshfeed data axis of {data_axis} devices: the port feeds one "
-                f"device a process; a multi-device mesh is {ROADMAP_MULTI_DEVICE}")
+                f"a meshfeed data axis of {data_axis} devices over {world} process(es): "
+                f"the port feeds one device a process, so the data axis is the world; "
+                f"several devices a process is {SHARDED_WEIGHTS}")
         self.process_index = int(process_index)
         self._device: Optional[torch.device] = None
         self._plan_rows: Optional[int] = None

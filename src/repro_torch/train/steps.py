@@ -14,9 +14,13 @@ as flat f32 vectors, the cluster transport's wire format, laid out in the
 reference's leaf order (:func:`tree_leaves_sorted`: dict keys sorted at
 every level, as ``jax.tree_util.tree_leaves``).
 
-The reference's abstract train state and ``build_sharding_plan`` resolve a
-rule table against a mesh; the port runs on one device and has neither
-(the session's one-device plan lives in :mod:`repro_torch.api.artifacts`).
+``spmd`` cluster training (one replica a rank of a ``torch.distributed``
+group) runs the same two halves in one step, :func:`make_spmd_train_step`:
+the partial gradient, ``dist.all_reduce`` of the gradient buckets and of
+the loss's numerator and denominator, then the identical update on every
+replica.  :func:`build_sharding_plan` resolves the rule table
+(:mod:`repro_torch.distributed.sharding`) against a mesh, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -25,10 +29,20 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.hetero import masked_mean_loss
+from repro_torch.distributed.sharding import (
+    ShardingPlan, arg_shardings_for_tree, layout_for, make_rules, mesh_axis_sizes,
+)
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, OptState, tree_leaves, tree_map
 
 PyTree = Any
+
+# logical axes of the Stannis batch (the reference's ``BATCH_AXES``)
+BATCH_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "tokens": ("batch", "seq_data"),
+    "labels": ("batch", "seq_data"),
+    "loss_mask": ("batch", "seq_data"),
+}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -361,6 +375,126 @@ def make_bucketed_apply_step(
         return base(params, opt_state, grads, sums)
 
     return apply_step
+
+
+def allreduce_tree(tree: PyTree, group=None) -> PyTree:
+    """``dist.all_reduce`` (sum) over ``group`` of each leaf of ``tree``, in
+    the reference's leaf order, in place where a leaf is dense; a strided
+    leaf (a kernel's backward on the card hands one back) is reduced as a
+    dense copy, since NCCL takes dense tensors only.  -> the summed tree."""
+    import torch.distributed as dist
+
+    def reduced(leaf):
+        leaf = leaf.contiguous()
+        dist.all_reduce(leaf, group=group)
+        return leaf
+
+    return tree_unflatten_sorted(tree, [reduced(x) for x in tree_leaves_sorted(tree)])
+
+
+def make_spmd_train_step(
+    model: Model,
+    optimizer: Optimizer,
+    lr_schedule: Callable[[int], torch.Tensor],
+    *,
+    timing: Dict[str, float],
+    group=None,
+    aux_weight: float = 0.01,
+) -> Callable:
+    """The ``spmd`` cluster step: ``train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics)`` over this rank's rows.
+
+    :func:`make_partial_grad_step` on the rank's rows, then
+    ``dist.all_reduce`` over ``group`` (``None``: the default group) of
+    each gradient leaf (:func:`allreduce_tree`; the leaves are stacked a
+    layer kind, so the calls are few) and of the sums
+    ``num, den, auxden`` in one float32 vector, then :func:`make_apply_step`
+    on the totals, identically on every replica.  The masked loss is the
+    ratio of the across-rank sums, never a mean of rank means, so the update
+    is the single-program step's.  ``timing`` accumulates the seconds of
+    ``grad_s`` (to the gradient's end on the device), ``allreduce_s`` and
+    ``apply_s`` and counts ``steps``.
+    """
+    import time
+
+    import torch.distributed as dist
+
+
+    grad_step = make_partial_grad_step(model, aux_weight=aux_weight)
+    apply_step = make_apply_step(optimizer, lr_schedule, aux_weight=aux_weight)
+    keys = ("num", "den", "auxden")
+
+    def sync(device) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    def train_step(params, opt_state: OptState, batch):
+        device = tree_leaves(params)[0].device
+        t0 = time.perf_counter()
+        grads, sums = grad_step(params, batch)
+        t1 = sync(device)
+        grads = allreduce_tree(grads, group)
+        totals = torch.stack([sums[k].float() for k in keys])
+        dist.all_reduce(totals, group=group)
+        t2 = sync(device)
+        out = apply_step(params, opt_state, grads, {k: totals[i] for i, k in enumerate(keys)})
+        t3 = sync(device)
+        for key, dt in (("grad_s", t1 - t0), ("allreduce_s", t2 - t1), ("apply_s", t3 - t2),
+                        ("steps", 1)):
+            timing[key] = timing.get(key, 0.0) + dt
+        return out
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# The sharding plan
+# ---------------------------------------------------------------------------
+
+
+def abstract_batch(global_rows: int, seq_len: int) -> Dict[str, torch.Tensor]:
+    """The Stannis batch as meta tensors (keys match ``BATCH_AXES``)."""
+    return {
+        "tokens": torch.empty((global_rows, seq_len), dtype=torch.int32, device="meta"),
+        "labels": torch.empty((global_rows, seq_len), dtype=torch.int32, device="meta"),
+        "loss_mask": torch.empty((global_rows, seq_len), dtype=torch.float32, device="meta"),
+    }
+
+
+def build_sharding_plan(
+    model: Model,
+    optimizer: Optimizer,
+    *,
+    mesh,
+    global_rows: int,
+    seq_len: int,
+    extra_rules: Optional[Dict[str, Any]] = None,
+    device: Optional[torch.device] = None,
+) -> ShardingPlan:
+    """Resolve the rule table against ``mesh`` into one ShardingPlan.
+
+    Size-aware (:func:`~repro_torch.distributed.sharding.arg_shardings_for_tree`):
+    a dim a mesh axis does not divide falls back to replicated on that dim.
+    Optimizer moments reuse the parameter layouts (same shapes, f32), the
+    step counter and metrics are replicated, and batch rows shard over the
+    data axes.  ``device`` is this process's device (default: the mesh's)."""
+    rules = make_rules(fsdp=bool(getattr(model.cfg, "fsdp", False)), extra=extra_rules or None)
+    rules.setdefault("seq_data", None)
+    replicated = layout_for((), mesh)
+    params_abs, p_axes = model.init_params(abstract=True)
+    p_sh = arg_shardings_for_tree(p_axes, params_abs, rules, mesh)
+    opt_abs = optimizer.init(params_abs)
+    opt_sh = OptState(step=replicated, mu=p_sh, nu=None if opt_abs.nu is None else p_sh)
+    b_sh = arg_shardings_for_tree(BATCH_AXES, abstract_batch(global_rows, seq_len), rules, mesh)
+    if device is None:
+        device = torch.device(getattr(mesh, "device", None) or mesh.device_type)
+    return ShardingPlan(
+        mesh=mesh, rules=rules, params=p_sh, opt=opt_sh, batch=b_sh, replicated=replicated,
+        global_rows=int(global_rows),
+        data_axis=mesh_axis_sizes(mesh).get("data", 1),
+        device=torch.device(device),
+    )
 
 
 def make_eval_step(model: Model, *, aux_weight: float = 0.01) -> Callable:

@@ -128,10 +128,18 @@ def test_feed_rejects_rows_outside_custody_and_several_devices():
     with pytest.raises(ValueError, match="outside this host's rows"):
         feeder.feed_addressable({"tokens": np.zeros((4, 4), np.int32)},
                                 row_offset=4, global_rows=8)
+    # a data axis is the world (one device a process); anything else would put
+    # several devices in a process
     with pytest.raises(NotImplementedError, match="item 19"):
         MeshFeeder(data_axis=4)
     with pytest.raises(NotImplementedError, match="item 19"):
-        ClusterContext(process_id=0, n_processes=2, mode="spmd")
+        MeshFeeder(data_axis=4, world=2)
+    MeshFeeder(data_axis=2, world=2)
+    # the spmd mode is ported (tests/test_torch_spmd.py); a process's mesh
+    # over several devices is not
+    assert ClusterContext(process_id=0, n_processes=2, mode="spmd").mode == "spmd"
+    with pytest.raises(NotImplementedError, match="item 19"):
+        ClusterContext(process_id=0, n_processes=2).local_mesh(8, data_axis=2)
     assert cluster_data_axis(40, 2, 2) == 2 and cluster_data_axis(12, 8, 2) == 6
 
 
