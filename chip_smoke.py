@@ -13,7 +13,7 @@ Phases (any failure raises and the script exits non-zero):
      must hold some;
   3. each kernel at the serving path's shapes against its plain PyTorch
      version on the card, with its time (CUDA events, median of 25, L2
-     flushed before each run), the plain version's time, the
+     flushed before each run), the plain version's time (median of 5), the
      ``F.scaled_dot_product_attention`` yardstick where one call computes the
      same function, and the least time the card could take (bytes over
      3.35 TB/s or operations over the peak rate of their type); then the
@@ -48,7 +48,7 @@ goyal schedule):
      (plain versions) and on the card (kernels) from the same weights, in
      ``f32`` and ``int8-fused``; per-step losses must agree;
   8. deepseek-7b at full width, depth cut 30 -> 8 layers (AdamW state of 30
-     layers does not fit 80 GB), seq 256: ``Session.run`` for 5 steps in
+     layers does not fit 80 GB), seq 256: ``Session.run`` for 4 steps in
      ``f32`` and in ``int8-fused``, with ms/step (the step alone, and the
      whole loop with the data plane's batch assembly), valid tokens/s, peak
      memory, finite losses and grad norms, and launch counters.
@@ -71,7 +71,7 @@ MoE serving (qwen3-moe-30b-a3b; the deepseek state is freed first):
      identical, native and int8 cache, every MoE layer through both kernels;
  11. qwen3-moe-30b-a3b at its published size (48 layers, not cut, bf16,
      random weights from seed 0): ``ServeSession.generate`` greedy at batch 8,
-     prompt 512, 64 new tokens, native and int8 KV cache;
+     prompt 512, 32 new tokens, native and int8 KV cache;
  12. profiles, after every timed run (a generate timed after the profiler ran
      measured slower decode steps): one training step per model of phases 8
      and 19 and precision (the recurrent models' in f32 only:
@@ -105,11 +105,14 @@ Recurrent serving (rwkv6-7b, recurrentgemma-2b; after the MoE state is freed):
      recurrentgemma-2b native and int8), and recurrentgemma-2b at prompt 3072
      (longer than its window) with 16 steps: prefill ms, decode ms/step,
      tok/s, peak memory, launches of every kernel per prefill and step;
- 16. ``ServeSession.generate`` at full width (native, batch 8, prompt 512, 64
-     new tokens), the reference's own recurrent route (the prompt stepped
-     through ``decode_step``): its prefill ms beside the batched one; then
+ 16. ``ServeSession.generate`` at full width over the first half of the
+     layers (native, batch 8, prompt 512, 64 new tokens; the whole depth
+     until phase 36 came), the reference's own recurrent route (the prompt
+     stepped through ``decode_step``): its prefill ms beside the batched
+     one; then
      the largest difference between the two routes' states, a reading, at
-     prompt 128 (cut from 512 to keep the run near 5 minutes) in bf16 and
+     prompt 64 (cut from 512 to keep the run near 5 minutes, from 128 when
+     phase 36 came) in bf16 and
      in float32.
 
 Recurrent training (``launch/train.py``'s session, as phases 6-8):
@@ -132,7 +135,7 @@ Recurrent training (``launch/train.py``'s session, as phases 6-8):
      per-step losses agree, and the launch counters show every scan and
      attention call (the remat recompute included) went through its kernel;
  19. rwkv6-7b (4 of 32 layers, seq 256) and recurrentgemma-2b (26 layers,
-     seq 128) at full width: ``Session.run`` for 5 steps in ``f32`` and
+     seq 128) at full width: ``Session.run`` for 4 steps in ``f32`` and
      ``int8-fused``, reported as phase 8.  Phase 12 profiles one step of
      each.
 
@@ -160,7 +163,8 @@ pool; after recurrent training):
      ``benchmarks/serve_smoke.py``'s three checks (admit mid-decode, prefix
      cache hit, streaming order) on the card; a masked decode step keeps an
      inactive slot's cache bit for bit;
- 22. deepseek-7b at its published size (30 layers, bf16, seed-0 weights)
+ 22. deepseek-7b at its published width, 15 of its 30 layers
+     (ENGINE_FULL_LAYERS; 30 until phase 36 came), bf16, seed-0 weights,
      through ``run_load``: 12 requests submitted at once, prompt 64 of which
      32 are a shared prefix, 32 greedy tokens, 8 slots of 128 rows, a pool of
      128 blocks of 8, chunks of 16 under a budget of 64, native and int8 KV:
@@ -206,13 +210,13 @@ before the next is built, its predicted peak printed before its weights):
  25. ``families_serving``: qwen1.5-4b, minitron-8b and deepseek-coder-33b at
      their published sizes (bf16, seed-0 weights; the coder's 33.3 B params
      are 62.1 GiB) through ``ServeSession.generate``, batch 8, prompt 512,
-     64 greedy tokens, native and int8 KV, as phase 5;
+     32 greedy tokens, native and int8 KV, as phase 5;
  26. ``encdec_serving``: whisper-medium (24 + 24 layers, head dim 64) over
-     1500 stub frames drawn from the seed, prompt 32, 64 greedy tokens
+     1500 stub frames drawn from the seed, prompt 32, 32 greedy tokens
      through ``ServeSession.generate(..., frames=)``, native cache and the
      8-leaf int8 cache (quantized cross K/V);
  27. ``vlm_serving``: qwen2-vl-7b over 1024 stub patch embeddings and 512
-     text tokens through ``ServeSession.generate(..., patch_embeds=)``, 64
+     text tokens through ``ServeSession.generate(..., patch_embeds=)``, 32
      greedy tokens, native and int8;
  each prints prefill ms, decode ms/step, peak GiB and launch counts (every
  attention call through the kernels), and its seconds beside its budget.
@@ -316,12 +320,34 @@ the profiles):
      allreduce's time, and flash at a rank's (40, 256, 32, 128).  Its lap
      is printed beside SPMD_BUDGET_S.
 
+ZeRO-3 over the data axis (after phase 35, before the profiles):
+ 36. ``zero3_training``: phase 31's cell under its published ``fsdp=True``
+     (every leaf but the norms carries ``embed``) through 2 ``spmd`` ranks
+     that share the card (``ClusterCoordinator`` with mode ``spmd`` and
+     ``backend="gloo"``: NCCL puts no two ranks on one card; gloo takes the
+     card's tensors), 20 rows a rank: each rank holds and updates only its
+     shards, gathers a layer's weights where it runs and gets their
+     gradients reduce-scattered.  Held: the step-1 loss against phase 31's
+     single-process card Session at SPMD_RTOL and steps 2-4 at
+     ZERO3_LATER_RTOL (the ranks' bf16 partial gradients); the losses and
+     the parameters against the same arithmetic in this one process
+     (``world2_reference``: each batch's two halves, their partial
+     gradients summed in f32 and rounded to bf16) at SPMD_RTOL and digest
+     for digest; the gathered parameters' digests equal on both ranks; each
+     rank's resident parameter and moment bytes exactly the sum of its
+     shard shapes' bytes; flash launched as phase 8's count (the kernel is
+     held to its plain version at this 20-row shape in phase 31's checks,
+     whose record the kernels line repeats for this path).  Printed: each
+     rank's peak beside phase 31's replicated worker's, ms a step and its
+     split (grad with the gathers and reduce-scatters, reduce, apply) and
+     wire bytes a step by kind.  Its lap is printed beside ZERO3_BUDGET_S.
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
 ``engine_serving``, ``families_serving``, ``encdec_serving``,
 ``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training``,
-``cluster_training``, ``measured_tune``, ``spmd_training`` or
-``compressed_allreduce``) whose shapes it was
+``cluster_training``, ``measured_tune``, ``spmd_training``,
+``compressed_allreduce`` or ``zero3_training``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -350,6 +376,7 @@ if (ROOT / "src" / "repro_torch").is_dir():        # else main() fails before an
     from repro_torch.roofline.cost import attention_ops, bound, wkv6_ops
     from repro_torch.examples.serve_batched import generate_batched
 N_TIMED = 25
+N_PLAIN = 5
 MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel", "moe_gate_up_tc_kernel",
                "moe_down_tc_kernel", "moe_gate_up_skinny_kernel", "moe_down_skinny_kernel",
                "moe_invert_kernel", "moe_combine_kernel", "moe_combine_scan_kernel")
@@ -374,14 +401,14 @@ def card_line() -> str:
     return out[0]
 
 
-def timed_ms(fn, flush) -> float:
-    """Median device time of ``fn()`` over N_TIMED runs, L2 flushed before each."""
+def timed_ms(fn, flush, runs: int = N_TIMED) -> float:
+    """Median device time of ``fn()`` over ``runs`` runs, L2 flushed before each."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(N_TIMED):
+    for _ in range(runs):
         flush()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -390,6 +417,13 @@ def timed_ms(fn, flush) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_plain(fn, flush) -> float:
+    """A plain version's median device time, over N_PLAIN runs: they take
+    0.1-90 ms a call, where 25 runs cost the script ~14 s and a median of 5
+    spreads little."""
+    return timed_ms(fn, flush, N_PLAIN)
 
 
 def kernel_ms(torch, fn, flush, groups):
@@ -516,7 +550,7 @@ def kernel_checks(torch, ops, R, F, dev):
                 replaces="src/repro/kernels/flash_attention.py:133",
                 launches=0, max_abs_err=err,
                 ms=timed_ms(lambda: flash_attention_fwd(q, k, v, causal=True), flush),
-                plain_ms=timed_ms(lambda: R.flash_attention_ref(q, k, v, causal=True), flush),
+                plain_ms=timed_plain(lambda: R.flash_attention_ref(q, k, v, causal=True), flush),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True), flush),
@@ -540,7 +574,7 @@ def kernel_checks(torch, ops, R, F, dev):
                 replaces="src/repro/kernels/decode_attention.py:327",
                 launches=0, max_abs_err=err,
                 ms=timed_ms(lambda: decode_attention(q, kc, vc, valid), flush),
-                plain_ms=timed_ms(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
+                plain_ms=timed_plain(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
                 bound_ms=b_ms, bound_by=b_by,
                 # valid_len 0 rows give NaN here (all masked); timing only
                 library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
@@ -563,7 +597,7 @@ def kernel_checks(torch, ops, R, F, dev):
                 replaces="src/repro/kernels/decode_attention.py:378",
                 launches=0, max_abs_err=err,
                 ms=timed_ms(lambda: decode_attention_int8(q, kq, ks, vq, vs, valid), flush),
-                plain_ms=timed_ms(
+                plain_ms=timed_plain(
                     lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid), flush),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
             ))
@@ -824,7 +858,7 @@ def train_kernel_checks(torch, ops, R, F, dev):
         replaces="src/repro/kernels/flash_attention.py:133",
         launches=0, max_abs_err=err,
         ms=timed_ms(lambda: flash_attention_fwd(q, k, v, causal=True), flush),
-        plain_ms=timed_ms(lambda: R.flash_attention_ref(q, k, v, causal=True), flush),
+        plain_ms=timed_plain(lambda: R.flash_attention_ref(q, k, v, causal=True), flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), flush),
@@ -876,7 +910,7 @@ def train_kernel_checks(torch, ops, R, F, dev):
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:200",
         launches=0, max_abs_err=err,
-        ms=timed_ms(kernel, flush), plain_ms=timed_ms(plain, flush),
+        ms=timed_ms(kernel, flush), plain_ms=timed_plain(plain, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
     del q, kq, ks, vq, vs, scratch
@@ -917,7 +951,7 @@ def quant_record(torch, R, path, rows, flush):
         route="cuda", source="src/repro_torch/kernels/csrc/quantize.cu",
         replaces="src/repro/kernels/quantize.py:38", launches=0, max_abs_err=0.0,
         ms=timed_ms(lambda: quantize_rows(rows, 0.5), flush),
-        plain_ms=timed_ms(lambda: R.quantize_int8_ref(rows, 0.5), flush),
+        plain_ms=timed_plain(lambda: R.quantize_int8_ref(rows, 0.5), flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -1037,6 +1071,9 @@ def cross_device_train(torch, ops, train_session_factory, dev, arch="deepseek-7b
 # step); qwen3-moe-30b-a3b
 # (phase 28) keeps 3 of 48 layers: 2.49 B params, 30 GB of weights and AdamW
 # state, beside logits of 151,936 columns
+# steps a full-width training run takes (phases 8, 19, 28-30): the median of
+# steps 2-4 is the reading (5 steps until the run gained phase 36)
+TRAIN_STEPS = 4
 TRAIN_CELLS = {"deepseek-7b": (8, 256), "rwkv6-7b": (4, 256), "recurrentgemma-2b": (26, 128),
                "qwen3-moe-30b-a3b": (3, 256)}
 
@@ -1056,7 +1093,7 @@ def report_train(cfg, arch, prec, hist, wall, rows, valid_rows, seq, peak, count
                  get_config):
     """Phase 8's lines for one full-width training run; raises on a
     non-finite loss or grad norm, or on a MoE step without its aux loss;
-    returns the median ms a step (steps 2-5)."""
+    returns the median ms a step (steps 2 to the last)."""
     ms = statistics.median(h["step_time"] for h in hist[1:]) * 1e3
     data_ms = statistics.median(h["data_time"] for h in hist[1:]) * 1e3
     valid_tok_s = valid_rows * seq / (ms / 1e3)
@@ -1085,8 +1122,9 @@ def report_train(cfg, arch, prec, hist, wall, rows, valid_rows, seq, peak, count
 
 def full_width_train(torch, ops, train_session_factory, get_config, dev, arch="deepseek-7b"):
     """Phases 8, 19 and 28: ``arch`` at full width, depth and seq from
-    TRAIN_CELLS, through Session.run for 5 steps in f32 and int8-fused."""
-    steps = 5
+    TRAIN_CELLS, through Session.run for TRAIN_STEPS steps in f32 and
+    int8-fused."""
+    steps = TRAIN_STEPS
     layers, seq = TRAIN_CELLS[arch]
     totals = {name: 0 for name in ops.LAUNCHES}
     step_ms = {}
@@ -1297,7 +1335,7 @@ def moe_gemm_combine_records(torch, R, F, x, router, wg, wu, wo, k, C, label, pa
         replaces="src/repro/kernels/fused_moe.py:140",
         launches=0, max_abs_err=err,
         ms=timed_ms(gemm, flush),
-        plain_ms=timed_ms(lambda: R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate),
+        plain_ms=timed_plain(lambda: R.fused_moe_gemm_ref(x, wg, wu, wo, slot_tok, slot_gate),
                           flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )]
@@ -1320,7 +1358,7 @@ def moe_gemm_combine_records(torch, R, F, x, router, wg, wu, wo, k, C, label, pa
         replaces="src/repro/kernels/fused_moe.py:200",
         launches=0, max_abs_err=0.0,
         ms=timed_ms(lambda: FM.fused_moe_combine(y, slot_tok, T), flush),
-        plain_ms=timed_ms(lambda: R.fused_moe_combine_ref(y, slot_tok, T), flush),
+        plain_ms=timed_plain(lambda: R.fused_moe_combine_ref(y, slot_tok, T), flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed_ms(lambda: torch.zeros(T, d, dtype=bf16, device=x.device).index_add_(
             0, tok_kept, y_kept), flush),
@@ -1380,7 +1418,7 @@ def moe_kernel_checks(torch, R, F, dev):
         replaces="src/repro/kernels/flash_attention.py:133",
         launches=0, max_abs_err=err,
         ms=timed_ms(lambda: flash_attention_fwd(q, kk, vv, causal=True), flush),
-        plain_ms=timed_ms(lambda: R.flash_attention_ref(q, kk, vv, causal=True), flush),
+        plain_ms=timed_plain(lambda: R.flash_attention_ref(q, kk, vv, causal=True), flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), flush),
@@ -1403,7 +1441,7 @@ def moe_kernel_checks(torch, R, F, dev):
         replaces="src/repro/kernels/decode_attention.py:327",
         launches=0, max_abs_err=err,
         ms=timed_ms(lambda: decode_attention(q, kc, vc, valid), flush),
-        plain_ms=timed_ms(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
+        plain_ms=timed_plain(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
         bound_ms=b_ms, bound_by=b_by,
         # valid_len 0 rows give NaN here (all masked); timing only
         library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
@@ -1421,7 +1459,7 @@ def moe_kernel_checks(torch, R, F, dev):
         replaces="src/repro/kernels/decode_attention.py:378",
         launches=0, max_abs_err=err,
         ms=timed_ms(lambda: decode_attention_int8(q, kq, ks, vq, vs, valid), flush),
-        plain_ms=timed_ms(lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid),
+        plain_ms=timed_plain(lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid),
                           flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
@@ -1523,7 +1561,7 @@ def cross_device_moe(torch, ops, get_model, smoke_config, ServeSession, dev):
 def full_width_moe(torch, ops, get_model, get_config, ServeSession, dev):
     """Phase 11: qwen3-moe-30b-a3b at its published size through
     ServeSession.generate."""
-    B, P, N = 8, 512, 64
+    B, P, N = 8, 512, 32
     cfg = get_config("qwen3-moe-30b-a3b")
     t0 = time.perf_counter()
     params, _ = get_model(cfg).init_params(seed=0, device=dev)
@@ -1784,7 +1822,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
                 replaces="src/repro/kernels/rwkv6_scan.py:119",
                 launches=0, max_abs_err=err,
                 ms=timed_ms(lambda: rwkv6_scan(r, k, v, w, u), flush),
-                plain_ms=timed_ms(lambda: R.rwkv6_scan_ref(r, k, v, w, u), flush),
+                plain_ms=timed_plain(lambda: R.rwkv6_scan_ref(r, k, v, w, u), flush),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
             ))
         del r, k, v, w, u, out, state, want_out, want_state
@@ -1806,7 +1844,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
                 replaces="src/repro/kernels/rglru_scan.py:65",
                 launches=0, max_abs_err=err,
                 ms=timed_ms(lambda: rglru_scan(a, x), flush),
-                plain_ms=timed_ms(lambda: R.rglru_scan_ref(a, x), flush),
+                plain_ms=timed_plain(lambda: R.rglru_scan_ref(a, x), flush),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
             ))
         del a, x
@@ -1832,7 +1870,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
         replaces="src/repro/kernels/flash_attention.py:133",
         launches=0, max_abs_err=err,
         ms=timed_ms(lambda: flash_attention_fwd(q, kk, vv, causal=True, window=WIN), flush),
-        plain_ms=timed_ms(lambda: R.flash_attention_ref(q, kk, vv, causal=True, window=WIN),
+        plain_ms=timed_plain(lambda: R.flash_attention_ref(q, kk, vv, causal=True, window=WIN),
                           flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
@@ -1859,7 +1897,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
         replaces="src/repro/kernels/decode_attention.py:327",
         launches=0, max_abs_err=err,
         ms=timed_ms(lambda: decode_attention(q, kc, vc, valid), flush),
-        plain_ms=timed_ms(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
+        plain_ms=timed_plain(lambda: R.decode_attention_ref(q, kc, vc, valid), flush),
         bound_ms=b_ms, bound_by=b_by,
         # valid_len 0 rows give NaN here (all masked); timing only
         library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
@@ -1878,7 +1916,7 @@ def recurrent_kernel_checks(torch, R, F, dev):
         replaces="src/repro/kernels/decode_attention.py:378",
         launches=0, max_abs_err=err,
         ms=timed_ms(lambda: decode_attention_int8(q, kq, ks, vq, vs, valid), flush),
-        plain_ms=timed_ms(lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid),
+        plain_ms=timed_plain(lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid),
                           flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
@@ -1978,7 +2016,7 @@ def full_width_recurrent(torch, ops, get_model, get_config, ServeSession, dev):
     recurrent configs at their published size, random weights from seed 0."""
     B, P, N = 8, 512, 64
     P_LONG, N_LONG = 3072, 16
-    P_STATE = 128
+    P_STATE = 64
     totals = {name: 0 for name in ops.LAUNCHES}
     decode_ms = {}
     gen = torch.Generator(device=dev)
@@ -2043,26 +2081,32 @@ def full_width_recurrent(torch, ops, get_model, get_config, ServeSession, dev):
             del long_prompt
 
         # phase 16: the reference's own recurrent route, the prompt stepped
-        # through decode_step
-        serve = ServeSession(model=model, params=params, device=dev)
+        # through decode_step, over the first half of the layers (the whole
+        # depth took 93 s of a slow host's run; the step is host-bound, so its
+        # time scales with the layers)
+        half = cfg.with_(n_layers=cfg.n_layers // 2)
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
-        out = serve.generate(prompt, max_new_tokens=N)
+        out = ServeSession(model=get_model(half), params=params, device=dev).generate(
+            prompt, max_new_tokens=N)
         counts = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         expect = {k: 0 for k in ("rwkv6_scan", "rglru_scan", "flash_attention")}
-        expect.update({k: n for k, n in _expected_launches(cfg, "native", 0, P + N).items() if n})
+        expect.update({k: n for k, n in _expected_launches(half, "native", 0, P + N).items() if n})
         _check_launches(counts, expect, f"{arch} generate")
         for name, c in counts.items():
             totals[name] += c
-        print(f"[recurrent] {cfg.name} native ServeSession.generate: prefill (prompt stepped "
-              f"through decode_step) {out.prefill_time * 1e3:.3f} ms vs batched prefill "
+        print(f"[recurrent] {cfg.name} native ServeSession.generate over {half.n_layers} of "
+              f"{cfg.n_layers} layers: prefill (prompt stepped through decode_step) "
+              f"{out.prefill_time * 1e3:.3f} ms vs batched prefill over all {cfg.n_layers} "
               f"{batched_prefill_s['native'] * 1e3:.3f} ms; decode {out.ms_per_step:.3f} ms/step "
               f"({out.decode_tok_s:.3f} tok/s), peak memory {peak / 2**30:.3f} GiB, "
               f"launches {counts}")
+        serve = ServeSession(model=model, params=params, device=dev)
         # the two routes' states, a reading: the prompt cut to P_STATE (512
-        # stepped decode steps more would double the phase), in bf16 and in
-        # float32, where rounding does not pile up through the layers
+        # stepped decode steps more would double the phase; 64 since phase
+        # 36), in bf16 and in float32, where rounding does not pile up
+        # through the layers
         short = prompt[:, :P_STATE]
         for dtype in dict.fromkeys((cfg.dtype, torch.float32)):
             if dtype != cfg.dtype:
@@ -2155,7 +2199,7 @@ def recurrent_train_kernel_checks(torch, ops, R, F, dev):
             name=name, path="recurrent_training", shape=shape, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source}",
             replaces=f"src/repro/kernels/{replaces}", launches=0, max_abs_err=err,
-            ms=timed_ms(kernel, flush), plain_ms=timed_ms(plain, flush),
+            ms=timed_ms(kernel, flush), plain_ms=timed_plain(plain, flush),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None if library is None else timed_ms(library, flush)))
 
@@ -2342,6 +2386,9 @@ ENGINE_SMOKE = dict(max_slots=2, max_len=48, block_size=4, num_blocks=32, prefil
 # batch-1 decode step a token; a p99 over 12 requests is their maximum)
 ENGINE_FULL = dict(max_slots=8, max_len=128, block_size=8, num_blocks=128, prefill_chunk=16,
                    token_budget=64)
+# phase 22's depth: the engine's step is host-bound (its wall scales with the
+# layers), and the whole 30 took 113 s of a slow host's run
+ENGINE_FULL_LAYERS = 15
 ENGINE_LOAD = dict(n_requests=12, prompt_len=64, max_new_tokens=32, shared_prefix_len=32, seed=0)
 # the engine steps every prompt token through a batch-1 decode step on the
 # host, so its wall grows with depth: 8 of 30 layers keep phase 22 and its
@@ -2461,7 +2508,7 @@ def paged_kernel_checks(torch, R, dev):
                                       if nm.endswith("int8") else
                                       "src/repro/kernels/decode_attention.py:202"),
                             launches=0, max_abs_err=e, ms=timed_ms(fn, flush),
-                            plain_ms=timed_ms(pl, flush), bound_ms=b_ms, bound_by=b_by,
+                            plain_ms=timed_plain(pl, flush), bound_ms=b_ms, bound_by=b_by,
                             # no one PyTorch call computes a paged decode: a gather
                             # and then SDPA is two
                             library_ms=None, contiguous_ms=timed_ms(cf, flush))
@@ -2704,12 +2751,12 @@ def engine_pool_check(torch, ops, R, engine, prompts, dev, what):
 
 
 def full_width_engine(torch, ops, R, get_model, get_config, ServeSession, dev):
-    """Phase 22: deepseek-7b at its published size through ServeEngine +
-    run_load (the engine_deepseek7b_shared_prefix smoke reading), native and
-    int8."""
+    """Phase 22: deepseek-7b at its published width, ENGINE_FULL_LAYERS of
+    its 30 layers, through ServeEngine + run_load (the
+    engine_deepseek7b_shared_prefix smoke reading), native and int8."""
     from repro_torch.serve import EngineConfig, ServeEngine, run_load
 
-    cfg = get_config("deepseek-7b")
+    cfg = get_config("deepseek-7b").with_(n_layers=ENGINE_FULL_LAYERS)
     params, _ = get_model(cfg).init_params(seed=0, device=dev)
     torch.cuda.synchronize()
     prompts = _load_prompts(cfg.vocab)
@@ -3162,7 +3209,7 @@ def _attention_record(name, path, shape, err, fn, plain, nbytes, flops, library,
     return dict(name=name, path=path, shape=shape, route="cuda",
                 source=f"src/repro_torch/kernels/csrc/{src}", replaces=REPLACES[name],
                 launches=0, max_abs_err=err, ms=timed_ms(fn, flush),
-                plain_ms=timed_ms(plain, flush), bound_ms=b_ms, bound_by=b_by,
+                plain_ms=timed_plain(plain, flush), bound_ms=b_ms, bound_by=b_by,
                 library_ms=None if library is None else timed_ms(library, flush))
 
 
@@ -3360,10 +3407,10 @@ def _serve_full(torch, ops, get_model, ServeSession, cfg, params, prompt, side, 
 
 
 def full_width_slice(torch, ops, get_model, get_config, ServeSession, dev, archs, tag,
-                     B=8, P=512, n_new=64, n_patches=1024):
+                     B=8, P=512, n_new=32, n_patches=1024):
     """Phases 25-27: each arch at its published size (bf16, seed-0 weights
     built on the card slice by slice) through ``ServeSession.generate``,
-    batch 8, 64 greedy tokens, native and int8 KV: the dense configs at
+    batch 8, 32 greedy tokens, native and int8 KV: the dense configs at
     prompt ``P``; whisper-medium over 1500 stub frames at prompt ``P``;
     qwen2-vl-7b over ``n_patches`` stub patch embeddings and ``P`` text
     tokens.  Each arch's predicted peak is printed
@@ -3716,14 +3763,14 @@ def cross_device_family_train(torch, ops, get_model, smoke_config, train_session
 def full_width_side_train(torch, ops, get_model, get_config, dev, arch):
     """Phases 29 and 30: ``arch`` at full width (depth from SIDE_TRAIN)
     through make_train_step with AdamW (bf16 weights, float32 moments) for
-    5 steps in f32 and int8-fused, on batches
+    TRAIN_STEPS steps in f32 and int8-fused, on batches
     drawn from the seed on the card (stub frames or patch embeddings from
     the seed too), reported as phase 8; the predicted peak is printed
     before the weights are built, and they are freed after each run."""
     from repro_torch.optim import adamw
 
     layers, rows, seq, n_patches = SIDE_TRAIN[arch]
-    steps = 5
+    steps = TRAIN_STEPS
     totals = {name: 0 for name in ops.LAUNCHES}
     step_ms = {}
     for prec in ("f32", "int8-fused"):
@@ -3950,8 +3997,8 @@ def cluster_training(torch, ops, dev, bucket_lens, root: Path):
     sums, before any update), steps 2-4 within 1e-2, each worker's
     launches (the quantizer once a bucket a step; flash as phase 8's count
     for its steps), its ms a step and split, wire bytes, compression ratio,
-    predicted and measured peak.  Returns the workers' summed launches and
-    the single process's losses."""
+    predicted and measured peak.  Returns the workers' summed launches, the
+    single process's losses and the workers' peaks."""
     import gc
 
     from repro_torch.core.topology import ClusterSpec, TransportSpec
@@ -4018,7 +4065,7 @@ def cluster_training(torch, ops, dev, bucket_lens, root: Path):
         raise AssertionError(f"replica digests differ: {[r['param_digest'] for r in recs]}")
     print(f"[cluster] phase 31: replica digests equal ({recs[0]['param_digest']}); the "
           f"single process's {single_ms:.3f} ms/step against the workers' above")
-    return totals, want
+    return totals, want, [rec["peak_bytes"] for rec in recs]
 
 
 def cluster_smoke(smoke_config, dev, root: Path):
@@ -4328,7 +4375,7 @@ def spmd_training(torch, ops, R, F, dev, single_losses, root: Path):
               f"(median of steps 2-{CLUSTER_STEPS}), first step "
               f"{rec['step_times'][0] * 1e3:.1f} ms; a step (mean of {steps}): grad "
               f"{split['grad_s'] / steps * 1e3:.1f} ms, all_reduce "
-              f"{split['allreduce_s'] / steps * 1e3:.1f}, apply "
+              f"{split['reduce_s'] / steps * 1e3:.1f}, apply "
               f"{split['apply_s'] / steps * 1e3:.1f}; peak {rec['peak_bytes'] / 2**30:.3f} GiB; "
               f"digest {rec['param_digest']}")
         if (rec["backend"], rec["world_size"], rec["mode"]) != ("nccl", 1, "spmd"):
@@ -4391,7 +4438,7 @@ def spmd_training(torch, ops, R, F, dev, single_losses, root: Path):
             route="cuda", source="src/repro_torch/kernels/csrc/quantize.cu",
             replaces="src/repro/kernels/quantize.py:38", launches=0, max_abs_err=0.0,
             ms=timed_ms(lambda: quantize_rows(mat, nmat), flush),
-            plain_ms=timed_ms(lambda: R.quantize_int8_ref(mat, nmat), flush),
+            plain_ms=timed_plain(lambda: R.quantize_int8_ref(mat, nmat), flush),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)]
         comp_ms = timed_ms(lambda: compressed_allreduce(bucket, residual, noise), flush)
         print(f"[spmd] compressed_allreduce of the first bucket ({bucket.numel():,} f32): "
@@ -4421,6 +4468,174 @@ def spmd_training(torch, ops, R, F, dev, single_losses, root: Path):
     print(f"[spmd] phase 35: {took:.1f} s (budget {SPMD_BUDGET_S:.0f}; the worker path "
           f"{t_run - t0:.1f}, the bucket and its compressed allreduce {t_path - t_run:.1f})")
     return counts, comp_counts, records
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 over the data axis (phase 36)
+# ---------------------------------------------------------------------------
+
+# phase 36's cell, zero3_deepseek7b_world2: phase 31's cell (CLUSTER_CELL) under
+# its published fsdp=True through 2 spmd ranks that share the card over gloo;
+# seconds the phase should take (printed beside what it took)
+ZERO3_BUDGET_S = 120.0
+# steps 2-4 against the single process: each rank's partial gradient is
+# rounded to bf16 (the cell's weights) before the two are summed, and AdamW's
+# ~3e-6 lr on bf16 weights turns such a rounding into whole-ulp weight flips
+# (phase 31 holds its workers' later steps at 1e-2 for the same reason); the
+# same arithmetic in one process (``world2_reference``) is held at SPMD_RTOL
+ZERO3_LATER_RTOL = 1e-2
+
+
+def _paths(tree, prefix=""):
+    """{'a/b': leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def zero3_resident_bytes():
+    """(parameter bytes, moment bytes) a world-2 ZeRO-3 rank of phase 36's
+    cell holds, the sums of its shard shapes' bytes, and the same for a
+    replicated rank (the whole tree)."""
+    from repro_torch.distributed.sharding import iter_layouts
+    from repro_torch.launch.train import train_session_factory
+
+    session = train_session_factory(device="cpu", **CLUSTER_CELL)
+    plan = session.spmd_plan(2)
+    like = _paths(session.model.init_params(abstract=True, device="cpu")[0])
+    shard = whole = shard_n = whole_n = 0
+    for path, lay in iter_layouts(plan.params):
+        leaf = like[path]
+        n, full = math.prod(lay.shard_shape(tuple(leaf.shape))), leaf.numel()
+        shard, whole = shard + n * leaf.element_size(), whole + full * leaf.element_size()
+        shard_n, whole_n = shard_n + n, whole_n + full
+    return (shard, 2 * 4 * shard_n), (whole, 2 * 4 * whole_n), plan.describe()
+
+
+def world2_reference(torch, dev):
+    """Phase 36's arithmetic in this one process, no collective: each step's
+    40 rows split into the two ranks' 20, a partial gradient over each
+    (``make_partial_grad_step``), the two summed in float32 and rounded to
+    the leaf's dtype (what the reduce-scatter and the bf16 all-reduce of two
+    partials give), the loss sums added, then ``make_apply_step``.  ->
+    (losses, the parameters' digest)."""
+    from repro_torch.launch.cluster import _params_digest
+    from repro_torch.launch.train import train_session_factory
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.optim.schedules import goyal_schedule
+    from repro_torch.train.steps import make_apply_step, make_partial_grad_step
+
+    session = train_session_factory(device=dev, steps=CLUSTER_STEPS, **CLUSTER_CELL)
+    cfg, tp = session.config, session.tune()
+    sched = goyal_schedule(cfg.base_lr, tp.schedule.valid_rows, base_batch=cfg.base_batch,
+                           warmup_steps=cfg.warmup_steps, total_steps=cfg.total_steps)
+    grad_step = make_partial_grad_step(session.model, aux_weight=cfg.aux_weight)
+    apply_step = make_apply_step(session.optimizer, sched, aux_weight=cfg.aux_weight)
+    params, opt_state = session.init_state()
+    losses = []
+    for _ in range(CLUSTER_STEPS):
+        batch = session.dataset.next_device_batch(dev)
+        half = tp.schedule.global_rows // 2
+        parts = [grad_step(params, {k: v[i * half:(i + 1) * half] for k, v in batch.items()})
+                 for i in range(2)]
+        grads = tree_map(lambda a, b: (a.float() + b.float()).to(a.dtype), parts[0][0],
+                         parts[1][0])
+        sums = {k: parts[0][1][k].float() + parts[1][1][k].float() for k in parts[0][1]}
+        del parts
+        params, opt_state, metrics = apply_step(params, opt_state, grads, sums)
+        losses.append(float(metrics["loss"]))
+        del grads
+    digest = _params_digest(params)
+    del session, params, opt_state
+    torch.cuda.empty_cache()
+    return losses, digest
+
+
+def zero3_training(torch, ops, dev, single_losses, replicated_peaks, root: Path):
+    """Phase 36 (see the module doc): -> the two ranks' summed launches."""
+    from repro_torch.core.topology import ClusterSpec
+    from repro_torch.launch.cluster import ClusterCoordinator
+    from repro_torch.launch.train import train_session_factory
+
+    t0 = time.perf_counter()
+    (p_bytes, m_bytes), (whole_p, whole_m), plan = zero3_resident_bytes()
+    cfg = train_session_factory(device="cpu", **CLUSTER_CELL).model.cfg
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[zero3] {cfg.name} fsdp={cfg.fsdp}, {cfg.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B params; the plan of 2 ranks: {plan}; a rank's shards: params {p_bytes:,} B, "
+          f"moments {m_bytes:,} B (replicated: {whole_p:,} and {whole_m:,}); card free "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB before the launch")
+    coord = ClusterCoordinator(
+        ClusterSpec(processes=2, mode="spmd"), "repro_torch.launch.train:train_session_factory",
+        {**CLUSTER_CELL, "cluster_processes": 2, "steps": CLUSTER_STEPS, "device": "cuda"},
+        run_dir=str(root / "zero3"), backend="gloo")
+    recs = _run_workers(coord, timeout=600)
+    t_ref = time.perf_counter()
+    ref_losses, ref_digest = world2_reference(torch, dev)
+    t_ref = time.perf_counter() - t_ref
+    expect = expected_train_launches(cfg, "f32", CLUSTER_STEPS)["flash_attention"]
+    totals = {name: 0 for name in ops.LAUNCHES}
+    for rec, rep_peak in zip(recs, replicated_peaks):
+        what = f"[zero3] rank {rec['process']}"
+        if (rec["mode"], rec["backend"], rec["world_size"], rec["zero3"]) != \
+                ("spmd", "gloo", 2, True):
+            raise AssertionError(f"{what} ran {rec['mode']} over {rec['backend']} at world "
+                                 f"{rec['world_size']}, zero3 {rec['zero3']}")
+        split, steps = rec["step_split"], max(1, rec["step_split"]["steps"])
+        ms = statistics.median(rec["step_times"][1:]) * 1e3
+        print(f"{what} ({rec['device']}, rows {rec['receipt']['rows_local']} of "
+              f"{rec['receipt']['rows_global']}): {ms:.3f} ms/step (median of steps "
+              f"2-{CLUSTER_STEPS}), first step {rec['step_times'][0] * 1e3:.1f} ms; a step (mean "
+              f"of {steps}): grad with the gathers and reduce-scatters "
+              f"{split['grad_s'] / steps * 1e3:.1f} ms, reduce (the norms' and the loss sums' "
+              f"all-reduces) {split['reduce_s'] / steps * 1e3:.1f}, apply "
+              f"{split['apply_s'] / steps * 1e3:.1f}")
+        print(f"{what}: wire bytes a step by kind {rec['collective_bytes']} in "
+              f"{len(rec['collective_ops'])} collectives (gloo over the card's tensors)")
+        held = rec["param_bytes"] + rec["moment_bytes"]
+        print(f"{what}: resident params {rec['param_bytes']:,} B, moments "
+              f"{rec['moment_bytes']:,} B ({held / 2**30:.3f} GiB; a replicated rank "
+              f"{(whole_p + whole_m) / 2**30:.3f}); peak {rec['peak_bytes'] / 2**30:.3f} GiB "
+              f"(phase 31's replicated worker, same rows: {rep_peak / 2**30:.3f}); launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }")
+        if (rec["param_bytes"], rec["moment_bytes"]) != (p_bytes, m_bytes):
+            raise AssertionError(f"{what} holds {rec['param_bytes']} + {rec['moment_bytes']} B, "
+                                 f"its shards are {p_bytes} + {m_bytes}")
+        _check_launches(rec["launches"], {"flash_attention": expect}, what)
+        if not (rec["addressable_only"] and rec["receipt"]["rows_local"] * 2
+                == rec["receipt"]["rows_global"]):
+            raise AssertionError(f"{what} was fed {rec['receipt']}")
+        got = rec["losses"]
+        gaps = [abs(g - w) / abs(w) for g, w in zip(got, single_losses)]
+        ref_gaps = [abs(g - w) / abs(w) for g, w in zip(got, ref_losses)]
+        print(f"{what}: losses {[round(x, 6) for x in got]}; against the single-process card "
+              f"Session's {[round(x, 6) for x in single_losses]} relative gaps "
+              f"{[f'{x:.3e}' for x in gaps]} (step 1 held at rtol {SPMD_RTOL:g}, steps "
+              f"2-{CLUSTER_STEPS} at {ZERO3_LATER_RTOL:g}: the ranks' bf16 partial gradients); "
+              f"against the same arithmetic in one process, largest {max(ref_gaps):.3e} "
+              f"(rtol {SPMD_RTOL:g})")
+        if len(got) != len(single_losses) or not all(math.isfinite(x) for x in got) \
+                or gaps[0] > SPMD_RTOL or max(gaps[1:]) > ZERO3_LATER_RTOL \
+                or max(ref_gaps) > SPMD_RTOL:
+            raise AssertionError(f"{what}: losses {got} against {single_losses} (one process) "
+                                 f"and {ref_losses} (its two halves)")
+        for name, c in rec["launches"].items():
+            totals[name] += c
+    digests = {rec["param_digest"] for rec in recs}
+    print(f"[zero3] phase 36: gathered parameter digests {sorted(digests)}; the same "
+          f"arithmetic in one process {ref_digest}")
+    if len(digests) != 1:
+        raise AssertionError(f"gathered digests differ: {[r['param_digest'] for r in recs]}")
+    if digests != {ref_digest}:
+        raise AssertionError(f"the ranks' parameters {digests} are not the one-process "
+                             f"arithmetic's {ref_digest}")
+    took = time.perf_counter() - t0
+    print(f"[zero3] phase 36: {took:.1f} s (budget {ZERO3_BUDGET_S:.0f}; the one-process "
+          f"arithmetic {t_ref:.1f})")
+    return totals
 
 
 def _leaves(tree):
@@ -4564,8 +4779,8 @@ def main() -> int:
     lap("phase 31's kernel checks")
     cluster_root = Path(tempfile.mkdtemp(prefix="chip-smoke-cluster-"))
     try:
-        cluster_totals, cluster_losses = cluster_training(torch, ops, dev, bucket_lens,
-                                                          cluster_root)
+        cluster_totals, cluster_losses, cluster_peaks = cluster_training(
+            torch, ops, dev, bucket_lens, cluster_root)
         lap("phase 31")
         cluster_smoke(smoke_config, dev, cluster_root)
         lap("phase 32")
@@ -4591,6 +4806,19 @@ def main() -> int:
         shutil.rmtree(spmd_root, ignore_errors=True)
     records += spmd_records
     lap("phase 35")
+    # ZeRO-3: two spmd ranks share the card over gloo, each holding its shards
+    torch.cuda.empty_cache()
+    zero_root = Path(tempfile.mkdtemp(prefix="chip-smoke-zero3-"))
+    try:
+        zero_totals = zero3_training(torch, ops, dev, cluster_losses, cluster_peaks, zero_root)
+    finally:
+        shutil.rmtree(zero_root, ignore_errors=True)
+    # flash at a rank's 20 rows is phase 31's worker shape, held to its plain
+    # version there; its launches here are the ZeRO-3 path's
+    records += [dict(r, path="zero3_training", shape="a rank's (20, 256, 32, 128), phase 31's "
+                     "check") for r in records
+                if r["name"] == "flash_attention" and r["path"] == "cluster_training"]
+    lap("phase 36")
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     t_profiles = time.perf_counter()
@@ -4610,7 +4838,8 @@ def main() -> int:
               "recurrent_serving": rec_totals, "recurrent_training": rec_train_totals,
               "engine_serving": engine_totals, **slice_totals, **family_train_totals,
               "cluster_training": cluster_totals, "measured_tune": tune_totals,
-              "spmd_training": spmd_totals, "compressed_allreduce": comp_totals}
+              "spmd_training": spmd_totals, "compressed_allreduce": comp_totals,
+              "zero3_training": zero_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

@@ -39,9 +39,13 @@ raises when no card is visible).
 ``shard()`` resolves the logical-axis rule table
 (:mod:`repro_torch.distributed.sharding`, with the fleet's
 ``FleetSpec.with_sharding`` overrides) against the session's mesh into a
-:class:`ShardingPlan`.  The port keeps every parameter and optimizer leaf
-whole on each device: a plan that would place one on several devices
-raises ``NotImplementedError`` (the second half of ROADMAP item 19).
+:class:`ShardingPlan`.  In the ``spmd`` mode a plan that shards leaves over
+``data`` (a config's ``fsdp=True``) trains as ZeRO-3: ``init_state`` gives
+the rank only its shards (drawn leaf by leaf, bit for bit the slices of the
+whole init), the step gathers a layer's weights where it runs
+(:mod:`repro_torch.distributed.zero`), and checkpoints are written as
+per-shard chunks.  A plan that shards a leaf over ``model`` raises
+``NotImplementedError`` (the second half of ROADMAP item 19).
 
 Cluster mode (:meth:`Session.attach_cluster`, done by
 :class:`~repro_torch.launch.cluster.WorkerRuntime` in each worker process):
@@ -78,8 +82,10 @@ from repro_torch.core.privacy import Shard, place
 from repro_torch.core.topology import ClusterSpec, Fleet, ProcessMap, TransportSpec
 from repro_torch.core.tuner import BenchmarkFn, DriftMonitor, tune
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import ProcessMesh, check_replicated
+from repro_torch.distributed import zero
+from repro_torch.distributed.sharding import ProcessMesh, check_plan, is_zero3
 from repro_torch.models.api import Model
+from repro_torch.models.param import keeping
 from repro_torch.optim.optimizers import Optimizer, tree_map
 from repro_torch.optim.schedules import goyal_schedule
 from repro_torch.storage import (
@@ -96,6 +102,9 @@ PyTree = Any
 # stage dependency graph: invalidating a stage clears it plus everything
 # that derives from it ("shard"/"compile" depend only on the tune schedule)
 _STAGES = ("tune", "plan", "place", "dataset", "shard", "compile")
+# the families whose training forward gathers ZeRO-3 shards (every config
+# the reference publishes with fsdp=True is one of them)
+ZERO3_FAMILIES = ("dense", "moe", "rwkv6", "vlm")
 _DOWNSTREAM = {
     "tune": ("plan", "place", "dataset", "shard", "compile"),
     "plan": ("place", "dataset"),
@@ -169,6 +178,8 @@ class Session:
         self._local_plan: Optional[ShardingPlan] = None
         # seconds the cluster step spent in its parts, over ``steps`` steps
         self.cluster_timing: Dict[str, float] = {}
+        # the spmd step's collectives of its last step: (kind, result bytes, group size)
+        self.step_collectives: List[Tuple[str, int, int]] = []
         # the device fleet persists across stage rebuilds (custody state)
         self._device_fleet: Optional[DeviceFleet] = None
         self._artifacts: Dict[str, Any] = {}
@@ -369,9 +380,10 @@ class Session:
         The mesh: one process, a 1 x 1 :class:`ProcessMesh` on the session's
         device; a cluster, the context's global mesh (``spmd``: the
         ``DeviceMesh`` over every rank).  The compute plan, the global one
-        (``hostsync``: this process's one-device plan), must keep every
-        parameter and optimizer leaf whole on each device
-        (:func:`~repro_torch.distributed.sharding.check_replicated`)."""
+        (``hostsync``: this process's one-device plan), must run on one
+        device a process and shard nothing over ``model``
+        (:func:`~repro_torch.distributed.sharding.check_plan`); leaves
+        sharded over ``data`` make the ``spmd`` step ZeRO-3."""
         from repro_torch.launch.mesh import make_single_mesh
 
         if force:
@@ -388,7 +400,8 @@ class Session:
             plan = self._plan_on(mesh, rows)
             self._local_plan = None
             if not hostsync:
-                check_replicated(plan)
+                check_plan(plan, self._cluster.n_processes if self._is_cluster() else 1)
+                self._check_zero3(plan)
             self._artifacts["shard"] = plan
         plan = self._artifacts["shard"]
         span = None
@@ -397,14 +410,33 @@ class Session:
                                                tp.schedule.max_local)
             if hostsync and self._local_plan is None:
                 # the hostsync COMPUTE plan: this process's row slab on its device
-                self._local_plan = check_replicated(self._plan_on(
+                self._local_plan = check_plan(self._plan_on(
                     self._cluster.local_mesh(span[1] - span[0],
                                              data_axis=plan.data_axis // self._cluster.n_processes),
-                    span[1] - span[0]))
+                    span[1] - span[0]), 1)
         # (re-)hand the plan to the data plane: meshfeed lands this process's
         # rows on the plan's device; idempotent, a no-op for other backends
         self.devices.adopt_plan(plan, span)
         return plan
+
+    def _check_zero3(self, plan: ShardingPlan) -> None:
+        if is_zero3(plan) and self.model.cfg.family not in ZERO3_FAMILIES:
+            raise NotImplementedError(
+                f"the plan shards {self.model.cfg.name}'s weights over 'data' (ZeRO-3), but "
+                f"the {self.model.cfg.family} family's forward gathers no shards (its "
+                f"published config has fsdp=False); ZeRO-3 runs {ZERO3_FAMILIES}")
+
+    def zero3(self) -> Optional[Tuple[Any, int]]:
+        """``(parameter layouts, this rank's coordinate along data)`` where
+        the session trains ZeRO-3 (an ``spmd`` cluster whose plan shards
+        weights over ``data``), else None."""
+        if not (self._is_cluster() and self._cluster.mode == "spmd"):
+            return None
+        plan = self.shard()
+        if not is_zero3(plan):
+            return None
+        # the cluster mesh is process-major with model = 1: coordinate = rank
+        return plan.params, self._cluster.process_id
 
     def _plan_on(self, mesh, rows: int) -> ShardingPlan:
         return build_sharding_plan(self.model, self.optimizer, mesh=mesh, global_rows=rows,
@@ -413,12 +445,12 @@ class Session:
                                    device=self.device)
 
     def spmd_plan(self, n_ranks: int) -> ShardingPlan:
-        """The plan ``n_ranks`` ``spmd`` replicas of this session would
-        resolve (a ``data`` axis of ``n_ranks``, on a :class:`ProcessMesh`):
-        what :meth:`ClusterContext.detect
-        <repro_torch.launch.mesh.ClusterContext.detect>` holds to keep every
-        leaf whole.  Builds no stage, so it may run before
-        :meth:`attach_cluster`."""
+        """The plan ``n_ranks`` ``spmd`` ranks of this session would resolve
+        (a ``data`` axis of ``n_ranks``, on a :class:`ProcessMesh`): what
+        :meth:`ClusterContext.detect
+        <repro_torch.launch.mesh.ClusterContext.detect>` holds to
+        :func:`~repro_torch.distributed.sharding.check_plan`.  Builds no
+        stage, so it may run before :meth:`attach_cluster`."""
         return self._plan_on(ProcessMesh(device=self.device, shape=(n_ranks, 1)), n_ranks)
 
     # -- stage 5: the train step -------------------------------------------
@@ -448,10 +480,13 @@ class Session:
                 total_steps=self.config.total_steps,
             )
             if self._is_cluster() and self._cluster.mode == "spmd":
+                z = self.zero3()
                 step = make_spmd_train_step(self.model, self.optimizer, sched,
                                             group=plan.mesh.get_group("data"),
                                             aux_weight=self.config.aux_weight,
-                                            timing=self.cluster_timing)
+                                            timing=self.cluster_timing,
+                                            layouts=None if z is None else z[0],
+                                            collective_log=self.step_collectives)
             elif self._is_cluster():
                 step = self._compile_hostsync(sched)
             else:
@@ -540,15 +575,41 @@ class Session:
     def init_state(self, *, seed: Optional[int] = None,
                    init_opt: bool = True) -> Tuple[PyTree, Any]:
         """Fresh (params, opt_state) on the session's device, weights from a
-        ``torch.Generator`` seeded with ``seed`` (default ``config.seed``)."""
+        ``torch.Generator`` seeded with ``seed`` (default ``config.seed``).
+        Under ZeRO-3 (:meth:`zero3`) only this rank's shards: each leaf is
+        drawn whole on the device, its slice kept and the rest freed, one
+        leaf at a time (the reference's state born as mesh shards)."""
         seed = self.config.seed if seed is None else seed
-        params, _ = self.model.init_params(seed=seed, device=self.device)
+        z = self.zero3()
+        if z is None:
+            params, _ = self.model.init_params(seed=seed, device=self.device)
+        else:
+            layouts, coord = z
+
+            def keep(path, leaf):
+                lay = zero.subtree(layouts, path)
+                return leaf if lay.data_dim is None else lay.local(leaf, coord).clone()
+
+            with keeping(keep):
+                params, _ = self.model.init_params(seed=seed, device=self.device)
         return params, (self.optimizer.init(params) if init_opt else None)
 
     def _adopt_state(self, tree: PyTree) -> PyTree:
         """Caller-supplied state onto the session's device (no copy when it
-        is there already)."""
-        return tree_map(lambda t: t.to(self.device), tree)
+        is there already); under ZeRO-3 a whole leaf is cut to this rank's
+        shard, and a shard is kept as it is."""
+        tree = tree_map(lambda t: t.to(self.device), tree)
+        z = self.zero3()
+        if z is None:
+            return tree
+        layouts, coord = z
+        like, _ = self.model.init_params(abstract=True)
+
+        def cut(t, lay, whole):
+            return (lay.local(t, coord).clone()
+                    if lay.data_dim is not None and t.shape == whole.shape else t)
+
+        return tree_map(cut, tree, layouts, like)
 
     # -- training --------------------------------------------------------------
 
@@ -570,23 +631,30 @@ class Session:
         steps = steps or cfg.total_steps
         compiled = self.compile()
         ckpt = None
+        z = self.zero3()
+        # under ZeRO-3 the checkpoint's layouts: the moments reuse the parameters'
+        state_layouts = None if z is None else {"params": self.shard().params,
+                                                "opt": self.shard().opt}
         if cfg.checkpoint_dir:
             if self._is_cluster():
-                # coordinated save: the primary writes every leaf, barriers at
-                # the coordinator, the primary publishes — same call sites
+                # coordinated save: replicated leaves from the primary alone,
+                # ZeRO-3 shards as chunks from their ranks, published by the
+                # primary between barriers -- same call sites
                 ckpt = ClusterCheckpointManager(
                     cfg.checkpoint_dir, keep=cfg.keep_checkpoints,
                     process_index=self._cluster.process_id,
                     num_processes=self._cluster.n_processes,
-                    sync=self._cluster.sync)
+                    sync=self._cluster.sync, layouts=state_layouts,
+                    coord=0 if z is None else z[1])
             else:
                 ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
             self.checkpoints = ckpt
         start_step = 0
         if ckpt is not None and ckpt.latest_step() is not None:
             # restart-after-failure: the newest valid checkpoint, every leaf
-            # straight onto the session's device, and the SAMPLING state too:
-            # without the cursors a restart replays already-seen batches
+            # straight onto the session's device (under ZeRO-3 this rank's
+            # shard of it), and the SAMPLING state too: without the cursors a
+            # restart replays already-seen batches
             like, _ = self.model.init_params(abstract=True)
             state, meta = ckpt.restore(
                 {"params": like, "opt": self.optimizer.init(like)}, device=self.device)

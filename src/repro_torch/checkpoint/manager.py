@@ -24,15 +24,21 @@ pytree order: dict keys sorted, ``OptState`` fields in order (``step``,
     thread's error.
   * Keep-K rotation bounds disk use.
 
-Multi-process (cluster) checkpoints: every port tensor lives whole in one
-process and every replica holds the same state, so the PRIMARY (process 0)
-writes the whole checkpoint through the same atomic save, between a barrier
-that every process reaches at the step and one that holds them until it is
-published (:class:`ClusterCheckpointManager`).  A leaf sharded across
-processes, its per-shard chunks and the reference's partial manifests
-(``save_process`` / ``finalize_process_save``) come with sharded weights,
-the second half of ROADMAP item 19 (an ``spmd`` replica holds every leaf).
-:func:`restore` reads the published checkpoint with any process count.
+Multi-process (cluster) checkpoints (:class:`ClusterCheckpointManager`)
+keep the reference's single writer for every byte.  Where every replica
+holds the whole state, the PRIMARY (process 0) writes the whole checkpoint
+through the same atomic save, between a barrier that every process reaches
+at the step and one that holds them until it is published.  Under ZeRO-3
+(the manager's ``layouts`` shard leaves over ``data``) every process runs
+:func:`save_process`: a replicated leaf is written whole by the primary
+only, a sharded leaf as one *chunk* file a rank (its shard, ``index`` the
+[start, stop) of every dim), each into the shared ``step_N.tmp/`` with a
+partial ``manifest.p<N>.json``; after a barrier the primary's
+:func:`finalize_process_save` merges the partials, checks that the chunks
+tile every leaf, writes the standard manifest (a chunked entry carries a
+``chunks`` list, as the reference's) and publishes atomically.
+:func:`restore` reads both layouts, and with ``layouts`` places each leaf
+straight onto a plan of any data size: the slice at the rank's coordinate.
 """
 from __future__ import annotations
 
@@ -180,8 +186,8 @@ def _is_valid(path: str) -> bool:
     try:
         with open(mf) as f:
             manifest = json.load(f)
-        return all(os.path.isfile(os.path.join(path, e["file"]))
-                   for e in manifest["entries"].values())
+        return all(os.path.isfile(os.path.join(path, f))
+                   for e in manifest["entries"].values() for f, _ in _entry_files(e))
     except (OSError, ValueError, KeyError, TypeError):
         return False
 
@@ -195,25 +201,51 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _entry_files(e: Dict[str, Any]) -> List[Tuple[str, int]]:
+    """(file, crc) pairs of an entry, whole-leaf or chunked."""
+    if "chunks" in e:
+        return [(c["file"], c["crc32"]) for c in e["chunks"]]
+    return [(e["file"], e["crc32"])]
+
+
+def _load_file(path: str, fn: str, crc: int, verify_crc: bool) -> np.ndarray:
+    arr = np.load(os.path.join(path, fn))
+    if verify_crc and _crc(arr) != crc:
+        raise IOError(f"CRC mismatch for {fn} in {path}")
+    return arr
+
+
 def _load_entry(path: str, e: Dict[str, Any], verify_crc: bool,
-                device: torch.device) -> torch.Tensor:
-    arr = np.load(os.path.join(path, e["file"]))
-    if verify_crc and _crc(arr) != e["crc32"]:
-        raise IOError(f"CRC mismatch for {e['file']} in {path}")
+                device: torch.device, layout=None, coord: int = 0) -> torch.Tensor:
+    """One manifest entry as a tensor on ``device`` (chunks assembled), or,
+    with a ``layout`` that shards it, the slice at ``coord``."""
+    if "chunks" not in e:
+        arr = _load_file(path, e["file"], e["crc32"], verify_crc)
+    else:
+        arr = None
+        for c in e["chunks"]:
+            piece = _load_file(path, c["file"], c["crc32"], verify_crc)
+            if arr is None:
+                arr = np.empty(tuple(e["shape"]), piece.dtype)
+            arr[tuple(slice(a, b) for a, b in c["index"])] = piece
     if e["dtype"] == _BF16:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if layout is not None and layout.data_dim is not None:
+        t = layout.local(t, coord).clone()      # the slice alone, not a view of the whole
     return t.to(device)
 
 
 def restore(directory: str, like: PyTree, *, step: Optional[int] = None,
-            device: torch.device = torch.device("cpu"),
-            verify_crc: bool = True) -> Tuple[PyTree, Dict[str, Any]]:
+            device: torch.device = torch.device("cpu"), verify_crc: bool = True,
+            layouts: Optional[PyTree] = None, coord: int = 0) -> Tuple[PyTree, Dict[str, Any]]:
     """Restore into the structure of ``like`` (tensors of any device, meta
     included, or ints for ``OptState.step``), every tensor leaf placed on
-    ``device`` with the dtype its manifest entry names.  Returns
-    ``(tree, metadata)``."""
+    ``device`` with the dtype its manifest entry names.  ``layouts`` (a tree
+    of :class:`~repro_torch.distributed.sharding.Layout` shaped like
+    ``like``, a plan of any data size) makes each sharded leaf the slice at
+    ``coord`` along ``data``.  Returns ``(tree, metadata)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -222,16 +254,121 @@ def restore(directory: str, like: PyTree, *, step: Optional[int] = None,
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     entries = manifest["entries"]
+    lays = dict(_flatten_with_paths(layouts)) if layouts is not None else {}
     leaves = {}
     for key, ref in _flatten_with_paths(like):
         if key not in entries:
             raise KeyError(f"checkpoint {path} missing leaf {key!r}")
-        t = _load_entry(path, entries[key], verify_crc, torch.device(device))
+        e = entries[key]
         want = tuple(ref.shape) if isinstance(ref, torch.Tensor) else ()
-        if tuple(t.shape) != want:
-            raise ValueError(f"shape mismatch for {key}: ckpt {tuple(t.shape)} vs model {want}")
+        if tuple(e["shape"]) != want:
+            raise ValueError(f"shape mismatch for {key}: ckpt {tuple(e['shape'])} vs "
+                             f"model {want}")
+        t = _load_entry(path, e, verify_crc, torch.device(device), lays.get(key), coord)
         leaves[key] = t if isinstance(ref, torch.Tensor) else int(t)
     return _unflatten(like, leaves), manifest.get("metadata", {})
+
+
+# ---------------------------------------------------------------------------
+# multi-process saves with per-shard chunks
+# ---------------------------------------------------------------------------
+
+
+def _tmp_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:010d}.tmp")
+
+
+def save_process(directory: str, step: int, tree: PyTree, *, process_index: int,
+                 num_processes: int, layouts: Optional[PyTree] = None, coord: int = 0,
+                 metadata: Optional[Dict[str, Any]] = None) -> str:
+    """One process's share of a coordinated multi-process save (the
+    reference's ``save_process``).
+
+    Into the SHARED ``step_N.tmp/``: every leaf that ``layouts`` does not
+    shard, whole, from the primary alone; this rank's shard of every leaf it
+    does, as a chunk at ``coord`` along ``data`` (one writer a chunk); and
+    this process's partial manifest.  Publishing is
+    :func:`finalize_process_save`'s, after a barrier."""
+    tmp = _tmp_dir(directory, step)
+    os.makedirs(tmp, exist_ok=True)
+    lays = dict(_flatten_with_paths(layouts)) if layouts is not None else {}
+    entries: Dict[str, Any] = {}
+    for key, arr, dtype in _snapshot(tree):
+        fn_base = key.replace("/", "__")
+        lay = lays.get(key)
+        if lay is None or lay.data_dim is None:
+            if process_index != 0:
+                continue                   # the primary is the single writer
+            fn = fn_base + ".npy"
+            _save_npy(os.path.join(tmp, fn), arr, dtype)
+            entries[key] = {"file": fn, "shape": list(arr.shape), "dtype": dtype,
+                            "crc32": _crc(arr)}
+            continue
+        dim, n = lay.data_dim, arr.shape[lay.data_dim]
+        index = [[0, s] for s in arr.shape]
+        index[dim] = [coord * n, (coord + 1) * n]
+        shape = list(arr.shape)
+        shape[dim] = n * lay.data_ways
+        fn = f"{fn_base}__p{process_index}_0.npy"
+        _save_npy(os.path.join(tmp, fn), arr, dtype)
+        entries[key] = {"chunks": [{"file": fn, "index": index, "crc32": _crc(arr)}],
+                        "shape": shape, "dtype": dtype}
+    partial = {"step": step, "process": process_index, "num_processes": num_processes,
+               "entries": entries, "metadata": metadata or {}}
+    with open(os.path.join(tmp, f"manifest.p{process_index}.json"), "w") as f:
+        json.dump(partial, f, indent=1)
+    return tmp
+
+
+def finalize_process_save(directory: str, step: int, *, num_processes: int,
+                          keys: Optional[List[str]] = None) -> str:
+    """Merge the partial manifests and publish atomically (the reference's
+    ``finalize_process_save``): the PRIMARY calls it after a barrier.
+    Every process must have stamped its partial, every whole leaf must have
+    one writer, and the chunks of a leaf must tile it, so no missing share
+    is ever published as valid.  ``keys`` pins the expected leaf set."""
+    tmp = _tmp_dir(directory, step)
+    final = os.path.join(directory, f"step_{step:010d}")
+    merged: Dict[str, Any] = {}
+    metadata: Dict[str, Any] = {}
+    for p in range(num_processes):
+        pf = os.path.join(tmp, f"manifest.p{p}.json")
+        if not os.path.isfile(pf):
+            raise FileNotFoundError(f"process {p} never stamped its partial manifest in {tmp}")
+        with open(pf) as f:
+            partial = json.load(f)
+        metadata.update(partial.get("metadata") or {})
+        for key, e in partial["entries"].items():
+            if "chunks" not in e:
+                if key in merged:
+                    raise ValueError(f"two writers for whole leaf {key!r}")
+                merged[key] = e
+                continue
+            slot = merged.setdefault(key, {"chunks": [], "shape": e["shape"],
+                                           "dtype": e["dtype"]})
+            if "chunks" not in slot or slot["shape"] != e["shape"]:
+                raise ValueError(f"mixed layouts for leaf {key!r}")
+            slot["chunks"].extend(e["chunks"])
+    if keys is not None:
+        missing = set(keys) - set(merged)
+        if missing:
+            raise ValueError(f"checkpoint missing leaves: {sorted(missing)}")
+    for key, e in merged.items():
+        if "chunks" not in e:
+            continue
+        size = int(np.prod(e["shape"])) if e["shape"] else 1
+        covered = sum(int(np.prod([b - a for a, b in c["index"]])) if c["index"] else 1
+                      for c in e["chunks"])
+        if covered != size:
+            raise ValueError(f"chunks of {key!r} cover {covered} of {size} elements")
+    with open(os.path.join(tmp, _MANIFEST), "w") as f:
+        json.dump({"step": step, "entries": merged, "metadata": metadata}, f, indent=1)
+    for p in range(num_processes):        # partials are staging-only
+        os.remove(os.path.join(tmp, f"manifest.p{p}.json"))
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)                 # atomic publish
+    return final
 
 
 # ---------------------------------------------------------------------------
@@ -309,30 +446,57 @@ class ClusterCheckpointManager(CheckpointManager):
     """Coordinated multi-process saves behind the CheckpointManager API.
 
     Each process holds one of these; ``save`` runs the single-writer
-    protocol (barrier -> the primary's atomic save + rotate -> barrier), so
-    a ``Session`` in cluster mode checkpoints through exactly the same call
-    sites as a single-process one.  Saves are synchronous — the
-    cross-process barrier IS the stall, a background thread would just hide
-    a torn save.  A peer lost before the first barrier leaves nothing
-    published.
+    protocol, so a ``Session`` in cluster mode checkpoints through exactly
+    the same call sites as a single-process one.  Without sharded
+    ``layouts``: barrier -> the primary's atomic save + rotate -> barrier.
+    With them (ZeRO-3; ``coord`` is this rank's coordinate along ``data``):
+    :func:`save_process` everywhere -> barrier -> the primary's
+    :func:`finalize_process_save` + rotate -> barrier, and ``restore``
+    gives this rank its shards.  Saves are synchronous — the cross-process
+    barrier IS the stall, a background thread would just hide a torn save.
+    A peer lost before the first barrier leaves nothing published.
 
     ``sync`` duck-types the coordinator transport (``barrier(tag)``);
-    ``process_index == 0`` is the primary.
+    without one, an ``spmd`` group's ``dist.barrier``.  ``process_index ==
+    0`` is the primary.
     """
 
     process_index: int = 0
     num_processes: int = 1
     sync: Any = None
+    layouts: Optional[PyTree] = None
+    coord: int = 0
 
     def _barrier(self, tag: str):
-        if self.sync is not None and self.num_processes > 1:
+        if self.num_processes <= 1:
+            return
+        if self.sync is not None:
             self.sync.barrier(tag)
+            return
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.barrier()
 
     def save(self, step: int, tree: PyTree, metadata=None, *, async_: bool = False):
         t0 = time.perf_counter()
-        self._barrier(f"ckpt-enter/{step}")
-        if self.process_index == 0:           # the primary is the single writer
-            _write(self.directory, step, _snapshot(tree), metadata)
-            self._rotate()
+        if self.layouts is not None:
+            save_process(self.directory, step, tree, process_index=self.process_index,
+                         num_processes=self.num_processes, layouts=self.layouts,
+                         coord=self.coord, metadata=metadata)
+            self._barrier(f"ckpt-stamp/{step}")
+            if self.process_index == 0:
+                finalize_process_save(self.directory, step, num_processes=self.num_processes)
+                self._rotate()
+        else:
+            self._barrier(f"ckpt-enter/{step}")
+            if self.process_index == 0:       # the primary is the single writer
+                _write(self.directory, step, _snapshot(tree), metadata)
+                self._rotate()
         self._barrier(f"ckpt-publish/{step}")
         self.last_snapshot_s, self.last_write_s = 0.0, time.perf_counter() - t0
+
+    def restore(self, like: PyTree, *, step=None, device=torch.device("cpu")):
+        self.wait()
+        return restore(self.directory, like, step=step, device=device, layouts=self.layouts,
+                       coord=self.coord)

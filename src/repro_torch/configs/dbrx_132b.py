@@ -5,9 +5,10 @@ Same dims as ``repro.configs.dbrx_132b``.
 The reference's config says ``norm="layernorm"``, but its ``models/moe.py``
 never reads the field and normalizes with ``rms_norm`` throughout; the port
 does the same and carries no ``norm`` field.  ``fsdp=True`` is the
-reference's sharding option.  At full width (264 GB of bf16 weights) the
-model needs the expert-sharded multi-card path, the second half of ROADMAP
-item 19; only ``SMOKE`` runs on one card.
+reference's sharding option: ZeRO-3 over ``data`` in the ``spmd`` mode.
+At full width (264 GB of bf16 weights) the model needs the
+expert-sharded multi-card path, the second half of ROADMAP item 19; only
+``SMOKE`` runs on one card.
 """
 import torch
 

@@ -4,8 +4,10 @@ dims as ``repro.configs.qwen3_moe_30b_a3b``.
 
 As in the reference: no QK-norm, and capacity-factor dispatch (1.25) where
 the HF model routes without drops.  ``fsdp=True`` (the reference's) shards
-the ``embed`` axis over ``data``: a plan that does so on more than one
-device is the second half of ROADMAP item 19 and raises.
+the ``embed`` axis over ``data``: in the ``spmd`` mode at data 2 or more
+that is ZeRO-3 (:mod:`repro_torch.distributed.zero`).  Its experts over
+``model`` (expert parallelism) are the second half of ROADMAP item 19 and
+raise.
 """
 import torch
 

@@ -5,11 +5,14 @@ schedules (:mod:`.allreduce`) and the GPipe schedule (:mod:`.pipeline`).
 
 The ``spmd`` cluster mode (:mod:`repro_torch.launch.cluster`) trains one
 replica a rank and sums gradients with these collectives: NCCL between
-cards, ``gloo`` between CPU processes.
+cards, ``gloo`` between CPU processes (or ranks that share a card).  Under
+a plan that shards weights over ``data`` it is ZeRO-3 (:mod:`.zero`): a rank
+keeps its slice of every such leaf and gathers one layer's weights at a
+time.
 """
 from repro_torch.distributed.sharding import (
     SHARDED_WEIGHTS, Layout, ProcessMesh, ShardingPlan, arg_shardings_for_tree,
-    check_replicated, get_rules, make_rules, mesh_axis_sizes, placements_for, set_rules,
+    check_plan, get_rules, is_zero3, make_rules, mesh_axis_sizes, placements_for, set_rules,
     spec_for, specs_for_tree, use_rules,
 )
 
@@ -19,8 +22,9 @@ __all__ = [
     "ProcessMesh",
     "ShardingPlan",
     "arg_shardings_for_tree",
-    "check_replicated",
+    "check_plan",
     "get_rules",
+    "is_zero3",
     "make_rules",
     "mesh_axis_sizes",
     "placements_for",

@@ -14,13 +14,16 @@ of a process group (the ``spmd`` cluster), or a :class:`ProcessMesh`: the
 (data, model) grid of processes with one device each when no process group
 binds them (one process, or a ``hostsync`` cluster).
 
-The port trains with every parameter and optimizer leaf whole on each
-device (data parallelism over replicated weights, what the reference's
-``spmd`` mode runs on a ``data x model=1`` mesh).  :func:`check_replicated`
-refuses a plan that would place a leaf on several devices: ZeRO-3
-(``fsdp``), tensor and expert parallelism, and the activation constraints
-(``with_logical_constraint``) are :data:`SHARDED_WEIGHTS`, the second half
-of ROADMAP item 19.
+The port trains data-parallel over the ``data`` axis: a leaf whose spec
+names no mesh axis of more than one device is whole on every device, and a
+leaf that names ``data`` (the configs' ``fsdp=True`` puts ``embed`` there)
+is ZeRO-3 sharded, each rank holding the slice at its coordinate
+(:meth:`Layout.local`), gathered a layer at a time inside the step
+(:mod:`repro_torch.distributed.zero`).  :func:`check_plan` refuses what is
+not ported: a leaf sharded over ``model`` (tensor and expert parallelism,
+and with them the activation constraints ``with_logical_constraint``) and
+a plan with several devices a process, :data:`SHARDED_WEIGHTS`, the second
+half of ROADMAP item 19.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ PyTree = Any
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
 
-SHARDED_WEIGHTS = ("the second half of ROADMAP item 19 'Multi-device' (weights sharded "
-                   "over several devices: fsdp, tensor and expert parallelism)")
+SHARDED_WEIGHTS = ("the second half of ROADMAP item 19 'Multi-device' (the model axis: "
+                   "tensor and expert parallelism; several devices a process)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +87,41 @@ class Layout:
             if p.is_shard():
                 out[p.dim] //= size
         return tuple(out)
+
+    @property
+    def data_ways(self) -> int:
+        """Size of the ``data`` mesh dim (1 without one)."""
+        return dict(self.mesh_shape).get("data", 1)
+
+    @property
+    def data_dim(self) -> Optional[int]:
+        """The tensor dim sharded over a ``data`` axis of two or more
+        devices (ZeRO-3), or None where every rank holds that dim whole."""
+        for (name, size), p in zip(self.mesh_shape, self.placements):
+            if name == "data" and size > 1 and p.is_shard():
+                return p.dim
+        return None
+
+    def local(self, full: torch.Tensor, coord: int) -> torch.Tensor:
+        """The piece of the whole tensor ``full`` that the rank at ``coord``
+        along ``data`` holds: its slice of :attr:`data_dim` (a view; the
+        tensor itself where no dim is sharded)."""
+        dim = self.data_dim
+        if dim is None:
+            return full
+        n = full.shape[dim] // self.data_ways
+        return full.narrow(dim, coord * n, n)
+
+    def assemble(self, pieces) -> torch.Tensor:
+        """Inverse of :meth:`local`: the whole tensor from the pieces of
+        every coordinate along ``data``, in coordinate order."""
+        pieces = list(pieces)
+        dim = self.data_dim
+        if dim is None:
+            return pieces[0]
+        if len(pieces) != self.data_ways:
+            raise ValueError(f"{len(pieces)} pieces for a data axis of {self.data_ways}")
+        return torch.cat(pieces, dim=dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,17 +319,30 @@ def iter_layouts(tree: PyTree, prefix: str = "") -> Iterator[Tuple[str, Layout]]
         yield prefix, tree
 
 
-def check_replicated(plan: ShardingPlan) -> ShardingPlan:
-    """Raise ``NotImplementedError`` if ``plan`` places any parameter or
-    optimizer leaf on more than one device (the port keeps every leaf whole
-    on each device); return the plan otherwise."""
+def is_zero3(plan: ShardingPlan) -> bool:
+    """Whether ``plan`` shards any parameter leaf over ``data`` (ZeRO-3)."""
+    return any(lay.data_dim is not None for _, lay in iter_layouts(plan.params))
+
+
+def check_plan(plan: ShardingPlan, processes: Optional[int] = None) -> ShardingPlan:
+    """Raise ``NotImplementedError`` where ``plan`` needs what the port does
+    not run (:data:`SHARDED_WEIGHTS`): a parameter or optimizer leaf sharded
+    over a mesh axis other than ``data`` of two or more devices (tensor or
+    expert parallelism), or more devices than ``processes``.  Leaves whole
+    on every device and leaves sharded over ``data`` (ZeRO-3) pass; return
+    the plan."""
+    if processes is not None and plan.n_devices > processes:
+        raise NotImplementedError(
+            f"the plan spans {plan.n_devices} devices over {processes} process(es): a "
+            f"process drives one device; several devices a process is {SHARDED_WEIGHTS}")
     trees = [("params", plan.params), ("opt.mu", plan.opt.mu), ("opt.nu", plan.opt.nu)]
     for name, tree in trees:
         for path, lay in iter_layouts(tree):
-            if lay.n_shards > 1:
-                raise NotImplementedError(
-                    f"the plan places {name} leaf {path!r} on {lay.n_shards} devices (spec "
-                    f"{lay.spec} on mesh {dict(lay.mesh_shape)}): {SHARDED_WEIGHTS}")
+            for (axis, size), p in zip(lay.mesh_shape, lay.placements):
+                if axis != "data" and size > 1 and p.is_shard():
+                    raise NotImplementedError(
+                        f"the plan shards {name} leaf {path!r} over {axis!r} on {size} devices "
+                        f"(spec {lay.spec} on mesh {dict(lay.mesh_shape)}): {SHARDED_WEIGHTS}")
     return plan
 
 

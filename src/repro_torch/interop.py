@@ -4,10 +4,13 @@
 parity test builds weights once on the JAX side and hands them over leaf for
 leaf, with the same names and the same layouts.  Nothing here imports JAX:
 the caller converts its arrays with ``np.asarray`` first.
+:func:`rank_shards` cuts such a tree to one ZeRO-3 rank's shards by a
+plan's layouts, and :func:`from_rank_shards` puts every rank's shards back
+together.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,3 +44,19 @@ def params_from_jax(
         return to_torch(node, dev, dtype)
 
     return conv(np_tree)
+
+
+def rank_shards(tree: Mapping[str, Any], layouts: Mapping[str, Any], coord: int) -> dict:
+    """The shards a ZeRO-3 rank at ``coord`` along ``data`` holds of a whole
+    tree (``params_from_jax``'s), by a plan's layouts (copies)."""
+    if isinstance(tree, Mapping):
+        return {k: rank_shards(v, layouts[k], coord) for k, v in tree.items()}
+    return layouts.local(tree, coord).clone()
+
+
+def from_rank_shards(pieces: Sequence[Mapping[str, Any]], layouts: Mapping[str, Any]) -> dict:
+    """Inverse of :func:`rank_shards`: the whole tree from every rank's
+    shards, in coordinate order."""
+    if isinstance(layouts, Mapping):
+        return {k: from_rank_shards([p[k] for p in pieces], v) for k, v in layouts.items()}
+    return layouts.assemble(pieces)

@@ -22,11 +22,13 @@ Execution strategy is ``ClusterContext.mode`` (``ClusterContext.detect``
 picks it unless the spec names one):
 
   * ``spmd`` -- one ``torch.distributed`` group, a rank a process (NCCL for
-    CUDA workers, ``gloo`` for CPU workers), rendezvous at a
-    file store in the coordinator's run directory: each rank computes the
-    partial gradient over its row slab and ``dist.all_reduce`` sums
-    gradients and the loss's numerator and denominator
-    (:func:`repro_torch.train.steps.make_spmd_train_step`).
+    CUDA workers, ``gloo`` for CPU workers or, named, for workers that
+    share a card), rendezvous at a file store in the coordinator's run
+    directory: each rank computes the partial gradient over its row slab
+    and ``dist.all_reduce`` sums gradients and the loss's numerator and
+    denominator (:func:`repro_torch.train.steps.make_spmd_train_step`);
+    under a plan that shards weights over ``data`` it is ZeRO-3, each rank
+    holding its shards of the parameters and moments.
   * ``hostsync`` -- no process group: the partial gradients meet in a
     pid-ordered f32 sum over the socket transport
     (:mod:`repro_torch.launch.transport`), the paper's host aggregation;
@@ -34,12 +36,13 @@ picks it unless the spec names one):
 
 Where the machine has a card a worker, worker ``p`` binds ``cuda:{p}``
 before it builds its session; ``detect`` picks ``spmd`` only for workers so
-bound whose replicas keep every parameter and optimizer leaf whole.
+bound whose plan shards nothing over ``model``.
 
 Either way every process applies the identical update: numerically the
 single-program step (dense models exactly; see
 :func:`repro_torch.train.steps.make_partial_grad_step`).  Weights sharded
-over several devices are the second half of ROADMAP item 19.
+over ``model`` and several devices a process are the second half of
+ROADMAP item 19.
 
 CLI (the worker entry the coordinator spawns, also usable by hand):
 
@@ -68,6 +71,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.topology import ClusterSpec, TransportSpec
+from repro_torch.distributed import zero
+from repro_torch.roofline.collectives import collective_bytes
 from repro_torch.launch.transport import (  # noqa: F401  (SyncPeerLost re-exported)
     SyncPeerLost, _tree_add, build_wire_transport,
 )
@@ -358,6 +363,10 @@ def _params_digest(params) -> str:
     return h.hexdigest()[:16]
 
 
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves_sorted(tree)) if tree else 0
+
+
 @dataclasses.dataclass
 class WorkerRuntime:
     """One worker process's lifecycle: sync client -> session -> train.
@@ -380,6 +389,7 @@ class WorkerRuntime:
     transport: Optional[Dict[str, Any]] = None   # TransportSpec kwargs
     mode: Optional[str] = None         # "spmd" | "hostsync"; None: detect
     rendezvous: Optional[str] = None   # spmd process group init_method
+    backend: Optional[str] = None      # spmd group backend; None: by device
 
     def run(self, resume_steps: int = 2) -> Dict[str, Any]:
         from repro_torch.launch.mesh import ClusterContext
@@ -397,7 +407,7 @@ class WorkerRuntime:
         try:
             session = _resolve_factory(self.factory)(**self.factory_kwargs)
             kw = dict(sync=sync, member=f"proc-{self.process_id}", transport_spec=tspec,
-                      device=session.device)
+                      device=session.device, backend=self.backend)
             if self.mode is not None:
                 ctx = ClusterContext(self.process_id, n, mode=self.mode, **kw)
             elif n > 1:
@@ -477,6 +487,12 @@ class WorkerRuntime:
             final_report = report2
 
         reducer = ctx.grad_reducer
+        final_params = final_report.params
+        opt = final_report.opt_state
+        zero3 = session.zero3()
+        if zero3 is not None:
+            final_params = zero.gathered_tree(final_params, zero3[0],
+                                              plan.mesh.get_group("data"))
         return {
             "process": self.process_id,
             "n_processes": self.num_processes,
@@ -491,8 +507,17 @@ class WorkerRuntime:
             "step_times": [h["step_time"] for h in report.history],
             "resumed_losses": resumed_losses,
             # bit-identity probe: replicas must end every run with the
-            # EXACT same parameters (compared across records by the rigs)
-            "param_digest": _params_digest(final_report.params),
+            # EXACT same parameters (compared across records by the rigs);
+            # under ZeRO-3 the digest of the gathered parameters
+            "param_digest": _params_digest(final_params),
+            "zero3": zero3 is not None,
+            # what this rank holds: its shards under ZeRO-3
+            "param_bytes": _tree_bytes(final_report.params),
+            "moment_bytes": _tree_bytes(opt.mu) + _tree_bytes(opt.nu),
+            # the spmd step's collectives in its last step, and their wire
+            # bytes a device by kind (the reference's ring accounting)
+            "collective_ops": [list(op) for op in session.step_collectives],
+            "collective_bytes": collective_bytes(session.step_collectives),
             "transport": None if reducer is None else {
                 "topology": getattr(reducer.wire, "topology", "star"),
                 "spec": dataclasses.asdict(reducer.spec),
@@ -571,10 +596,12 @@ class ClusterCoordinator:
         factory_kwargs: Optional[Dict[str, Any]] = None,
         *,
         run_dir: Optional[str] = None,
+        backend: Optional[str] = None,
     ):
         self.spec = spec
         self.factory = factory
         self.factory_kwargs = dict(factory_kwargs or {})
+        self.backend = backend            # the spmd group's; None: by device
         self.run_dir = run_dir or tempfile.mkdtemp(prefix="repro-cluster-")
         self.membership_dir = (
             spec.membership_dir or os.path.join(self.run_dir, "members")
@@ -614,7 +641,8 @@ class ClusterCoordinator:
                 # the spmd process group's rendezvous: a file store no other
                 # launch shares (no port to collide on)
                 "--rendezvous", f"file://{os.path.join(self.run_dir, 'pg-store')}",
-            ] + (["--mode", self.spec.mode] if self.spec.mode else [])
+            ] + (["--mode", self.spec.mode] if self.spec.mode else []) \
+                + (["--backend", self.backend] if self.backend else [])
             with open(os.path.join(self.run_dir, f"log.p{pid}.txt"), "w") as out:
                 self._procs.append(subprocess.Popen(
                     cmd, env=env, stdout=out, stderr=subprocess.STDOUT,
@@ -706,19 +734,22 @@ def demo_session_factory(
     checkpoint_every: Optional[int] = None,
     seed: int = 0,
     device: str = "cuda",
+    fsdp: bool = False,
 ):
     """The standard cluster smoke session: ``FleetSpec.demo(n_csds)`` (1 +
     n_csds dp-groups — keep ``(1 + n_csds) % processes == 0``), meshfeed
     storage, cluster mode.  Importable by name from every worker process;
-    ``device`` defaults to the card.  (A full-width cluster session is the
-    training driver's, ``launch/train.py::train_session_factory``.)"""
+    ``device`` defaults to the card; ``fsdp`` sets the smoke config's flag
+    as the published configs set it (ZeRO-3 in the ``spmd`` mode).  (A
+    full-width cluster session is the training driver's,
+    ``launch/train.py::train_session_factory``.)"""
     from repro_torch.api import FleetSpec, Session, SessionConfig
     from repro_torch.configs import smoke_config
     from repro_torch.models.api import get_model
     from repro_torch.optim import adamw
     from repro_torch.storage import DataConfig
 
-    cfg = smoke_config(arch)
+    cfg = smoke_config(arch).with_(fsdp=fsdp)
     spec = FleetSpec.demo(n_csds=n_csds).with_cluster(processes=processes)
     return Session(
         model=get_model(cfg),
@@ -761,6 +792,9 @@ def _worker_main(argv: Optional[Sequence[str]] = None) -> int:
                     help="execution mode (default: ClusterContext.detect)")
     ap.add_argument("--rendezvous", default=None,
                     help="spmd process group init_method (file://... or tcp://host:port)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="spmd process group backend (default: nccl on a card, else gloo; "
+                         "gloo for ranks that share a card)")
     args = ap.parse_args(argv)
 
     runtime = WorkerRuntime(
@@ -774,6 +808,7 @@ def _worker_main(argv: Optional[Sequence[str]] = None) -> int:
         transport=json.loads(args.transport),
         mode=args.mode,
         rendezvous=args.rendezvous,
+        backend=args.backend,
     )
     record = runtime.run(resume_steps=args.resume_steps)
     body = json.dumps(record, indent=1)

@@ -8,9 +8,11 @@ process group, one device a rank, its dims named ``("data", "model")``:
 group, a plan resolves against a
 :class:`~repro_torch.distributed.sharding.ProcessMesh` (its shape only):
 :func:`make_single_mesh` for one process, :meth:`ClusterContext.global_mesh`
-for a ``hostsync`` cluster.  The reference's production meshes
-(``make_production_mesh``, 512 devices) and several devices a process are
-the second half of ROADMAP item 19.
+for a ``hostsync`` cluster.  A rank mesh's device type is its ranks'
+devices' (a context's device), never read back from the backend: ranks
+that share a card run ``gloo`` over card tensors.  The reference's
+production meshes (``make_production_mesh``, 512 devices) and several
+devices a process are the second half of ROADMAP item 19.
 
 The card's peaks, which the roofline (:mod:`repro_torch.roofline`) and
 ``chip_smoke.py``'s kernel bounds read, are the counterparts of the
@@ -28,7 +30,8 @@ import torch
 
 from repro_torch.device import (HBM_BW, HBM_BYTES, NVLINK_BW, PEAK_FLOPS,  # noqa: F401
                                 PEAK_FLOPS_BF16, PEAK_FLOPS_F32)
-from repro_torch.distributed.sharding import SHARDED_WEIGHTS, ProcessMesh, check_replicated
+from repro_torch.distributed.sharding import (SHARDED_WEIGHTS, ProcessMesh, check_plan,
+                                              is_zero3)
 
 AXES = ("data", "model")
 
@@ -46,24 +49,19 @@ def cluster_devices(world: int) -> List[RankDevice]:
     return [RankDevice(r, r) for r in range(world)]
 
 
-def _device_type() -> str:
-    import torch.distributed as dist
-
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
-
-
-def _rank_mesh(ranks: Sequence[int], data: int, model: int,
+def _rank_mesh(ranks: Sequence[int], data: int, model: int, device_type: str,
                axis_names: Tuple[str, ...] = AXES):
     from torch.distributed.device_mesh import DeviceMesh
 
     grid = torch.tensor(list(ranks), dtype=torch.int64).reshape(data, model)
-    return DeviceMesh(_device_type(), grid, mesh_dim_names=tuple(axis_names))
+    return DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
 
 
 def make_host_mesh(*, data: int = 1, model: int = 1,
                    axis_names: Tuple[str, ...] = AXES):
     """A ``data x model`` ``DeviceMesh`` over the first ``data * model``
-    ranks of the default process group (smoke tests)."""
+    ranks of the default process group (smoke tests), on ``cuda`` under
+    NCCL, else on ``cpu``."""
     import torch.distributed as dist
 
     if data < 1 or model < 1:
@@ -73,7 +71,8 @@ def make_host_mesh(*, data: int = 1, model: int = 1,
         raise ValueError(
             f"host mesh ({data} x {model}) needs {data * model} ranks but the process group "
             f"has {n}; launch more ranks or shrink the mesh")
-    return _rank_mesh(range(data * model), data, model, axis_names)
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return _rank_mesh(range(data * model), data, model, device_type, axis_names)
 
 
 def make_single_mesh(axis_names: Tuple[str, ...] = AXES,
@@ -128,16 +127,17 @@ def pick_cluster_devices(devices: Sequence[RankDevice], data: int, model: int,
 
 
 def make_cluster_mesh(*, data: int, model: int = 1, n_processes: int = 1,
-                      axis_names: Tuple[str, ...] = AXES):
+                      device_type: str, axis_names: Tuple[str, ...] = AXES):
     """The GLOBAL ``DeviceMesh`` of an ``spmd`` cluster: every rank's
-    device, process-major (:func:`pick_cluster_devices`), so process ``p``'s
-    device holds exactly the row slab ``[p*R/P, (p+1)*R/P)``.  Built the
-    same way on every rank (a collective: every rank must call it)."""
+    device (of ``device_type``), process-major
+    (:func:`pick_cluster_devices`), so process ``p``'s device holds exactly
+    the row slab ``[p*R/P, (p+1)*R/P)``.  Built the same way on every rank
+    (a collective: every rank must call it)."""
     import torch.distributed as dist
 
     devs = pick_cluster_devices(cluster_devices(dist.get_world_size()), data, model,
                                 n_processes)
-    return _rank_mesh([d.process_index for d in devs], data, model, axis_names)
+    return _rank_mesh([d.process_index for d in devs], data, model, device_type, axis_names)
 
 
 @dataclasses.dataclass
@@ -148,12 +148,13 @@ class ClusterContext:
     to a ``Session`` (:meth:`~repro_torch.api.session.Session.attach_cluster`).
     ``mode`` selects the execution strategy:
 
-      * ``"spmd"``     -- one replica a rank of a ``torch.distributed``
-        group (NCCL between cards, ``gloo`` between CPU processes): each
-        rank computes the partial gradient over its rows, ``all_reduce``
-        sums gradients and the masked loss's numerator and denominator,
-        and every replica applies the identical update
-        (:func:`~repro_torch.train.steps.make_spmd_train_step`).
+      * ``"spmd"``     -- one rank a process of a ``torch.distributed``
+        group: each rank computes the partial gradient over its rows,
+        ``all_reduce`` sums gradients and the masked loss's numerator and
+        denominator, and every rank applies the identical update
+        (:func:`~repro_torch.train.steps.make_spmd_train_step`); under a
+        plan that shards weights over ``data``, ZeRO-3 (each rank holds
+        and updates its shards, gathering a layer's weights where it runs).
       * ``"hostsync"`` -- no process group: the processes sum their partial
         gradients through the socket transport (the paper's host
         aggregation); several processes may share one card.
@@ -167,7 +168,10 @@ class ClusterContext:
     ring) configured by ``transport_spec``; the hostsync compile wraps it
     in a :class:`~repro_torch.launch.transport.GradReducer` cached here as
     ``grad_reducer`` so error-feedback residuals survive recompiles.
-    ``device`` is the torch device this process trains on.
+    ``device`` is the torch device this process trains on.  ``backend``
+    is the ``spmd`` group's (default: ``nccl`` for a CUDA device, ``gloo``
+    otherwise); ranks that share a card name ``gloo``, since NCCL puts no
+    two ranks on one card.
     """
 
     process_id: int
@@ -179,11 +183,19 @@ class ClusterContext:
     transport_spec: Any = None             # TransportSpec, or None
     grad_reducer: Any = None               # GradReducer cache (set at compile)
     device: Optional[torch.device] = None
+    backend: Optional[str] = None           # spmd group: "nccl" | "gloo"; None: by device
     _meshes: Dict[Tuple[int, int], Any] = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         if self.mode not in ("spmd", "hostsync"):
             raise ValueError(f"unknown cluster mode {self.mode!r}")
+        dev = torch.device(self.device if self.device is not None else "cpu")
+        if self.backend is None:
+            self.backend = "nccl" if dev.type == "cuda" else "gloo"
+        if self.backend not in ("nccl", "gloo"):
+            raise ValueError(f"unknown process group backend {self.backend!r}")
+        if self.backend == "nccl" and dev.type != "cuda":
+            raise ValueError(f"NCCL needs a CUDA device, not {dev}")
 
     @classmethod
     def detect(cls, process_id: int, n_processes: int, *, device=None,
@@ -192,12 +204,13 @@ class ClusterContext:
         ``cuda:{process_id}`` (NCCL refuses two ranks on one card), no more
         workers than the ``n_cards`` cards (default:
         ``torch.cuda.device_count()``), and a ``plan`` -- the one
-        ``n_processes`` replicas resolve
-        (:meth:`~repro_torch.api.session.Session.spmd_plan`) -- that keeps
-        every parameter and optimizer leaf whole (sharded weights are
-        :data:`SHARDED_WEIGHTS`).  Otherwise ``hostsync``: CPU workers,
-        workers sharing a card, or a plan that shards a leaf or is not
-        given.  Prints the mode it chose and why."""
+        ``n_processes`` ranks resolve
+        (:meth:`~repro_torch.api.session.Session.spmd_plan`) -- that
+        :func:`~repro_torch.distributed.sharding.check_plan` passes: leaves
+        whole or sharded over ``data`` (ZeRO-3), none over ``model``
+        (:data:`SHARDED_WEIGHTS`).  Otherwise ``hostsync``: CPU workers,
+        workers sharing a card, or a plan that shards over ``model`` or is
+        not given.  Prints the mode it chose and why."""
         dev = torch.device(device if device is not None else "cpu")
         mode = "hostsync"
         if dev.type != "cuda":
@@ -213,10 +226,12 @@ class ClusterContext:
                 why = "no plan to check"
             else:
                 try:
-                    check_replicated(plan)
+                    check_plan(plan, n_processes)
                     mode, why = "spmd", f"{n_processes} worker(s), a card each"
+                    if is_zero3(plan):
+                        why += ", weights ZeRO-3 sharded over data"
                 except NotImplementedError as exc:
-                    why = f"the plan shards weights: {exc}"
+                    why = f"the plan is not ported: {exc}"
         print(f"[cluster] process {process_id}/{n_processes}: mode {mode} ({why})", flush=True)
         return cls(process_id=process_id, n_processes=n_processes, mode=mode, device=dev, **kw)
 
@@ -226,27 +241,19 @@ class ClusterContext:
 
     # -- the spmd process group ----------------------------------------------
 
-    @property
-    def backend(self) -> Optional[str]:
-        """The process group's backend (``nccl`` / ``gloo``), or None."""
-        import torch.distributed as dist
-
-        return dist.get_backend() if dist.is_initialized() else None
-
     def init_process_group(self, init_method: Optional[str], timeout: float) -> bool:
-        """Join the ``spmd`` process group: ``nccl`` for a CUDA worker,
-        ``gloo`` for a CPU worker, rendezvous at ``init_method``
-        (``file://...`` or ``tcp://host:port``), ``timeout`` seconds on the
-        rendezvous and every collective.  A CUDA worker that cannot start
-        NCCL raises; nothing falls back to another backend.  A group that is
-        already up (the caller's) is checked and kept.  -> whether this call
-        created the group."""
+        """Join the ``spmd`` process group over :attr:`backend`, rendezvous
+        at ``init_method`` (``file://...`` or ``tcp://host:port``),
+        ``timeout`` seconds on the rendezvous and every collective.  A
+        backend that cannot start raises; nothing falls back to another.  A
+        group that is already up (the caller's) is checked and kept.  ->
+        whether this call created the group."""
         import torch.distributed as dist
 
         if self.mode != "spmd":
             raise ValueError(f"a {self.mode!r} cluster has no process group")
         dev = torch.device(self.device if self.device is not None else "cpu")
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        backend = self.backend
         if dist.is_initialized():
             got = (dist.get_backend(), dist.get_rank(), dist.get_world_size())
             if got != (backend, self.process_id, self.n_processes):
@@ -276,8 +283,9 @@ class ClusterContext:
         if self.mode == "hostsync":
             return ProcessMesh(device=torch.device(self.device or "cpu"), shape=(d, 1))
         if (d, 1) not in self._meshes:
-            self._meshes[(d, 1)] = make_cluster_mesh(data=d, model=1,
-                                                     n_processes=self.n_processes)
+            self._meshes[(d, 1)] = make_cluster_mesh(
+                data=d, model=1, n_processes=self.n_processes,
+                device_type=torch.device(self.device or "cpu").type)
         return self._meshes[(d, 1)]
 
     def local_mesh(self, local_rows: int, data_axis: Optional[int] = None) -> ProcessMesh:

@@ -29,11 +29,14 @@ defaults to ``cuda``, and the run fails when no card is found (cluster
 worker ``p`` on ``cuda:p`` where there is a card a worker, else every worker
 on one card; each on the CPU with ``--device cpu``).
 ``--cluster-processes`` needs ``(1 + csds) % N == 0``; each worker's
-``ClusterContext.detect`` picks ``spmd`` (NCCL, a card a worker, every
-weight whole on each) or ``hostsync`` (CPU workers, workers sharing a card,
-or weights the plan would shard).
-``--cluster-local-devices`` above 1 (several devices a process) is refused:
-the second half of ROADMAP item 19.  ``--measured-tune`` runs Algorithm 1
+``ClusterContext.detect`` picks ``spmd`` (NCCL, a card a worker, no weight
+sharded over ``model``) or ``hostsync`` (CPU workers, workers sharing a
+card), unless ``--cluster-mode`` names one.  In ``spmd`` a published
+config's ``fsdp=True`` shards its weights over ``data``: ZeRO-3, each worker
+holding its shards of the parameters and AdamW moments.
+``--cluster-local-devices`` above 1 (several devices a process) and a plan
+that shards weights over ``model`` (tensor or expert parallelism) are
+refused: the second half of ROADMAP item 19.  ``--measured-tune`` runs Algorithm 1
 over real step times (:class:`MeasuredTune`) instead of the fleet's
 analytic model.
 
@@ -192,6 +195,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="launch N worker processes")
     ap.add_argument("--cluster-local-devices", type=int, default=0,
                     help=f"devices a worker process: 0 or 1 (more is {SHARDED_WEIGHTS})")
+    ap.add_argument("--cluster-mode", choices=("spmd", "hostsync"), default=None,
+                    help="the workers' execution mode (default: each worker's "
+                         "ClusterContext.detect); spmd trains a config with fsdp=True as "
+                         f"ZeRO-3 over the data axis (a model axis is {SHARDED_WEIGHTS})")
     return ap
 
 
@@ -201,7 +208,7 @@ def _run_cluster(args) -> int:
 
     result = run_cluster(
         ClusterSpec(processes=args.cluster_processes,
-                    local_devices=args.cluster_local_devices),
+                    local_devices=args.cluster_local_devices, mode=args.cluster_mode),
         "repro_torch.launch.train:train_session_factory",
         {
             "arch": args.arch, "steps": args.steps, "seq": args.seq, "csds": args.csds,

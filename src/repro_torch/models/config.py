@@ -5,7 +5,8 @@ It holds the fields the ported families read.  The reference's
 builds its own norm: LayerNorm in encdec and rwkv6, RMSNorm elsewhere), so
 the port carries neither.  ``fsdp`` is the reference's: it maps the
 ``embed`` axis to ``data`` in the sharding rules
-(:mod:`repro_torch.distributed.sharding`).  The reference's
+(:mod:`repro_torch.distributed.sharding`), which the ``spmd`` mode trains
+as ZeRO-3 (:mod:`repro_torch.distributed.zero`).  The reference's
 ``scan_layers`` has no counterpart: the port runs its layers in a Python
 loop.
 """
@@ -64,7 +65,7 @@ class ModelConfig:
     mrope_sections: Tuple[int, ...] = ()
     n_vision_patches: int = 0         # stubbed patch-embedding prefix length
 
-    # sharding: ZeRO-3-style extra sharding of the embed axis over "data"
+    # sharding: ZeRO-3 sharding of the embed axis over "data"
     fsdp: bool = False
 
     # numerics

@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import zero
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamBuilder, build, stacked
@@ -65,10 +66,21 @@ def _layer(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
+def head(params: PyTree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The output head's table (the embedding's where tied), gathered whole
+    under ZeRO-3 (:func:`repro_torch.distributed.zero.gather`)."""
+    name = "embedding" if cfg.tie_embeddings else "lm_head"
+    return zero.gather(params[name], name)
+
+
+def embedding(params: PyTree) -> Dict[str, torch.Tensor]:
+    """The token embedding's table, gathered whole under ZeRO-3."""
+    return zero.gather(params["embedding"], "embedding")
+
+
 def _final(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = L.rms_norm(params["ln_f"], x)
-    head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-    y = L.logits(head, x)
+    y = L.logits(head(params, cfg), x)
     if cfg.logit_softcap:
         y = torch.tanh(y / cfg.logit_softcap) * cfg.logit_softcap
     return y
@@ -102,17 +114,23 @@ def _run_layer(cfg: ModelConfig, body: Callable[[PyTree, torch.Tensor], Any],
                lp: PyTree, x: torch.Tensor) -> Any:
     """One layer of a training forward: under ``cfg.remat`` only its input is
     kept and its forward recomputed in the backward (``jax.checkpoint``);
-    without autograd (the encoder of a serving prefill) it just runs."""
+    without autograd (the encoder of a serving prefill) it just runs.  Under
+    ZeRO-3 the layer's ``data``-sharded weights (``lp`` is a layer of
+    ``params["blocks"]``) are gathered inside the recomputed body, so the
+    backward gathers them again and no layer's whole weights outlive it."""
+    def run(shards, h):
+        return body(zero.gather(shards, "blocks", stacked=True), h)
+
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(body, lp, x, use_reentrant=False)
-    return body(lp, x)
+        return checkpoint(run, lp, x, use_reentrant=False)
+    return run(lp, x)
 
 
 def _inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             inputs_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     if inputs_embeds is not None:
         return inputs_embeds.to(cfg.dtype)
-    return L.embed(params["embedding"], tokens, cfg.dtype)
+    return L.embed(embedding(params), tokens, cfg.dtype)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,

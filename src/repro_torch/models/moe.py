@@ -119,7 +119,7 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor
     """Training forward. tokens (B, S) -> (logits (B, S, V), Σ_layers aux
     (float32)); under ``cfg.remat`` each layer keeps only its input and
     recomputes its forward, routing included, in the backward."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    x = L.embed(dense.embedding(params), tokens, cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):

@@ -9,9 +9,15 @@ blocks are (L, ...).
 Initializers draw from one seeded ``torch.Generator`` on the target device,
 leaf after leaf in creation order.  They never reproduce ``jax.random``'s
 numbers: tests carry JAX weights across with :func:`repro_torch.interop.params_from_jax`.
+
+Under :func:`keeping`, each concrete leaf passes through a function of its
+key path as soon as it is drawn: a ZeRO-3 rank keeps its slice and frees
+the rest, one leaf at a time, so it never holds the whole tree and its
+slices are bit for bit those of the whole init.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -98,6 +104,21 @@ def zeros_init() -> Init:
 # Builder
 # ---------------------------------------------------------------------------
 
+# (key path, drawn leaf) -> the leaf to keep; see :func:`keeping`
+_KEEP: Optional[Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def keeping(fn: Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor]):
+    """Keep ``fn(path, leaf)`` in place of every concrete leaf built inside
+    the block (``path``: the leaf's key path in the parameter tree)."""
+    global _KEEP
+    prev, _KEEP = _KEEP, fn
+    try:
+        yield
+    finally:
+        _KEEP = prev
+
 
 class ParamBuilder:
     """Collects parameters into a nested-dict tree with logical axis metadata.
@@ -106,16 +127,18 @@ class ParamBuilder:
     """
 
     def __init__(self, generator: Optional[torch.Generator], abstract: bool,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device, path: Tuple[str, ...] = ()):
         self.generator = generator
         self.abstract = abstract
         self.dtype = dtype
         self.device = device
+        self.path = path
         self.params: Dict[str, Any] = {}
         self.axes: Dict[str, Any] = {}
 
     def scope(self, name: str) -> "ParamBuilder":
-        child = ParamBuilder(self.generator, self.abstract, self.dtype, self.device)
+        child = ParamBuilder(self.generator, self.abstract, self.dtype, self.device,
+                             self.path + (name,))
         self.params[name] = child.params
         self.axes[name] = child.axes
         return child
@@ -137,6 +160,8 @@ class ParamBuilder:
             leaf = torch.empty(shape, dtype=dtype, device="meta")
         else:
             leaf = (init or normal_init())(self.generator, shape, dtype, self.device, stacked)
+            if _KEEP is not None:
+                leaf = _KEEP(self.path + (name,), leaf)
         self.params[name] = leaf
         self.axes[name] = tuple(axes)
         return leaf

@@ -35,7 +35,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.dense import _layer, _scan_blocks
+from repro_torch.models.dense import _layer, _scan_blocks, embedding, head
 from repro_torch.models.param import (
     ParamBuilder, build, normal_init, ones_init, scaled_init, stacked, zeros_init,
 )
@@ -199,8 +199,7 @@ def init_params(
 
 def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.layer_norm(params["ln_f"], x)
-    head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-    return L.logits(head, x)
+    return L.logits(head(params, cfg), x)
 
 
 def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -211,7 +210,7 @@ def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Training forward. tokens: (B, S) int -> logits (B, S, V)."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    x = L.embed(embedding(params), tokens, cfg.dtype)
     x = L.layer_norm(params["ln0"], x)
     x = _scan_blocks(params, x, cfg, lambda lp, h: _block_train(lp, h, cfg))
     return _logits(params, cfg, x)

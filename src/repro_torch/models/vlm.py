@@ -52,7 +52,7 @@ def mrope_positions(cfg: ModelConfig, batch: int, seq: int, grid: Optional[int] 
 def _sequence(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
               patch_embeds: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[int]]:
     """[patches | text] embeddings, and the patch count (None without patches)."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
+    x = L.embed(dense.embedding(params), tokens, cfg.dtype)
     if patch_embeds is None:
         return x, None
     return torch.cat([patch_embeds.to(cfg.dtype), x], dim=1), patch_embeds.shape[1]

@@ -16,9 +16,10 @@ and shard custody disagree), as the reference's does.
 
 ``StorageSpec(data_axis=...)`` pins the feed's data axis.  Above 1 it is
 accepted where it equals the cluster's world (its processes, one device
-each: the ``spmd`` mesh's data axis), and each rank lands only its own
-span.  Any other value would put several devices in a process, the second
-half of ROADMAP item 19, and raises ``NotImplementedError``.
+each: the ``spmd`` mesh's data axis, replicated or ZeRO-3), and each rank
+lands only its own span.  Any other value would put several devices in a
+process, the second half of ROADMAP item 19, and raises
+``NotImplementedError``.
 
 Sampling custody is inherited from :class:`SyntheticDevice` -- mesh feeding
 changes where batches *land*, never who may *read* a shard.

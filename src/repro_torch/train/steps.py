@@ -16,9 +16,12 @@ every level, as ``jax.tree_util.tree_leaves``).
 
 ``spmd`` cluster training (one replica a rank of a ``torch.distributed``
 group) runs the same two halves in one step, :func:`make_spmd_train_step`:
-the partial gradient, ``dist.all_reduce`` of the gradient buckets and of
+the partial gradient, ``dist.all_reduce`` of the gradient leaves and of
 the loss's numerator and denominator, then the identical update on every
-replica.  :func:`build_sharding_plan` resolves the rule table
+replica.  Under a plan that shards weights over ``data`` (ZeRO-3,
+:mod:`repro_torch.distributed.zero`) a rank holds and updates only its
+shards; their gradients arrive reduce-scattered from the gathers'
+backward.  :func:`build_sharding_plan` resolves the rule table
 (:mod:`repro_torch.distributed.sharding`) against a mesh, as the
 reference's does.
 """
@@ -29,9 +32,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.hetero import masked_mean_loss
+from repro_torch.distributed import zero
 from repro_torch.distributed.sharding import (
     ShardingPlan, arg_shardings_for_tree, layout_for, make_rules, mesh_axis_sizes,
 )
+from repro_torch.roofline import collectives
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, OptState, tree_leaves, tree_map
 
@@ -237,6 +242,7 @@ def make_apply_step(
     lr_schedule: Callable[[int], torch.Tensor],
     *,
     aux_weight: float = 0.01,
+    grad_sq: Optional[Callable[[PyTree], torch.Tensor]] = None,
 ) -> Callable:
     """The update half of cluster (hostsync) training.
 
@@ -247,6 +253,8 @@ def make_apply_step(
     bit-synchronized without a broadcast — in place, as
     :func:`make_train_step`, whose metrics it reports.  A gradient is divided
     in float32 whatever its dtype, as the reference's bf16 / f32 promotes.
+    ``grad_sq(grads)`` is the squared gradient norm (default: this tree's
+    own sum of squares; a ZeRO-3 rank's counts every shard once).
     """
 
     def apply_step(params, opt_state: OptState, grads, sums):
@@ -256,7 +264,8 @@ def make_apply_step(
         grads = tree_map(lambda g: g.float() / den, grads)
         lr = lr_schedule(opt_state.step)
         opt_state, params = optimizer.update(grads, opt_state, params, lr)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in tree_leaves(grads)))
+        gnorm = torch.sqrt(grad_sq(grads) if grad_sq is not None else
+                           sum(torch.sum(torch.square(g)) for g in tree_leaves(grads)))
         metrics = {
             "loss": loss,
             "aux": aux,
@@ -384,12 +393,39 @@ def allreduce_tree(tree: PyTree, group=None) -> PyTree:
     dense copy, since NCCL takes dense tensors only.  -> the summed tree."""
     import torch.distributed as dist
 
-    def reduced(leaf):
-        leaf = leaf.contiguous()
-        dist.all_reduce(leaf, group=group)
-        return leaf
+    size = dist.get_world_size(group)
+    return tree_unflatten_sorted(tree, [zero.all_reduce(x, group, size)
+                                        for x in tree_leaves_sorted(tree)])
 
-    return tree_unflatten_sorted(tree, [reduced(x) for x in tree_leaves_sorted(tree)])
+
+def _zero3_reduce(grads: PyTree, lays: List[Any], group) -> PyTree:
+    """A ZeRO-3 rank's gradients after the step's reduction: the sharded
+    leaves' arrived summed from the gathers' backward; the replicated
+    leaves (the norms) are all-reduced here.  ``lays``: the layouts in the
+    reference's leaf order."""
+    import torch.distributed as dist
+
+    size = dist.get_world_size(group)
+    out = [g if lay.data_dim is not None else zero.all_reduce(g, group, size)
+           for g, lay in zip(tree_leaves_sorted(grads), lays)]
+    return tree_unflatten_sorted(grads, out)
+
+
+def _zero3_grad_sq(lays: List[Any], group) -> Callable[[PyTree], torch.Tensor]:
+    """The squared gradient norm of a ZeRO-3 rank's reduced gradients: the
+    shards' sum of squares all-reduced, plus the replicated leaves' (whole
+    on every rank) counted once."""
+    import torch.distributed as dist
+
+    size = dist.get_world_size(group)
+
+    def grad_sq(grads: PyTree) -> torch.Tensor:
+        sq = [torch.sum(torch.square(g.float())) for g in tree_leaves_sorted(grads)]
+        sharded = torch.stack([x for x, lay in zip(sq, lays) if lay.data_dim is not None])
+        total = zero.all_reduce(torch.sum(sharded), group, size)
+        return total + sum(x for x, lay in zip(sq, lays) if lay.data_dim is None)
+
+    return grad_sq
 
 
 def make_spmd_train_step(
@@ -400,6 +436,8 @@ def make_spmd_train_step(
     timing: Dict[str, float],
     group=None,
     aux_weight: float = 0.01,
+    layouts: Optional[PyTree] = None,
+    collective_log: Optional[List[collectives.Op]] = None,
 ) -> Callable:
     """The ``spmd`` cluster step: ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` over this rank's rows.
@@ -411,17 +449,31 @@ def make_spmd_train_step(
     ``num, den, auxden`` in one float32 vector, then :func:`make_apply_step`
     on the totals, identically on every replica.  The masked loss is the
     ratio of the across-rank sums, never a mean of rank means, so the update
-    is the single-program step's.  ``timing`` accumulates the seconds of
-    ``grad_s`` (to the gradient's end on the device), ``allreduce_s`` and
-    ``apply_s`` and counts ``steps``.
+    is the single-program step's.
+
+    ``layouts`` (the plan's parameter layouts) that shard a leaf over
+    ``data`` make it ZeRO-3: ``params`` and the moments are this rank's
+    shards, the forward and backward run inside
+    :func:`~repro_torch.distributed.zero.zero3` (a layer's weights gathered
+    where it runs, their gradients reduce-scattered), only the replicated
+    leaves are all-reduced, and the update touches the local shards.
+
+    ``timing`` accumulates the seconds of ``grad_s`` (to the gradient's end
+    on the device, ZeRO-3's gathers and reduce-scatters included),
+    ``reduce_s`` (the all-reduces) and ``apply_s`` and counts ``steps``;
+    ``collective_log``, where given, holds the last step's collectives
+    (:mod:`repro_torch.roofline.collectives`).
     """
+    import contextlib
     import time
 
     import torch.distributed as dist
 
-
+    lays = [] if layouts is None else tree_leaves_sorted(layouts)
+    sharded = any(lay.data_dim is not None for lay in lays)
     grad_step = make_partial_grad_step(model, aux_weight=aux_weight)
-    apply_step = make_apply_step(optimizer, lr_schedule, aux_weight=aux_weight)
+    apply_step = make_apply_step(optimizer, lr_schedule, aux_weight=aux_weight,
+                                 grad_sq=_zero3_grad_sq(lays, group) if sharded else None)
     keys = ("num", "den", "auxden")
 
     def sync(device) -> float:
@@ -431,16 +483,23 @@ def make_spmd_train_step(
 
     def train_step(params, opt_state: OptState, batch):
         device = tree_leaves(params)[0].device
+        log: List[collectives.Op] = []
         t0 = time.perf_counter()
-        grads, sums = grad_step(params, batch)
-        t1 = sync(device)
-        grads = allreduce_tree(grads, group)
-        totals = torch.stack([sums[k].float() for k in keys])
-        dist.all_reduce(totals, group=group)
-        t2 = sync(device)
-        out = apply_step(params, opt_state, grads, {k: totals[i] for i, k in enumerate(keys)})
-        t3 = sync(device)
-        for key, dt in (("grad_s", t1 - t0), ("allreduce_s", t2 - t1), ("apply_s", t3 - t2),
+        with collectives.recording(log):
+            with zero.zero3(layouts, group) if sharded else contextlib.nullcontext():
+                grads, sums = grad_step(params, batch)
+            t1 = sync(device)
+            grads = (_zero3_reduce(grads, lays, group) if sharded
+                     else allreduce_tree(grads, group))
+            totals = zero.all_reduce(torch.stack([sums[k].float() for k in keys]), group,
+                                     dist.get_world_size(group))
+            t2 = sync(device)
+            out = apply_step(params, opt_state, grads,
+                             {k: totals[i] for i, k in enumerate(keys)})
+            t3 = sync(device)
+        if collective_log is not None:
+            collective_log[:] = log
+        for key, dt in (("grad_s", t1 - t0), ("reduce_s", t2 - t1), ("apply_s", t3 - t2),
                         ("steps", 1)):
             timing[key] = timing.get(key, 0.0) + dt
         return out

@@ -15,12 +15,14 @@ file store under the test's temporary directory (no fixed port).  Held:
   ``tests/test_torch_train.py`` holds the single-process session), and the
   hostsync run's exactly (two ranks add the same two float32 partial sums
   whichever way round);
-* ``with_sharding(embed="data")`` at data 2 raises ``NotImplementedError``
-  naming the second half of ROADMAP item 19;
+* ``with_sharding(embed="data")`` at data 2 resolves a ZeRO-3 plan on the
+  ``DeviceMesh`` (the embedding table cut 2 ways; its training is
+  ``tests/test_torch_zero.py``);
 * ``ClusterContext.detect`` picks ``hostsync`` on CPU devices, wherever
   the workers outnumber the cards or a worker is not on a card of its own,
-  and wherever the replicas' plan would shard a weight (the full-width
-  deepseek-7b's ``fsdp`` rules at world 2).
+  and wherever the plan shards a weight over ``model`` (naming the second
+  half of ROADMAP item 19); a plan that shards weights over ``data`` (the
+  full-width deepseek-7b's ``fsdp`` rules at world 2) runs ``spmd``.
 """
 import os
 import subprocess
@@ -68,12 +70,10 @@ for name, rules in (("default", {}), ("fsdp", {"embed": "data"})):
     s = demo_session_factory(processes=2, steps=2, seq_len=16, device="cpu")
     s.sharding_overrides = rules
     s.attach_cluster(ClusterContext(rank, 2, mode="spmd", device=s.device))
-    try:
-        plan = s.shard()
-        out[name] = {"plan": plan.describe(), "mesh": str(plan.mesh),
-                     "rows": list(s.devices._feeder._span)}
-    except NotImplementedError as exc:
-        out[name] = {"raised": str(exc)}
+    plan = s.shard()
+    out[name] = {"plan": plan.describe(), "mesh": str(plan.mesh),
+                 "rows": list(s.devices._feeder._span), "zero3": s.zero3() is not None,
+                 "table": plan.params["embedding"]["table"].n_shards}
 with open(io + f"/plan{rank}.json", "w") as f:
     json.dump(out, f)
 dist.barrier()
@@ -143,7 +143,8 @@ def test_spmd_replicas_agree_and_each_rank_lands_its_half(runs):
         assert rec["drift_no_recompile"] and rec["compile_count"] == 1
         assert len(rec["resumed_losses"]) == STEPS + RESUME
         assert rec["step_split"]["steps"] == 2 * STEPS + RESUME
-        assert all(rec["step_split"][k] > 0 for k in ("grad_s", "allreduce_s", "apply_s"))
+        assert all(rec["step_split"][k] > 0 for k in ("grad_s", "reduce_s", "apply_s"))
+        assert not rec["zero3"] and set(rec["collective_bytes"]) == {"all-reduce"}
     assert recs[0]["param_digest"] == recs[1]["param_digest"]
     assert recs[0]["losses"] == recs[1]["losses"]
     assert set(recs[0]["local_workers"]).isdisjoint(recs[1]["local_workers"])
@@ -194,14 +195,16 @@ def test_spmd_losses_equal_the_reference_train_step(runs):
 def test_plans_on_the_spmd_mesh(runs):
     """The default plan resolves on the 2-rank ``DeviceMesh`` and each rank
     adopts its half of the rows; ZeRO-3 weights (``embed`` over ``data``)
-    at data 2 raise, naming what is left to port."""
+    at data 2 resolve too, the embedding table cut 2 ways, and make the
+    session ZeRO-3."""
     for rank, out in enumerate(runs[1]):
-        assert out["default"]["plan"] == "ShardingPlan(mesh={'data': 2, 'model': 1}, " \
-                                         "rows=40, data_axis=2)"
-        assert "DeviceMesh" in out["default"]["mesh"]
-        assert out["default"]["rows"] == [20 * rank, 20 * (rank + 1)]
-        msg = out["fsdp"]["raised"]
-        assert "second half of ROADMAP item 19" in msg and "on 2 devices" in msg
+        for name in ("default", "fsdp"):
+            assert out[name]["plan"] == "ShardingPlan(mesh={'data': 2, 'model': 1}, " \
+                                        "rows=40, data_axis=2)"
+            assert "DeviceMesh" in out[name]["mesh"]
+            assert out[name]["rows"] == [20 * rank, 20 * (rank + 1)]
+        assert (out["default"]["zero3"], out["default"]["table"]) == (False, 1)
+        assert (out["fsdp"]["zero3"], out["fsdp"]["table"]) == (True, 2)
 
 
 def test_plans_without_a_process_group_keep_weights_whole():
@@ -255,15 +258,19 @@ def test_detect_picks_spmd_only_with_a_card_a_worker(device, pid, n, cards, want
 
 
 def test_detect_needs_a_plan_that_keeps_every_leaf_whole(capsys, smoke_session):
-    """Workers bound a card each still run ``hostsync`` where the replicas'
-    plan would shard a weight: the full-width deepseek-7b's ``fsdp`` rules
-    at world 2 (``embed`` over ``data``), the smoke config under
-    ``embed="data"``, or no plan at all."""
+    """Workers bound a card each run ``spmd`` where the plan keeps every
+    leaf whole or shards it over ``data`` (ZeRO-3: the full-width
+    deepseek-7b's ``fsdp`` rules at world 2, the smoke config under
+    ``embed="data"``), and ``hostsync`` where it shards a leaf over
+    ``model`` (tensor parallelism, the second half of ROADMAP item 19),
+    where two workers share a card, or with no plan at all."""
     from repro_torch.api import FleetSpec, Session
     from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ProcessMesh
     from repro_torch.models.api import get_model
     from repro_torch.optim import adamw
     from repro_torch.storage import DataConfig
+    from repro_torch.train.steps import build_sharding_plan
 
     cfg = get_config("deepseek-7b")
     spec = FleetSpec.demo(3)
@@ -282,9 +289,16 @@ def test_detect_needs_a_plan_that_keeps_every_leaf_whole(capsys, smoke_session):
         for rank in range(2):
             ctx = ClusterContext.detect(rank, 2, device=torch.device("cuda", rank), n_cards=2,
                                         plan=p)
-            out = capsys.readouterr().out
-            assert ctx.mode == "hostsync"
-            assert "the plan shards weights" in out and "second half of ROADMAP item 19" in out
+            assert ctx.mode == "spmd" and "ZeRO-3" in capsys.readouterr().out
+        ctx = ClusterContext.detect(1, 2, device=torch.device("cuda", 0), n_cards=1, plan=p)
+        assert ctx.mode == "hostsync" and "1 card(s)" in capsys.readouterr().out
+    tp = build_sharding_plan(smoke_session.model, adamw(),
+                             mesh=ProcessMesh(torch.device("cpu"), (1, 2)), global_rows=40,
+                             seq_len=SEQ_LEN)
+    ctx = ClusterContext.detect(0, 2, device=torch.device("cuda", 0), n_cards=2, plan=tp)
+    out = capsys.readouterr().out
+    assert ctx.mode == "hostsync"
+    assert "over 'model'" in out and "second half of ROADMAP item 19" in out
     assert ClusterContext.detect(0, 2, device=torch.device("cuda", 0), n_cards=2).mode == \
         "hostsync"
     assert "no plan to check" in capsys.readouterr().out
