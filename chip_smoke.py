@@ -259,10 +259,10 @@ profiles):
      flash at a worker's (20, 256, 32, 128);
  31. ``cluster_training``: deepseek-7b at full width, 2 of 30 layers, seq
      256, FleetSpec.demo(3) (40 rows, 20 a worker) through a single-process
-     card Session for 4 steps, then through 2 worker processes sharing the
+     card Session for 3 steps, then through 2 worker processes sharing the
      card (``ClusterCoordinator``) under ``TransportSpec.production()``
      (int8, ring, 2 buckets, overlap): equal replica digests, the step-1
-     loss equal to the single process's at rtol 1e-5, steps 2-4 within
+     loss equal to the single process's at rtol 1e-5, steps 2-3 within
      1e-2, each worker's launches (the quantizer once a bucket a step),
      ms a step and its split, wire bytes, compression ratio, predicted and
      measured peaks; card memory and the host's MemAvailable printed before
@@ -299,7 +299,7 @@ before the profiles):
 Data-parallel training over ``torch.distributed`` (after phase 34, before
 the profiles):
  35. ``spmd_training``: phase 31's cell (deepseek-7b, 2 of 30 layers, seq
-     256, FleetSpec.demo(3)'s 40 rows, f32, AdamW, 4 steps) through the
+     256, FleetSpec.demo(3)'s 40 rows, f32, AdamW, 3 steps) through the
      ``spmd`` worker path (``WorkerRuntime`` with mode ``spmd``: the
      launch/train.py factory, ``Session.shard()`` on the ``DeviceMesh``,
      ``make_spmd_train_step``) as the one rank of an NCCL group on the card
@@ -328,7 +328,7 @@ ZeRO-3 over the data axis (after phase 35, before the profiles):
      card's tensors), 20 rows a rank: each rank holds and updates only its
      shards, gathers a layer's weights where it runs and gets their
      gradients reduce-scattered.  Held: the step-1 loss against phase 31's
-     single-process card Session at SPMD_RTOL and steps 2-4 at
+     single-process card Session at SPMD_RTOL and steps 2-3 at
      ZERO3_LATER_RTOL (the ranks' bf16 partial gradients); the losses and
      the parameters against the same arithmetic in this one process
      (``world2_reference``: each batch's two halves, their partial
@@ -342,12 +342,44 @@ ZeRO-3 over the data axis (after phase 35, before the profiles):
      split (grad with the gathers and reduce-scatters, reduce, apply) and
      wire bytes a step by kind.  Its lap is printed beside ZERO3_BUDGET_S.
 
+Tensor and expert parallelism over the model axis (after phase 36, before the
+profiles): two ranks that share the card over ``gloo`` (each ``chip_smoke.py
+--rank PHASE RANK DIR``: NCCL puts no two ranks on one card), mesh ``data 1 x
+model 2`` (``make_host_mesh``), ``build_sharding_plan``, ``init_rank_params``
+(each leaf drawn whole, the rank's piece kept) and
+``make_spmd_train_step(plan=)``, the launch counts set to 0 just before the
+steps and read just after:
+ 37. ``tp_training``: phase 31's cell (deepseek-7b, 2 of 30 layers, seq 256,
+     its 40 rows on each rank, its batches, weights and schedule, AdamW,
+     TP_STEPS steps): a rank holds 16 query heads, 5,504 FFN columns and
+     51,200 vocabulary rows.  Held: the step-1 loss and gradient norm
+     against phase 31's single process at TP_LOSS_RTOL and TP_GNORM_RTOL;
+     the two ranks' losses equal; the digests of the leaves replicated over
+     ``model`` equal; each rank's resident parameter and moment bytes
+     exactly the sum of its pieces' shapes' bytes; flash launched as phase
+     8's count, at 16 over 16 heads; the step's collectives equal
+     ``roofline.collectives.tp_step_ops`` op for op; flash at a rank's
+     (40, 256, 16, 128) against its plain version.  Printed: ms a step and
+     its split, each rank's peak, wire bytes a step by kind beside the
+     closed form's.  Its lap is printed beside TP_BUDGET_S.
+ 38. ``ep_training``: dbrx-132b at full width cut to 1 of 40 layers, 8 rows x
+     256 seeded tokens, AdamW, EP_STEPS steps: the one-process fused path's
+     forward and backward on the whole seed-0 weights first (then freed), then
+     the two ranks, each holding 8 of 16 experts, 24 query heads over 4 KV
+     heads and 50,176 vocabulary rows.  Held as phase 37, step 1 against the
+     one-process fused path; the expert GEMM and combine launched on each
+     rank at E 8, C 640, d 6,144, f 10,752 (the group-local EP layer) and held
+     there to their plain versions on a rank's slot tables of the whole
+     routing; flash at a rank's (8, 256, 24 over 4, 128).  Its lap is printed
+     beside EP_BUDGET_S.
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
 ``engine_serving``, ``families_serving``, ``encdec_serving``,
 ``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training``,
 ``cluster_training``, ``measured_tune``, ``spmd_training``,
-``compressed_allreduce`` or ``zero3_training``) whose shapes it was
+``compressed_allreduce``, ``zero3_training``, ``tp_training`` or
+``ep_training``) whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -1280,19 +1312,24 @@ def profile_step(torch, dev, label, model, optimizer, step, params, opt_state, n
 
 
 def moe_gemm_combine_records(torch, R, F, x, router, wg, wu, wo, k, C, label, path, flush,
-                             timed=True):
+                             timed=True, first_expert=None):
     """The expert GEMM (to one bf16 ulp of its largest output) and the
     combine (bit for bit) on slot tables from ``moe_routing`` of ``x``
     through ``router``, against their plain versions; when ``timed``, the
     GEMM's gate/up and down kernels apart (``torch.profiler``), the three
     products as ``torch.bmm`` on gathered rows as a note, and both
-    kernels' kernels-line records for ``path``."""
+    kernels' kernels-line records for ``path``.  With ``first_expert``
+    the weights are an expert-parallel rank's experts ``first_expert ..``
+    of the router's: the slot tables are theirs of the whole routing."""
     from repro_torch.kernels import fused_moe as FM
 
     T, d = x.shape
     E, _, f = wg.shape
     bf16 = torch.bfloat16
     slot_tok, slot_gate, _, _, keep, _ = FM.moe_routing(x, router, k, C)
+    if first_expert is not None:
+        mine = slice(first_expert * C, (first_expert + E) * C)
+        slot_tok, slot_gate = slot_tok[mine], slot_gate[mine]
     live = slot_tok[:, 0] < T
     n_live = int(live.sum())
     n_exp = int(live.view(E, C).any(dim=1).sum())     # experts holding a token
@@ -3826,7 +3863,9 @@ def full_width_side_train(torch, ops, get_model, get_config, dev, arch):
 # which peaked at ~38 GiB in phase 23: two do not fit.)
 CLUSTER_CELL = dict(arch="deepseek-7b", full_config=True, n_layers=CKPT_LAYERS,
                     seq=CKPT_SEQ, csds=3, fleet={})
-CLUSTER_STEPS = 4
+# (4 until phases 37-38 joined the run: a step of a worker or a gloo rank
+# takes ~10 s, and the run keeps inside its 1,200 s)
+CLUSTER_STEPS = 3
 
 
 def _mem_available_gib() -> float:
@@ -3994,11 +4033,12 @@ def cluster_training(torch, ops, dev, bucket_lens, root: Path):
     ``launch/train.py --cluster-processes 2`` runs it) under
     ``TransportSpec.production()``: equal replica digests, the step-1 loss
     equal to the single-process run's at rtol 1e-5 (it is read from raw
-    sums, before any update), steps 2-4 within 1e-2, each worker's
+    sums, before any update), steps 2-3 within 1e-2, each worker's
     launches (the quantizer once a bucket a step; flash as phase 8's count
     for its steps), its ms a step and split, wire bytes, compression ratio,
     predicted and measured peak.  Returns the workers' summed launches, the
-    single process's losses and the workers' peaks."""
+    single process's losses, the workers' peaks and the single process's
+    gradient norms."""
     import gc
 
     from repro_torch.core.topology import ClusterSpec, TransportSpec
@@ -4012,6 +4052,7 @@ def cluster_training(torch, ops, dev, bucket_lens, root: Path):
     report = single.run()
     counts = dict(ops.LAUNCHES)
     want = [h["loss"] for h in report.history]
+    want_norms = [h["grad_norm"] for h in report.history]
     single_ms = statistics.median(h["step_time"] for h in report.history[1:]) * 1e3
     print(f"[cluster] single process: {cfg.name} {cfg.n_layers} layers, "
           f"{cfg.param_count() / 1e9:.3f} B params, rows {sched.global_rows} "
@@ -4065,12 +4106,12 @@ def cluster_training(torch, ops, dev, bucket_lens, root: Path):
         raise AssertionError(f"replica digests differ: {[r['param_digest'] for r in recs]}")
     print(f"[cluster] phase 31: replica digests equal ({recs[0]['param_digest']}); the "
           f"single process's {single_ms:.3f} ms/step against the workers' above")
-    return totals, want, [rec["peak_bytes"] for rec in recs]
+    return totals, want, [rec["peak_bytes"] for rec in recs], want_norms
 
 
 def cluster_smoke(smoke_config, dev, root: Path):
     """Phase 32: the smoke config (``demo_session_factory``: FleetSpec.demo(3),
-    seq 16, 4 steps) through 2 worker processes on the card under
+    seq 16, CLUSTER_STEPS steps) through 2 worker processes on the card under
     ``TransportSpec()`` (star, no compression) against the single-process
     card ``Session`` of the same factory: losses at rtol 1e-5, equal
     replica digests, flash launched as phase 7's count."""
@@ -4478,7 +4519,7 @@ def spmd_training(torch, ops, R, F, dev, single_losses, root: Path):
 # its published fsdp=True through 2 spmd ranks that share the card over gloo;
 # seconds the phase should take (printed beside what it took)
 ZERO3_BUDGET_S = 120.0
-# steps 2-4 against the single process: each rank's partial gradient is
+# steps 2-3 against the single process: each rank's partial gradient is
 # rounded to bf16 (the cell's weights) before the two are summed, and AdamW's
 # ~3e-6 lr on bf16 weights turns such a rounding into whole-ulp weight flips
 # (phase 31 holds its workers' later steps at 1e-2 for the same reason); the
@@ -4638,6 +4679,399 @@ def zero3_training(torch, ops, dev, single_losses, replicated_peaks, root: Path)
     return totals
 
 
+# phases 37-38: tensor and expert parallelism over the model axis, two gloo
+# ranks that share the card (NCCL puts no two ranks on one) on mesh
+# data 1 x model 2.  Phase 37's cell, tp_deepseek7b_model2: phase 31's cell
+# (CLUSTER_CELL, the same batches, weights and schedule); phase 38's,
+# ep_dbrx132b_model2: dbrx-132b at full width cut to 1 of 40 layers, 8 rows
+# x 256 of seeded tokens, AdamW at a constant lr.  Seconds each phase should
+# take (printed beside what it took), its steps, and the step-1 bounds
+# against the one process (predicted in PERF.md before the first run: each
+# rank's bf16 partial sums of a head group, an FFN column block, a
+# vocabulary block or its experts are rounded once, summed in float32 and
+# rounded again)
+TP_BUDGET_S, EP_BUDGET_S = 90.0, 110.0
+TP_STEPS, EP_STEPS = 3, 2
+TP_LOSS_RTOL, TP_GNORM_RTOL = 2e-3, 2e-2
+EP_CELL = dict(arch="dbrx-132b", n_layers=1, rows=8, seq=256, lr=3e-6, seed=0)
+
+
+def _rank_tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _replicated_digest(params, plan):
+    """sha256 of the leaves the plan keeps whole over ``model``, in the
+    reference's leaf order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.train.steps import tree_leaves_sorted
+
+    h = hashlib.sha256()
+    for t, lay in zip(tree_leaves_sorted(params), tree_leaves_sorted(plan.params)):
+        if lay.model_dim is None:
+            t = t.detach().cpu().contiguous()
+            h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _tp_rank_run(torch, ops, dev, rank, model, optimizer, sched, plan, next_batch, steps,
+                 seed):
+    """One rank of phases 37-38: its pieces of the seed's weights
+    (``init_rank_params``), ``steps`` of ``make_spmd_train_step(plan=)``
+    with the launch counts set to 0 just before and read just after, the
+    heads and expert shapes the kernels ran at, the last step's
+    collectives.  -> the rank's record."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.roofline.collectives import collective_bytes
+    from repro_torch.train.steps import init_rank_params, make_spmd_train_step
+
+    params = init_rank_params(model, plan, rank, seed=seed, device=dev)
+    opt_state = optimizer.init(params)
+    timing, log, shapes = {}, [], {"flash_heads": set(), "moe": set()}
+    step = make_spmd_train_step(model, optimizer, sched, timing=timing, plan=plan,
+                                collective_log=log)
+    flash, gemm = kops.flash_attention, kops.fused_moe_gemm
+
+    def flash_seen(q, *a, **kw):
+        shapes["flash_heads"].add((int(q.shape[2]), int(a[0].shape[2])))
+        return flash(q, *a, **kw)
+
+    def gemm_seen(x, wg, wu, wo, slot_tok, slot_gate):
+        E = int(wg.shape[0])
+        shapes["moe"].add((E, int(slot_tok.shape[0]) // E, int(wg.shape[1]), int(wg.shape[2])))
+        return gemm(x, wg, wu, wo, slot_tok, slot_gate)
+
+    kops.flash_attention, kops.fused_moe_gemm = flash_seen, gemm_seen
+    losses, norms, times = [], [], []
+    try:
+        ops.reset_launches()
+        for _ in range(steps):
+            batch = next_batch()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        launches = dict(ops.LAUNCHES)
+    finally:
+        kops.flash_attention, kops.fused_moe_gemm = flash, gemm
+    return {"rank": rank, "losses": losses, "grad_norms": norms, "step_times": times,
+            "step_split": timing, "launches": launches,
+            "flash_heads": sorted(shapes["flash_heads"]), "moe_shapes": sorted(shapes["moe"]),
+            "collective_ops": [list(op) for op in log],
+            "collective_bytes": collective_bytes(log),
+            "param_bytes": _rank_tree_bytes(params),
+            "moment_bytes": _rank_tree_bytes(opt_state.mu) + _rank_tree_bytes(opt_state.nu),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "replicated_digest": _replicated_digest(params, plan),
+            "plan": plan.describe()}
+
+
+def _ep_batch(torch, cfg, dev):
+    """Phase 38's batch: seeded tokens over the vocabulary, every position scored."""
+    rng = np.random.default_rng(EP_CELL["seed"] + 38)
+    toks = rng.integers(0, cfg.vocab, (EP_CELL["rows"], EP_CELL["seq"] + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+            "labels": torch.from_numpy(toks[:, 1:]).to(dev),
+            "loss_mask": torch.ones(EP_CELL["rows"], EP_CELL["seq"], device=dev)}
+
+
+def _ep_config():
+    from repro_torch.configs import get_config
+
+    return get_config(EP_CELL["arch"]).with_(n_layers=EP_CELL["n_layers"])
+
+
+def rank_main(argv) -> int:
+    """A rank of phase 37 (``tp``) or 38 (``ep``): ``chip_smoke.py --rank
+    PHASE RANK IO`` joins the two ranks' gloo group at ``IO/store``, runs
+    its cell and writes ``IO/PHASE.RANK.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_sharding_plan
+
+    phase, rank, io = argv[0], int(argv[1]), Path(argv[2])
+    dev = resolve_device("cuda")
+    dist.init_process_group("gloo", init_method=f"file://{io}/store-{phase}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh(data=1, model=2)
+        if phase == "tp":
+            from repro_torch.launch.train import train_session_factory
+            from repro_torch.optim.schedules import goyal_schedule
+
+            session = train_session_factory(device=dev, steps=CLUSTER_STEPS, **CLUSTER_CELL)
+            cfg, tp = session.config, session.tune()
+            sched = goyal_schedule(cfg.base_lr, tp.schedule.valid_rows,
+                                   base_batch=cfg.base_batch, warmup_steps=cfg.warmup_steps,
+                                   total_steps=cfg.total_steps)
+            model, optimizer = session.model, session.optimizer
+            plan = build_sharding_plan(model, optimizer, mesh=mesh,
+                                       global_rows=tp.schedule.global_rows,
+                                       seq_len=CLUSTER_CELL["seq"], device=dev)
+            rec = _tp_rank_run(torch, ops, dev, rank, model, optimizer, sched, plan,
+                               lambda: session.dataset.next_device_batch(dev), TP_STEPS,
+                               cfg.seed)
+        else:
+            cfg = _ep_config()
+            model, optimizer = get_model(cfg), adamw()
+            plan = build_sharding_plan(model, optimizer, mesh=mesh, global_rows=EP_CELL["rows"],
+                                       seq_len=EP_CELL["seq"], device=dev)
+            batch = _ep_batch(torch, cfg, dev)
+            rec = _tp_rank_run(torch, ops, dev, rank, model, optimizer,
+                               lambda s: torch.tensor(EP_CELL["lr"], device=dev), plan,
+                               lambda: batch, EP_STEPS, EP_CELL["seed"])
+        with open(io / f"{phase}.{rank}.json", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(phase: str, io: Path, timeout: float):
+    """Start the two ranks of ``phase`` together, wait, stop both on any
+    failure, and return their records."""
+    import os
+
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank", phase,
+                               str(r), str(io)], cwd=str(ROOT), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(proc.returncode != 0 for proc in procs):
+        for r, log in enumerate(logs):
+            print(f"[{phase}] rank {r} log:\n{log[-6000:]}", file=sys.stderr)
+        raise AssertionError(f"{phase} ranks failed: {[p.returncode for p in procs]}")
+    out = []
+    for r in range(2):
+        with open(io / f"{phase}.{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def _tp_report(torch, tag, cfg, recs, rows, seq, resident, want_launches, want_heads,
+               want_loss, want_norm, label):
+    """Print and hold phase 37's or 38's ranks (see the module doc); -> the
+    two ranks' summed launches."""
+    from repro_torch.roofline.collectives import collective_bytes, tp_step_ops
+
+    ops_want = tp_step_ops(cfg, rows, seq, 2)
+    totals = {}
+    for rec in recs:
+        what = f"[{tag}] rank {rec['rank']}"
+        split, n = rec["step_split"], max(1, rec["step_split"]["steps"])
+        ms = statistics.median(rec["step_times"][1:]) * 1e3
+        print(f"{what} ({rec['plan']}): {ms:.3f} ms/step (median of steps 2-{len(rec['step_times'])}), "
+              f"first {rec['step_times'][0] * 1e3:.1f} ms; a step (mean of {n}): grad with the "
+              f"model axis's collectives {split['grad_s'] / n * 1e3:.1f} ms, reduce "
+              f"{split['reduce_s'] / n * 1e3:.1f}, apply {split['apply_s'] / n * 1e3:.1f}")
+        print(f"{what}: wire bytes a step by kind {rec['collective_bytes']} in "
+              f"{len(rec['collective_ops'])} collectives (gloo over the card's tensors); "
+              f"roofline.collectives.tp_step_ops: {collective_bytes(ops_want)} in "
+              f"{len(ops_want)}")
+        if sorted(map(tuple, rec["collective_ops"])) != sorted(ops_want):
+            raise AssertionError(f"{what}: collectives {rec['collective_ops']} are not the "
+                                 f"closed form's {ops_want}")
+        print(f"{what}: resident params {rec['param_bytes']:,} B, moments "
+              f"{rec['moment_bytes']:,} B ({(rec['param_bytes'] + rec['moment_bytes']) / 2**30:.3f}"
+              f" GiB); peak {rec['peak_bytes'] / 2**30:.3f} GiB; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }; flash at (heads, KV heads) "
+              f"{rec['flash_heads']}; expert GEMM at (E, C, d, f) {rec['moe_shapes']}")
+        if (rec["param_bytes"], rec["moment_bytes"]) != resident:
+            raise AssertionError(f"{what} holds {rec['param_bytes']} + {rec['moment_bytes']} B, "
+                                 f"its pieces are {resident}")
+        _check_launches(rec["launches"], want_launches, what)
+        if [tuple(h) for h in rec["flash_heads"]] != want_heads:
+            raise AssertionError(f"{what}: flash ran at {rec['flash_heads']}, not {want_heads}")
+        gap = abs(rec["losses"][0] - want_loss) / abs(want_loss)
+        ngap = abs(rec["grad_norms"][0] - want_norm) / abs(want_norm)
+        print(f"{what}: losses {[round(x, 6) for x in rec['losses']]}, grad norms "
+              f"{[round(x, 6) for x in rec['grad_norms']]}; step 1 against {label} (loss "
+              f"{want_loss:.6f}, grad norm {want_norm:.6f}): relative gaps {gap:.3e} (bound "
+              f"{TP_LOSS_RTOL:g}) and {ngap:.3e} (bound {TP_GNORM_RTOL:g})")
+        if not all(math.isfinite(x) for x in rec["losses"] + rec["grad_norms"]) \
+                or gap > TP_LOSS_RTOL or ngap > TP_GNORM_RTOL:
+            raise AssertionError(f"{what}: step 1 ({rec['losses'][0]}, {rec['grad_norms'][0]}) "
+                                 f"against ({want_loss}, {want_norm})")
+        for name, c in rec["launches"].items():
+            totals[name] = totals.get(name, 0) + c
+    if recs[0]["losses"] != recs[1]["losses"]:
+        raise AssertionError(f"[{tag}] the ranks' losses differ: "
+                             f"{[r['losses'] for r in recs]}")
+    if recs[0]["replicated_digest"] != recs[1]["replicated_digest"]:
+        raise AssertionError(f"[{tag}] the leaves replicated over model differ: "
+                             f"{[r['replicated_digest'] for r in recs]}")
+    print(f"[{tag}] the ranks' losses equal; the digests of the leaves replicated over model "
+          f"equal ({recs[0]['replicated_digest']})")
+    return totals
+
+
+def _resident(plan, model):
+    """(parameter bytes, AdamW moment bytes) a rank of ``plan`` holds: the
+    sums of its pieces' shapes' bytes."""
+    from repro_torch.distributed.sharding import iter_layouts
+
+    like = _paths(model.init_params(abstract=True, device="cpu")[0])
+    p = n = 0
+    for path, lay in iter_layouts(plan.params):
+        k = math.prod(lay.shard_shape(tuple(like[path].shape)))
+        p, n = p + k * like[path].element_size(), n + k
+    return p, 2 * 4 * n
+
+
+def _model2_plan(torch, model, rows, seq):
+    """The plan of a data 1 x model 2 mesh, resolved on the host."""
+    from repro_torch.distributed.sharding import ProcessMesh
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_sharding_plan
+
+    return build_sharding_plan(model, adamw(), mesh=ProcessMesh(torch.device("cpu"), (1, 2)),
+                               global_rows=rows, seq_len=seq)
+
+
+def tp_training(torch, ops, R, F, dev, single_losses, single_norms, root: Path):
+    """Phase 37 (see the module doc): -> (the ranks' summed launches, records)."""
+    from repro_torch.launch.train import train_session_factory
+
+    t0 = time.perf_counter()
+    session = train_session_factory(device="cpu", **CLUSTER_CELL)
+    cfg, rows = session.model.cfg, session.tune().schedule.global_rows
+    plan = _model2_plan(torch, session.model, rows, CLUSTER_CELL["seq"])
+    resident = _resident(plan, session.model)
+    print(f"[tp] {cfg.name}, {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B params, "
+          f"rows {rows} x seq {CLUSTER_CELL['seq']}, mesh data 1 x model 2 ({plan.describe()}): "
+          f"a rank holds {cfg.n_heads // 2} query heads, {cfg.d_ff // 2} FFN columns, "
+          f"{cfg.vocab // 2} vocabulary rows; params {resident[0]:,} B, moments "
+          f"{resident[1]:,} B")
+    recs = _run_ranks("tp", root, timeout=600)
+    want = {"flash_attention": expected_train_launches(cfg, "f32", TP_STEPS)["flash_attention"]}
+    totals = _tp_report(torch, "tp", cfg, recs, rows, CLUSTER_CELL["seq"], resident, want,
+                        [(cfg.n_heads // 2, cfg.n_kv_heads // 2)], single_losses[0],
+                        single_norms[0], "phase 31's single process")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3737)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    hd, h = cfg.resolved_head_dim(), cfg.n_heads // 2
+    records = attention_records(torch, R, F, rand, scratch.zero_, "tp_training",
+                                f"a rank's ({rows}, {CLUSTER_CELL['seq']}, {h}, {hd})", rows,
+                                CLUSTER_CELL["seq"], CLUSTER_CELL["seq"], h,
+                                cfg.n_kv_heads // 2, hd, True, int8=False)
+    print(f"[tp] phase 37: {time.perf_counter() - t0:.1f} s (budget {TP_BUDGET_S:.0f})")
+    return totals, records
+
+
+def ep_baseline(torch, dev):
+    """Phase 38's one process: the whole seed-0 weights, forward and
+    backward of the fused path on the batch.  -> (loss, grad norm)."""
+    import gc
+
+    from repro_torch.models.api import get_model
+    from repro_torch.train.steps import value_and_grad
+
+    cfg = _ep_config()
+    model = get_model(cfg)
+    params, _ = model.init_params(seed=EP_CELL["seed"], device=dev)
+    (_, parts), grads = value_and_grad(model, params, _ep_batch(torch, cfg, dev))
+    norm = float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))))
+    loss = float(parts["loss"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, norm, peak
+
+
+def ep_training(torch, ops, R, F, dev, root: Path):
+    """Phase 38 (see the module doc): -> (the ranks' summed launches, records)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.models.moe import expert_capacity
+
+    t0 = time.perf_counter()
+    cfg = _ep_config()
+    model = get_model(cfg)
+    rows, seq = EP_CELL["rows"], EP_CELL["seq"]
+    plan = _model2_plan(torch, model, rows, seq)
+    resident = _resident(plan, model)
+    T, E = rows * seq, cfg.n_experts
+    C = expert_capacity(T, E, cfg.experts_per_token, cfg.capacity_factor)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_base = time.perf_counter()
+    want_loss, want_norm, base_peak = ep_baseline(torch, dev)
+    t_base = time.perf_counter() - t_base
+    print(f"[ep] {cfg.name}, {cfg.n_layers} of 40 layers, {cfg.param_count() / 1e9:.3f} B params, "
+          f"rows {rows} x seq {seq}, mesh data 1 x model 2 ({plan.describe()}): a rank holds "
+          f"{E // 2} of {E} experts (C = {C} slots an expert), {cfg.n_heads // 2} query heads "
+          f"over {cfg.n_kv_heads // 2} KV heads, {cfg.vocab // 2} vocabulary rows; params "
+          f"{resident[0]:,} B, moments {resident[1]:,} B ({sum(resident) / 2**30:.2f} GiB); the "
+          f"one-process fused path, forward and backward: loss {want_loss:.6f}, grad norm "
+          f"{want_norm:.6f}, peak {base_peak / 2**30:.2f} GiB, {t_base:.1f} s")
+    print(f"[ep] before the ranks: this process holds "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved; card free "
+          f"{torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB")
+    recs = _run_ranks("ep", root, timeout=900)
+    want = {"flash_attention": EP_STEPS * 2 * cfg.n_layers,
+            "fused_moe_gemm": EP_STEPS * 2 * cfg.n_layers,
+            "fused_moe_combine": EP_STEPS * 2 * cfg.n_layers}
+    totals = _tp_report(torch, "ep", cfg, recs, rows, seq, resident, want,
+                        [(cfg.n_heads // 2, cfg.n_kv_heads // 2)], want_loss, want_norm,
+                        "the one-process fused path")
+    shape = (E // 2, C, cfg.d_model, cfg.d_ff)
+    for rec in recs:
+        if [tuple(s) for s in rec["moe_shapes"]] != [shape]:
+            raise AssertionError(f"[ep] rank {rec['rank']}: the expert GEMM ran at "
+                                 f"{rec['moe_shapes']}, not {[shape]}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3838)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    bf16 = torch.bfloat16
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf16)
+
+    hd, h = cfg.resolved_head_dim(), cfg.n_heads // 2
+    records = attention_records(torch, R, F, rand, scratch.zero_, "ep_training",
+                                f"a rank's ({rows}, {seq}, {h} over {cfg.n_kv_heads // 2}, {hd})",
+                                rows, seq, seq, h, cfg.n_kv_heads // 2, hd, True, int8=False)
+    d, f = cfg.d_model, cfg.d_ff
+    x, router = rand(T, d), rand(d, E, std=d ** -0.5)
+    wg, wu, wo = rand(E // 2, d, f, std=d ** -0.5), rand(E // 2, d, f, std=d ** -0.5), \
+        rand(E // 2, f, d, std=f ** -0.5)
+    records += moe_gemm_combine_records(torch, R, F, x, router, wg, wu, wo,
+                                        cfg.experts_per_token, C,
+                                        f"EP: a rank's 8 of 16 experts (T={T}, C={C})",
+                                        "ep_training", scratch.zero_, first_expert=0)
+    del x, wg, wu, wo
+    torch.cuda.empty_cache()
+    print(f"[ep] phase 38: {time.perf_counter() - t0:.1f} s (budget {EP_BUDGET_S:.0f})")
+    return totals, records
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4779,7 +5213,7 @@ def main() -> int:
     lap("phase 31's kernel checks")
     cluster_root = Path(tempfile.mkdtemp(prefix="chip-smoke-cluster-"))
     try:
-        cluster_totals, cluster_losses, cluster_peaks = cluster_training(
+        cluster_totals, cluster_losses, cluster_peaks, cluster_norms = cluster_training(
             torch, ops, dev, bucket_lens, cluster_root)
         lap("phase 31")
         cluster_smoke(smoke_config, dev, cluster_root)
@@ -4819,6 +5253,19 @@ def main() -> int:
                      "check") for r in records
                 if r["name"] == "flash_attention" and r["path"] == "cluster_training"]
     lap("phase 36")
+    # tensor and expert parallelism: two gloo ranks share the card, mesh data 1 x model 2
+    torch.cuda.empty_cache()
+    tp_root = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-"))
+    try:
+        tp_totals, tp_records = tp_training(torch, ops, R, F, dev, cluster_losses,
+                                            cluster_norms, tp_root)
+        lap("phase 37")
+        torch.cuda.empty_cache()
+        ep_totals, ep_records = ep_training(torch, ops, R, F, dev, tp_root)
+        lap("phase 38")
+    finally:
+        shutil.rmtree(tp_root, ignore_errors=True)
+    records += tp_records + ep_records
     # profiles after every timed run: a generate timed after the profiler ran
     # measured slower decode steps
     t_profiles = time.perf_counter()
@@ -4839,7 +5286,8 @@ def main() -> int:
               "engine_serving": engine_totals, **slice_totals, **family_train_totals,
               "cluster_training": cluster_totals, "measured_tune": tune_totals,
               "spmd_training": spmd_totals, "compressed_allreduce": comp_totals,
-              "zero3_training": zero_totals}
+              "zero3_training": zero_totals, "tp_training": tp_totals,
+              "ep_training": ep_totals}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"
@@ -4856,4 +5304,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

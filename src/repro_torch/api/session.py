@@ -44,8 +44,10 @@ raises when no card is visible).
 the rank only its shards (drawn leaf by leaf, bit for bit the slices of the
 whole init), the step gathers a layer's weights where it runs
 (:mod:`repro_torch.distributed.zero`), and checkpoints are written as
-per-shard chunks.  A plan that shards a leaf over ``model`` raises
-``NotImplementedError`` (the second half of ROADMAP item 19).
+per-shard chunks.  The session's meshes keep ``model = 1`` (one process,
+or the cluster's, as the reference's); tensor and expert parallelism over
+``model`` run through ``train.steps.make_spmd_train_step(plan=)`` on
+``launch.mesh.make_host_mesh``.
 
 Cluster mode (:meth:`Session.attach_cluster`, done by
 :class:`~repro_torch.launch.cluster.WorkerRuntime` in each worker process):
@@ -381,8 +383,8 @@ class Session:
         device; a cluster, the context's global mesh (``spmd``: the
         ``DeviceMesh`` over every rank).  The compute plan, the global one
         (``hostsync``: this process's one-device plan), must run on one
-        device a process and shard nothing over ``model``
-        (:func:`~repro_torch.distributed.sharding.check_plan`); leaves
+        device a process (:func:`~repro_torch.distributed.sharding.check_plan`;
+        its meshes keep ``model = 1``); leaves
         sharded over ``data`` make the ``spmd`` step ZeRO-3."""
         from repro_torch.launch.mesh import make_single_mesh
 
@@ -588,7 +590,7 @@ class Session:
 
             def keep(path, leaf):
                 lay = zero.subtree(layouts, path)
-                return leaf if lay.data_dim is None else lay.local(leaf, coord).clone()
+                return leaf if lay.n_shards == 1 else lay.local(leaf, coord).clone()
 
             with keeping(keep):
                 params, _ = self.model.init_params(seed=seed, device=self.device)
@@ -607,7 +609,7 @@ class Session:
 
         def cut(t, lay, whole):
             return (lay.local(t, coord).clone()
-                    if lay.data_dim is not None and t.shape == whole.shape else t)
+                    if lay.n_shards > 1 and t.shape == whole.shape else t)
 
         return tree_map(cut, tree, layouts, like)
 

@@ -38,7 +38,8 @@ partial ``manifest.p<N>.json``; after a barrier the primary's
 tile every leaf, writes the standard manifest (a chunked entry carries a
 ``chunks`` list, as the reference's) and publishes atomically.
 :func:`restore` reads both layouts, and with ``layouts`` places each leaf
-straight onto a plan of any data size: the slice at the rank's coordinate.
+straight onto a plan of any mesh: the piece at the rank's coordinates
+(chunks sharded over ``data``, ``model`` or both).
 """
 from __future__ import annotations
 
@@ -232,7 +233,7 @@ def _load_entry(path: str, e: Dict[str, Any], verify_crc: bool,
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    if layout is not None and layout.data_dim is not None:
+    if layout is not None and layout.n_shards > 1:
         t = layout.local(t, coord).clone()      # the slice alone, not a view of the whole
     return t.to(device)
 
@@ -244,8 +245,8 @@ def restore(directory: str, like: PyTree, *, step: Optional[int] = None,
     included, or ints for ``OptState.step``), every tensor leaf placed on
     ``device`` with the dtype its manifest entry names.  ``layouts`` (a tree
     of :class:`~repro_torch.distributed.sharding.Layout` shaped like
-    ``like``, a plan of any data size) makes each sharded leaf the slice at
-    ``coord`` along ``data``.  Returns ``(tree, metadata)``."""
+    ``like``, a plan of any mesh) makes each sharded leaf the piece of the
+    device at flat rank ``coord``.  Returns ``(tree, metadata)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -285,10 +286,11 @@ def save_process(directory: str, step: int, tree: PyTree, *, process_index: int,
     reference's ``save_process``).
 
     Into the SHARED ``step_N.tmp/``: every leaf that ``layouts`` does not
-    shard, whole, from the primary alone; this rank's shard of every leaf it
-    does, as a chunk at ``coord`` along ``data`` (one writer a chunk); and
-    this process's partial manifest.  Publishing is
-    :func:`finalize_process_save`'s, after a barrier."""
+    shard, whole, from the primary alone; the piece of every leaf it does
+    that the device at flat rank ``coord`` holds (over ``data``, ``model``
+    or both), as a chunk, from the one rank at coordinate 0 along every
+    mesh dim that does not shard it; and this process's partial manifest.
+    Publishing is :func:`finalize_process_save`'s, after a barrier."""
     tmp = _tmp_dir(directory, step)
     os.makedirs(tmp, exist_ok=True)
     lays = dict(_flatten_with_paths(layouts)) if layouts is not None else {}
@@ -296,7 +298,7 @@ def save_process(directory: str, step: int, tree: PyTree, *, process_index: int,
     for key, arr, dtype in _snapshot(tree):
         fn_base = key.replace("/", "__")
         lay = lays.get(key)
-        if lay is None or lay.data_dim is None:
+        if lay is None or lay.n_shards == 1:
             if process_index != 0:
                 continue                   # the primary is the single writer
             fn = fn_base + ".npy"
@@ -304,11 +306,10 @@ def save_process(directory: str, step: int, tree: PyTree, *, process_index: int,
             entries[key] = {"file": fn, "shape": list(arr.shape), "dtype": dtype,
                             "crc32": _crc(arr)}
             continue
-        dim, n = lay.data_dim, arr.shape[lay.data_dim]
-        index = [[0, s] for s in arr.shape]
-        index[dim] = [coord * n, (coord + 1) * n]
-        shape = list(arr.shape)
-        shape[dim] = n * lay.data_ways
+        if not lay.writes(coord):
+            continue                       # another rank holds the same piece
+        shape = list(lay.whole_shape(arr.shape))
+        index = lay.index(shape, coord)
         fn = f"{fn_base}__p{process_index}_0.npy"
         _save_npy(os.path.join(tmp, fn), arr, dtype)
         entries[key] = {"chunks": [{"file": fn, "index": index, "crc32": _crc(arr)}],
@@ -449,7 +450,8 @@ class ClusterCheckpointManager(CheckpointManager):
     protocol, so a ``Session`` in cluster mode checkpoints through exactly
     the same call sites as a single-process one.  Without sharded
     ``layouts``: barrier -> the primary's atomic save + rotate -> barrier.
-    With them (ZeRO-3; ``coord`` is this rank's coordinate along ``data``):
+    With them (ZeRO-3 or tensor parallelism; ``coord`` is this rank's flat
+    index on the mesh):
     :func:`save_process` everywhere -> barrier -> the primary's
     :func:`finalize_process_save` + rotate -> barrier, and ``restore``
     gives this rank its shards.  Saves are synchronous — the cross-process

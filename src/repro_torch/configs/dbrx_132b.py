@@ -6,9 +6,11 @@ The reference's config says ``norm="layernorm"``, but its ``models/moe.py``
 never reads the field and normalizes with ``rms_norm`` throughout; the port
 does the same and carries no ``norm`` field.  ``fsdp=True`` is the
 reference's sharding option: ZeRO-3 over ``data`` in the ``spmd`` mode.
-At full width (264 GB of bf16 weights) the model needs the
-expert-sharded multi-card path, the second half of ROADMAP item 19; only
-``SMOKE`` runs on one card.
+At full width (264 GB of bf16 weights) the model needs the expert- and
+tensor-parallel path over ``model`` (``models/moe.py``'s group-local EP,
+``train.steps.make_spmd_train_step(plan=)``) across several cards; one
+card trains it cut to 1 of 40 layers over two ranks (``chip_smoke.py``
+phase 38), and ``SMOKE`` runs whole.
 """
 import torch
 

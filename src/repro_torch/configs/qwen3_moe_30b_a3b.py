@@ -5,9 +5,8 @@ dims as ``repro.configs.qwen3_moe_30b_a3b``.
 As in the reference: no QK-norm, and capacity-factor dispatch (1.25) where
 the HF model routes without drops.  ``fsdp=True`` (the reference's) shards
 the ``embed`` axis over ``data``: in the ``spmd`` mode at data 2 or more
-that is ZeRO-3 (:mod:`repro_torch.distributed.zero`).  Its experts over
-``model`` (expert parallelism) are the second half of ROADMAP item 19 and
-raise.
+that is ZeRO-3 (:mod:`repro_torch.distributed.zero`); its experts over
+``model`` run the group-local expert-parallel layer (``models/moe.py``).
 """
 import torch
 

@@ -361,7 +361,7 @@ class ClusterSpec:
     line turns a single-process session into a cluster launch.
 
     ``local_devices`` is the per-process device count: 0 or 1 (one torch
-    device a process; more is the second half of ROADMAP item 19).
+    device a process; more is the rest of the second half of ROADMAP item 19).
     ``sync_port`` is the coordinator's sync service (0 picks a free one at
     launch); it is also the ring's rendezvous.  ``membership_dir`` is where
     worker heartbeats land for the
@@ -392,8 +392,8 @@ class ClusterSpec:
         if self.local_devices > 1:
             raise NotImplementedError(
                 f"local_devices={self.local_devices}: a worker process drives one "
-                f"torch device; several devices a process is the second half of "
-                f"ROADMAP item 19 'Multi-device'"
+                f"torch device; several devices a process is the rest of the second "
+                f"half of ROADMAP item 19 'Multi-device'"
             )
         if self.mode not in (None, "spmd", "hostsync"):
             raise ValueError(f"unknown cluster mode {self.mode!r}")

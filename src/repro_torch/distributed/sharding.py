@@ -14,23 +14,28 @@ of a process group (the ``spmd`` cluster), or a :class:`ProcessMesh`: the
 (data, model) grid of processes with one device each when no process group
 binds them (one process, or a ``hostsync`` cluster).
 
-The port trains data-parallel over the ``data`` axis: a leaf whose spec
-names no mesh axis of more than one device is whole on every device, and a
-leaf that names ``data`` (the configs' ``fsdp=True`` puts ``embed`` there)
-is ZeRO-3 sharded, each rank holding the slice at its coordinate
-(:meth:`Layout.local`), gathered a layer at a time inside the step
-(:mod:`repro_torch.distributed.zero`).  :func:`check_plan` refuses what is
-not ported: a leaf sharded over ``model`` (tensor and expert parallelism,
-and with them the activation constraints ``with_logical_constraint``) and
-a plan with several devices a process, :data:`SHARDED_WEIGHTS`, the second
-half of ROADMAP item 19.
+The port trains over both axes.  A leaf whose spec names no mesh axis of
+more than one device is whole on every device.  A leaf that names ``data``
+(the configs' ``fsdp=True`` puts ``embed`` there) is ZeRO-3 sharded, each
+rank holding the slice at its coordinate (:meth:`Layout.local`), gathered
+a layer at a time inside the step (:mod:`repro_torch.distributed.zero`).
+A leaf that names ``model`` (heads, FFN columns, vocabulary rows, experts)
+is the rank's piece of a tensor- or expert-parallel product
+(:mod:`repro_torch.distributed.tensor`), for the dense and MoE families.
+The models read the mesh in scope (:func:`use_mesh`, the counterpart of
+the reference's ``set_mesh``) and check their activations' layout with
+:func:`with_logical_constraint`.  :func:`check_plan` refuses what is not
+ported, :data:`SHARDED_WEIGHTS`: the ``model`` axis for the other
+families, query heads the ``model`` axis does not divide, and several
+devices a process.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+import warnings
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -38,8 +43,16 @@ PyTree = Any
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
 
-SHARDED_WEIGHTS = ("the second half of ROADMAP item 19 'Multi-device' (the model axis: "
-                   "tensor and expert parallelism; several devices a process)")
+SHARDED_WEIGHTS = ("the rest of the second half of ROADMAP item 19 'Multi-device' (the "
+                   "model axis for the recurrent, encoder-decoder and vision-language "
+                   "families; query heads the model axis does not divide; batch rows over "
+                   "model outside the MoE layer; serving under a model axis; several "
+                   "devices a process)")
+
+# the families whose forward runs tensor and expert parallelism over ``model``
+TP_FAMILIES = ("dense", "moe")
+# the logical axes a tensor-parallel forward reads a ``model`` shard of
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,40 +101,98 @@ class Layout:
                 out[p.dim] //= size
         return tuple(out)
 
+    def whole_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Inverse of :meth:`shard_shape`: the whole tensor's shape from one
+        device's piece of ``shape``."""
+        out = list(shape)
+        for (_, size), p in zip(self.mesh_shape, self.placements):
+            if p.is_shard():
+                out[p.dim] *= size
+        return tuple(out)
+
     @property
     def data_ways(self) -> int:
         """Size of the ``data`` mesh dim (1 without one)."""
         return dict(self.mesh_shape).get("data", 1)
 
+    def dim_over(self, axis: str) -> Optional[int]:
+        """The tensor dim sharded over the mesh dim ``axis`` of two or more
+        devices, or None where every rank along it holds the tensor whole."""
+        for (name, size), p in zip(self.mesh_shape, self.placements):
+            if name == axis and size > 1 and p.is_shard():
+                return p.dim
+        return None
+
     @property
     def data_dim(self) -> Optional[int]:
         """The tensor dim sharded over a ``data`` axis of two or more
         devices (ZeRO-3), or None where every rank holds that dim whole."""
-        for (name, size), p in zip(self.mesh_shape, self.placements):
-            if name == "data" and size > 1 and p.is_shard():
-                return p.dim
-        return None
+        return self.dim_over("data")
 
-    def local(self, full: torch.Tensor, coord: int) -> torch.Tensor:
-        """The piece of the whole tensor ``full`` that the rank at ``coord``
-        along ``data`` holds: its slice of :attr:`data_dim` (a view; the
-        tensor itself where no dim is sharded)."""
-        dim = self.data_dim
-        if dim is None:
-            return full
-        n = full.shape[dim] // self.data_ways
-        return full.narrow(dim, coord * n, n)
+    @property
+    def model_dim(self) -> Optional[int]:
+        """The tensor dim sharded over a ``model`` axis of two or more
+        devices (tensor or expert parallelism), or None."""
+        return self.dim_over("model")
+
+    def coords(self, rank: int) -> Tuple[int, ...]:
+        """The mesh coordinates of the device at flat ``rank`` (row-major
+        over the mesh dims: on a ``data x 1`` mesh, the ``data`` coordinate)."""
+        out = []
+        for _, size in reversed(self.mesh_shape):
+            out.append(rank % size)
+            rank //= size
+        return tuple(reversed(out))
+
+    def _cuts(self, rank: int):
+        """(tensor dim, ways, index) of each mesh dim that shards the tensor,
+        in mesh-dim order (two mesh dims on one tensor dim nest, the first
+        outermost)."""
+        return [(p.dim, size, c) for (_, size), p, c in
+                zip(self.mesh_shape, self.placements, self.coords(rank))
+                if p.is_shard() and size > 1]
+
+    def index(self, shape: Tuple[int, ...], rank: int) -> List[List[int]]:
+        """``[start, stop)`` along every dim of the whole tensor of ``shape``
+        that the device at ``rank`` holds."""
+        index = [[0, int(s)] for s in shape]
+        for dim, ways, c in self._cuts(rank):
+            n = (index[dim][1] - index[dim][0]) // ways
+            index[dim] = [index[dim][0] + c * n, index[dim][0] + (c + 1) * n]
+        return index
+
+    def writes(self, rank: int) -> bool:
+        """Whether the device at ``rank`` is its piece's one writer: its
+        coordinate is 0 along every mesh dim that does not shard the tensor."""
+        return all(c == 0 for (_, size), p, c in
+                   zip(self.mesh_shape, self.placements, self.coords(rank))
+                   if not (p.is_shard() and size > 1))
+
+    def local(self, full: torch.Tensor, rank: int) -> torch.Tensor:
+        """The piece of the whole tensor ``full`` that the device at flat
+        ``rank`` holds (a view; the tensor itself where nothing shards it).
+        Bit for bit the slice of the whole."""
+        for dim, (a, b) in enumerate(self.index(tuple(full.shape), rank)):
+            if b - a != full.shape[dim]:
+                full = full.narrow(dim, a, b - a)
+        return full
 
     def assemble(self, pieces) -> torch.Tensor:
         """Inverse of :meth:`local`: the whole tensor from the pieces of
-        every coordinate along ``data``, in coordinate order."""
+        every device of the mesh, in flat rank order (of a mesh whose one
+        sharding dim is ``data``, the pieces of the ``data`` coordinates)."""
         pieces = list(pieces)
-        dim = self.data_dim
-        if dim is None:
-            return pieces[0]
-        if len(pieces) != self.data_ways:
-            raise ValueError(f"{len(pieces)} pieces for a data axis of {self.data_ways}")
-        return torch.cat(pieces, dim=dim)
+        n = math.prod(size for _, size in self.mesh_shape)
+        if len(pieces) != n:
+            raise ValueError(f"{len(pieces)} pieces for a mesh of {n} devices "
+                             f"{dict(self.mesh_shape)}")
+        # merge the innermost mesh dim first: each run of `size` pieces is one
+        # piece of the next dim out
+        for (_, size), p in reversed(list(zip(self.mesh_shape, self.placements))):
+            runs = [pieces[i:i + size] for i in range(0, len(pieces), size)]
+            pieces = [torch.cat(run, dim=p.dim) if p.is_shard() and size > 1 else run[0]
+                      for run in runs]
+        return pieces[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +220,8 @@ class ShardingPlan:
     global_rows: int
     data_axis: int            # |mesh["data"]|: how many ways rows shard
     device: torch.device = torch.device("cpu")
+    family: Optional[str] = None   # the model's family (what check_plan reads)
+    axes: PyTree = None            # the parameters' logical-axes tree
 
     @property
     def n_devices(self) -> int:
@@ -324,25 +397,56 @@ def is_zero3(plan: ShardingPlan) -> bool:
     return any(lay.data_dim is not None for _, lay in iter_layouts(plan.params))
 
 
+def _model_leaves(plan: ShardingPlan):
+    """(tree name, path, layout) of every parameter and moment leaf that
+    the plan shards over a ``model`` axis of two or more devices."""
+    for name, tree in (("params", plan.params), ("opt.mu", plan.opt.mu),
+                       ("opt.nu", plan.opt.nu)):
+        for path, lay in iter_layouts(tree):
+            if lay.model_dim is not None:
+                yield name, path, lay
+
+
+def _axes_at(axes: PyTree, path: str):
+    for k in path.split("/"):
+        axes = axes[k]
+    return axes
+
+
 def check_plan(plan: ShardingPlan, processes: Optional[int] = None) -> ShardingPlan:
     """Raise ``NotImplementedError`` where ``plan`` needs what the port does
-    not run (:data:`SHARDED_WEIGHTS`): a parameter or optimizer leaf sharded
-    over a mesh axis other than ``data`` of two or more devices (tensor or
-    expert parallelism), or more devices than ``processes``.  Leaves whole
-    on every device and leaves sharded over ``data`` (ZeRO-3) pass; return
-    the plan."""
+    not run (:data:`SHARDED_WEIGHTS`): more devices than ``processes``; a
+    leaf sharded over ``model`` in a family other than :data:`TP_FAMILIES`,
+    or on a logical axis other than :data:`TP_AXES`; query heads the
+    ``model`` axis does not divide.  Leaves whole on every device, sharded
+    over ``data`` (ZeRO-3) or over ``model`` (tensor and expert
+    parallelism of the dense and MoE families) pass; return the plan."""
     if processes is not None and plan.n_devices > processes:
         raise NotImplementedError(
             f"the plan spans {plan.n_devices} devices over {processes} process(es): a "
             f"process drives one device; several devices a process is {SHARDED_WEIGHTS}")
-    trees = [("params", plan.params), ("opt.mu", plan.opt.mu), ("opt.nu", plan.opt.nu)]
-    for name, tree in trees:
-        for path, lay in iter_layouts(tree):
-            for (axis, size), p in zip(lay.mesh_shape, lay.placements):
-                if axis != "data" and size > 1 and p.is_shard():
-                    raise NotImplementedError(
-                        f"the plan shards {name} leaf {path!r} over {axis!r} on {size} devices "
-                        f"(spec {lay.spec} on mesh {dict(lay.mesh_shape)}): {SHARDED_WEIGHTS}")
+    for name, path, lay in _model_leaves(plan):
+        where = (f"the plan shards {name} leaf {path!r} over 'model' on "
+                 f"{dict(lay.mesh_shape)['model']} devices (spec {lay.spec} on mesh "
+                 f"{dict(lay.mesh_shape)})")
+        if plan.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"{where}, but the {plan.family} family runs no tensor parallelism "
+                f"(ported: {TP_FAMILIES}): {SHARDED_WEIGHTS}")
+        if plan.axes is not None:
+            axis = _axes_at(plan.axes, path)[lay.model_dim]
+            if axis not in TP_AXES:
+                raise NotImplementedError(
+                    f"{where} at its {axis!r} axis; a tensor-parallel forward reads model "
+                    f"shards of {TP_AXES} only: {SHARDED_WEIGHTS}")
+    if mesh_axis_sizes(plan.mesh).get("model", 1) > 1 and plan.axes is not None:
+        for path, lay in iter_layouts(plan.params):
+            axes = _axes_at(plan.axes, path)
+            if "heads" in axes and lay.model_dim is None:
+                raise NotImplementedError(
+                    f"the query heads of {path!r} (shape spec {lay.spec}) do not divide the "
+                    f"model axis of {mesh_axis_sizes(plan.mesh)['model']}; the reference pads "
+                    f"them through GSPMD, the port does not yet: {SHARDED_WEIGHTS}")
     return plan
 
 
@@ -350,14 +454,14 @@ def check_plan(plan: ShardingPlan, processes: Optional[int] = None) -> ShardingP
 # The rule table in force
 # ---------------------------------------------------------------------------
 
-# (the reference's ``constrain`` switch and ``with_logical_constraint``, the
-# table's reader inside the model, come with tensor parallelism)
 _CURRENT_RULES: Dict[str, MeshAxes] = make_rules()
+_CONSTRAIN = True
 
 
-def set_rules(rules: Dict[str, MeshAxes]) -> None:
-    global _CURRENT_RULES
+def set_rules(rules: Dict[str, MeshAxes], constrain: bool = True) -> None:
+    global _CURRENT_RULES, _CONSTRAIN
     _CURRENT_RULES = rules
+    _CONSTRAIN = constrain
 
 
 def get_rules() -> Dict[str, MeshAxes]:
@@ -365,12 +469,118 @@ def get_rules() -> Dict[str, MeshAxes]:
 
 
 @contextlib.contextmanager
-def use_rules(rules: Dict[str, MeshAxes]):
-    """Temporarily install a rule table (and restore the previous one)."""
-    global _CURRENT_RULES
-    prev = _CURRENT_RULES
-    _CURRENT_RULES = rules
+def use_rules(rules: Dict[str, MeshAxes], constrain: bool = True):
+    """Temporarily install a rule table and the constrain switch (and
+    restore the previous ones): the step runs the model under its plan's
+    table, so :func:`with_logical_constraint` resolves against the table
+    that laid out the weights."""
+    global _CURRENT_RULES, _CONSTRAIN
+    prev = _CURRENT_RULES, _CONSTRAIN
+    _CURRENT_RULES, _CONSTRAIN = rules, constrain
     try:
         yield
     finally:
-        _CURRENT_RULES = prev
+        _CURRENT_RULES, _CONSTRAIN = prev
+
+
+# ---------------------------------------------------------------------------
+# The mesh in scope, and the activations' layout contract
+# ---------------------------------------------------------------------------
+
+_MESH: Any = None
+# logical activation axis -> its whole size, for the forward in progress
+_SIZES: Dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Run the block on ``mesh`` (a ``DeviceMesh`` over the process group's
+    ranks, one device a rank): the models shard their products over its
+    ``model`` axis (the reference's ``set_mesh``)."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def get_mesh():
+    """The mesh in scope, or None (the reference's ``get_abstract_mesh``)."""
+    return _MESH
+
+
+@contextlib.contextmanager
+def logical_sizes(sizes: Dict[str, int]):
+    """The whole sizes of logical activation axes (``act_heads``, ...)
+    that :func:`with_logical_constraint` holds a rank's pieces to."""
+    global _SIZES
+    prev, _SIZES = _SIZES, {**_SIZES, **sizes}
+    try:
+        yield
+    finally:
+        _SIZES = prev
+
+
+_WARNED_CONSTRAINTS: set = set()
+
+
+def reset_constraint_warnings() -> None:
+    """Clear the warn-once cache of :func:`with_logical_constraint` (it is
+    process-global: a run warns once a (spec, mesh), ever; a test that
+    asserts the warning clears it first)."""
+    _WARNED_CONSTRAINTS.clear()
+
+
+def _warn_constraint_skipped(axes, clean, mesh, why: str) -> None:
+    sizes = mesh_axis_sizes(mesh)
+    key = (tuple(axes), tuple(tuple(p) if isinstance(p, tuple) else p for p in clean),
+           tuple(sizes), tuple(sizes.values()))
+    if key in _WARNED_CONSTRAINTS:
+        return
+    _WARNED_CONSTRAINTS.add(key)
+    warnings.warn(f"sharding constraint for logical axes {tuple(axes)} (spec {tuple(clean)}) "
+                  f"skipped on mesh {sizes}: {why}", RuntimeWarning, stacklevel=3)
+
+
+def with_logical_constraint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """The layout contract of an activation, by logical axis names (the
+    reference's ``with_sharding_constraint`` by names).
+
+    A no-op outside a mesh scope or under ``constrain=False``.  Otherwise
+    the names resolve against the table in force, dropping mesh axes the
+    mesh lacks; a dim named on mesh axes of ``n`` devices whose whole size
+    is known (:func:`logical_sizes`) must hold ``whole / n`` of it on the
+    rank.  The port's collectives move the data
+    (:mod:`repro_torch.distributed.tensor`); this moves nothing and returns
+    ``x``.  The expected mismatches, more names than dims, or a whole size
+    that ``n`` does not divide (the rank then holds it whole), warn once a
+    (names, spec, mesh); a rank holding another piece than the contract's
+    raises ``ValueError``."""
+    mesh = get_mesh()
+    if not _CONSTRAIN or mesh is None:
+        return x
+    sizes = mesh_axis_sizes(mesh)
+    clean = []
+    for part in spec_for(tuple(axes), _CURRENT_RULES):
+        kept = tuple(a for a in ((part,) if isinstance(part, str) else tuple(part or ()))
+                     if a in sizes)
+        clean.append(kept[0] if len(kept) == 1 else (kept or None))
+    if len(clean) > x.dim():
+        _warn_constraint_skipped(axes, clean, mesh,
+                                 f"{len(clean)} sharded parts on a {x.dim()}-D tensor")
+        return x
+    for i, part in enumerate(clean):
+        whole = _SIZES.get(axes[i])
+        n = math.prod(sizes[a] for a in ((part,) if isinstance(part, str) else part or ()))
+        if whole is None or n == 1:
+            continue
+        want = whole // n if whole % n == 0 else whole
+        if whole % n:
+            _warn_constraint_skipped(axes, clean, mesh,
+                                     f"dim {i} ({axes[i]}, {whole}) is not divisible by {n}")
+        if x.shape[i] != want:
+            raise ValueError(f"dim {i} of a {tuple(x.shape)} activation named {axes[i]!r} "
+                             f"holds {x.shape[i]} of {whole} on a rank of a {n}-way split; "
+                             f"the layout contract says {want}")
+    return x

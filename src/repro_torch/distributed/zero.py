@@ -20,9 +20,12 @@ are functional trees, so it writes them out:
     replicated step runs as before; the whole tensors live only as long
     as the layer's autograd needs them.
 
-The collectives take card tensors over NCCL and over ``gloo`` alike (two
-ranks that share a card run ``gloo``); a 2-byte float is gathered as its
-bytes.
+On a (data, model) mesh the group is the rank's ``data`` subgroup
+(``mesh.get_group("data")``: the ranks of its ``model`` coordinate), and a
+leaf sharded over both axes is gathered over ``data`` only, to the rank's
+``model`` piece (:mod:`repro_torch.distributed.tensor`).  The collectives
+take card tensors over NCCL and over ``gloo`` alike (two ranks that share a
+card run ``gloo``); a 2-byte float is gathered as its bytes.
 Every collective is noted in :mod:`repro_torch.roofline.collectives`' log.
 """
 from __future__ import annotations

@@ -58,6 +58,7 @@ LAUNCHES: Dict[str, int] = {
 # public ops made only of counted ops: no kernel, so no counter of their own
 COMPOSITE_OPS: Dict[str, Tuple[str, ...]] = {
     "fused_moe_mlp": ("fused_moe_gemm", "fused_moe_combine"),
+    "fused_moe_local": ("fused_moe_gemm", "fused_moe_combine"),
 }
 
 # no kernel: an elementwise product the reference also leaves to the compiler
@@ -376,6 +377,43 @@ def fused_moe_mlp(
     -> (out (T, d), aux loss f32); the backward recomputes through
     :func:`~repro_torch.kernels.ref.fused_moe_mlp_ref`."""
     return _FusedMoE.apply(x, router, wg, wu, wo, k, capacity)
+
+
+class _LocalMoE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, router, wg, wu, wo, k, capacity, first_expert):
+        ctx.save_for_backward(x, router, wg, wu, wo)
+        ctx.k, ctx.capacity, ctx.first = k, capacity, first_expert
+        slot_tok, slot_gate = FM.moe_routing(x, router, k, capacity)[:2]
+        mine = slice(first_expert * capacity, (first_expert + wg.shape[0]) * capacity)
+        y = fused_moe_gemm(x, wg, wu, wo, slot_tok[mine], slot_gate[mine])
+        return fused_moe_combine(y, slot_tok[mine], x.shape[0])
+
+    @staticmethod
+    def backward(ctx, g_out):
+        with torch.enable_grad():
+            args = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out = R.fused_moe_local_ref(*args, ctx.k, ctx.capacity, ctx.first)
+            grads = torch.autograd.grad(out, args, g_out, allow_unused=True)
+        return (*grads, None, None, None)
+
+
+def fused_moe_local(
+    x: torch.Tensor,               # (T, d) tokens
+    router: torch.Tensor,          # (d, E) the whole router
+    wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor,   # experts first_expert..
+    *,
+    k: int,
+    capacity: int,
+    first_expert: int,
+) -> torch.Tensor:
+    """An expert-parallel rank's part of the top-k MoE layer: routing over
+    all E experts, then the expert GEMM and the combine kernels on the slot
+    tables of the rank's experts ``first_expert ..`` alone.  -> the partial
+    output (T, d) (its tokens' copies sent to other ranks' experts add
+    nothing); the backward recomputes through
+    :func:`~repro_torch.kernels.ref.fused_moe_local_ref`."""
+    return _LocalMoE.apply(x, router, wg, wu, wo, k, capacity, first_expert)
 
 
 # ---------------------------------------------------------------------------

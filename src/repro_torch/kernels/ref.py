@@ -270,20 +270,27 @@ def route_top_k(x, router, k, capacity):
 def fused_moe_mlp_ref(
     x: torch.Tensor,               # (T, d) tokens
     router: torch.Tensor,          # (d, E)
-    wg: torch.Tensor,              # (E, d, f)
-    wu: torch.Tensor,              # (E, d, f)
-    wo: torch.Tensor,              # (E, f, d)
+    wg: torch.Tensor,              # (E_here, d, f)
+    wu: torch.Tensor,              # (E_here, d, f)
+    wo: torch.Tensor,              # (E_here, f, d)
     k: int,
     capacity: int,
+    first_expert: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-layout top-k MoE with SwiGLU experts, the oracle of
-    ``repro/kernels/ref.py:141-190``: routing, a (E*C, d) dispatch buffer,
-    per-expert SwiGLU in the operands' dtype, and a scatter-add combine of
-    the gated slot rows.  -> (out (T, d), aux f32)."""
+    ``repro/kernels/ref.py:141-190``: routing over the router's E experts,
+    a (E_here*C, d) dispatch buffer, per-expert SwiGLU in the operands'
+    dtype, and a scatter-add combine of the gated slot rows.  The weights
+    hold experts ``first_expert ..`` (all E by default; an expert-parallel
+    rank's own, whose slots are those of the whole routing): copies routed
+    elsewhere add nothing.  -> (out (T, d), aux f32)."""
     T, d = x.shape
-    E = router.shape[1]
+    E = wg.shape[0]
     C = capacity
     st, sg, slot, keep, aux = route_top_k(x, router, k, C)
+    lo = first_expert * C
+    keep = keep & (slot >= lo) & (slot < lo + E * C)
+    slot = torch.where(keep, slot - lo, E * C)
     gathered = x[st] * keep[:, None].to(x.dtype)
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_copy(0, slot, gathered)[: E * C].reshape(E, C, d)
@@ -295,6 +302,13 @@ def fused_moe_mlp_ref(
     out = torch.zeros((T, d), dtype=y.dtype, device=x.device).index_add(
         0, st, y[safe_slot] * gate_w[:, None])
     return out, aux
+
+
+def fused_moe_local_ref(x, router, wg, wu, wo, k: int, capacity: int,
+                        first_expert: int) -> torch.Tensor:
+    """The output part of experts ``first_expert ..`` (as many as ``wg``
+    holds) of :func:`fused_moe_mlp_ref`: an expert-parallel rank's."""
+    return fused_moe_mlp_ref(x, router, wg, wu, wo, k, capacity, first_expert)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,11 @@ bound whose plan shards nothing over ``model``.
 
 Either way every process applies the identical update: numerically the
 single-program step (dense models exactly; see
-:func:`repro_torch.train.steps.make_partial_grad_step`).  Weights sharded
-over ``model`` and several devices a process are the second half of
-ROADMAP item 19.
+:func:`repro_torch.train.steps.make_partial_grad_step`).  The cluster's
+mesh keeps ``model = 1``, as the reference's: tensor and expert
+parallelism run on ``launch.mesh.make_host_mesh`` through
+``train.steps.make_spmd_train_step(plan=)``; several devices a process are
+the rest of the second half of ROADMAP item 19.
 
 CLI (the worker entry the coordinator spawns, also usable by hand):
 

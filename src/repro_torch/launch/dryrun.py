@@ -23,7 +23,8 @@ calibration: the 1-cycle and 2-cycle variants are traced at full width and
 FLOPs, bytes and memory extrapolated to the full depth (``calibration`` in
 the record); every other cell is traced at its full depth.  The production
 meshes, ``rules_overrides`` and ``zero1`` need the model axis and several
-devices a card's process does not have, the second half of ROADMAP item 19.
+devices a card's process does not have, the rest of the second half of
+ROADMAP item 19.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun                  # all cells
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k

@@ -4,7 +4,9 @@ cluster (port of :mod:`repro.launch.mesh`).
 The port drives one torch device a process.  A mesh of several devices is
 a ``torch.distributed`` ``DeviceMesh`` over the ranks of the default
 process group, one device a rank, its dims named ``("data", "model")``:
-:func:`make_host_mesh` and :func:`make_cluster_mesh`.  Without a process
+:func:`make_host_mesh` (any ``data x model``: the tensor- and
+expert-parallel step's, ``train.steps.make_spmd_train_step(plan=)``) and
+:func:`make_cluster_mesh` (``model = 1``, as the reference's cluster).  Without a process
 group, a plan resolves against a
 :class:`~repro_torch.distributed.sharding.ProcessMesh` (its shape only):
 :func:`make_single_mesh` for one process, :meth:`ClusterContext.global_mesh`
@@ -12,7 +14,7 @@ for a ``hostsync`` cluster.  A rank mesh's device type is its ranks'
 devices' (a context's device), never read back from the backend: ranks
 that share a card run ``gloo`` over card tensors.  The reference's
 production meshes (``make_production_mesh``, 512 devices) and several
-devices a process are the second half of ROADMAP item 19.
+devices a process are the rest of the second half of ROADMAP item 19.
 
 The card's peaks, which the roofline (:mod:`repro_torch.roofline`) and
 ``chip_smoke.py``'s kernel bounds read, are the counterparts of the
@@ -31,7 +33,7 @@ import torch
 from repro_torch.device import (HBM_BW, HBM_BYTES, NVLINK_BW, PEAK_FLOPS,  # noqa: F401
                                 PEAK_FLOPS_BF16, PEAK_FLOPS_F32)
 from repro_torch.distributed.sharding import (SHARDED_WEIGHTS, ProcessMesh, check_plan,
-                                              is_zero3)
+                                              is_zero3, mesh_axis_sizes)
 
 AXES = ("data", "model")
 
@@ -206,11 +208,12 @@ class ClusterContext:
         ``torch.cuda.device_count()``), and a ``plan`` -- the one
         ``n_processes`` ranks resolve
         (:meth:`~repro_torch.api.session.Session.spmd_plan`) -- that
-        :func:`~repro_torch.distributed.sharding.check_plan` passes: leaves
-        whole or sharded over ``data`` (ZeRO-3), none over ``model``
-        (:data:`SHARDED_WEIGHTS`).  Otherwise ``hostsync``: CPU workers,
-        workers sharing a card, or a plan that shards over ``model`` or is
-        not given.  Prints the mode it chose and why."""
+        :func:`~repro_torch.distributed.sharding.check_plan` passes, on a
+        ``model`` axis of one (the cluster's mesh keeps ``model = 1``, as
+        the reference's): leaves whole or sharded over ``data`` (ZeRO-3).
+        Otherwise ``hostsync``: CPU workers, workers sharing a card, or a
+        plan resolved over ``model``, refused, or not given.  Prints the
+        mode it chose and why."""
         dev = torch.device(device if device is not None else "cpu")
         mode = "hostsync"
         if dev.type != "cuda":
@@ -224,6 +227,11 @@ class ClusterContext:
                 why = f"worker {process_id} is on {dev}, not a card of its own"
             elif plan is None:
                 why = "no plan to check"
+            elif mesh_axis_sizes(plan.mesh).get("model", 1) > 1:
+                why = (f"the plan is resolved on a model axis of "
+                       f"{mesh_axis_sizes(plan.mesh)['model']}; the cluster's mesh keeps "
+                       f"model = 1, as the reference's (tensor parallelism runs on "
+                       f"make_host_mesh)")
             else:
                 try:
                     check_plan(plan, n_processes)

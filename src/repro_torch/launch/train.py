@@ -34,9 +34,10 @@ sharded over ``model``) or ``hostsync`` (CPU workers, workers sharing a
 card), unless ``--cluster-mode`` names one.  In ``spmd`` a published
 config's ``fsdp=True`` shards its weights over ``data``: ZeRO-3, each worker
 holding its shards of the parameters and AdamW moments.
-``--cluster-local-devices`` above 1 (several devices a process) and a plan
-that shards weights over ``model`` (tensor or expert parallelism) are
-refused: the second half of ROADMAP item 19.  ``--measured-tune`` runs Algorithm 1
+``--cluster-local-devices`` above 1 (several devices a process) is
+refused, the rest of the second half of ROADMAP item 19; the cluster's mesh
+keeps ``model = 1``, as the reference's (tensor and expert parallelism run
+on ``launch.mesh.make_host_mesh`` through ``make_spmd_train_step(plan=)``).  ``--measured-tune`` runs Algorithm 1
 over real step times (:class:`MeasuredTune`) instead of the fleet's
 analytic model.
 
@@ -198,7 +199,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cluster-mode", choices=("spmd", "hostsync"), default=None,
                     help="the workers' execution mode (default: each worker's "
                          "ClusterContext.detect); spmd trains a config with fsdp=True as "
-                         f"ZeRO-3 over the data axis (a model axis is {SHARDED_WEIGHTS})")
+                         "ZeRO-3 over the data axis (the cluster's mesh keeps model = 1)")
     return ap
 
 

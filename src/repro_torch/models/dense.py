@@ -6,6 +6,13 @@ and deepseek-coder-33b, and is the backbone of qwen2-vl
 (:mod:`repro_torch.models.vlm`: ``inputs_embeds``, ``mrope_positions``,
 ``rope_offset``).
 
+On a mesh whose ``model`` axis has two or more devices
+(:func:`repro_torch.distributed.sharding.use_mesh`) the training forward is
+tensor-parallel: each rank holds its ``model`` pieces of the weights and
+runs its heads, FFN columns and vocabulary rows
+(:class:`~repro_torch.distributed.tensor.TensorPlan`); its logits are its
+vocabulary columns, which ``train.steps.cross_entropy`` reads as such.
+
 Entry points:
   * ``init_params(cfg, seed=..., device=...)``        -> (params, logical_axes)
   * ``forward(params, cfg, tokens)``                   -> logits (train)
@@ -15,13 +22,14 @@ Entry points:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import zero
+from repro_torch.distributed import sharding, tensor, zero
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamBuilder, build, stacked
@@ -78,25 +86,40 @@ def embedding(params: PyTree) -> Dict[str, torch.Tensor]:
     return zero.gather(params["embedding"], "embedding")
 
 
-def _final(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def tensor_plan(cfg: ModelConfig):
+    """``(TensorPlan or None, the context that holds the activations to
+    their layout)`` of a training forward on the mesh in scope.  Batch rows
+    split over ``model`` too (the reference's DP-attention layout) run only
+    the MoE layer's over-model path; the attention over them is not ported."""
+    tp = tensor.plan_for(cfg)
+    if tp is None:
+        return None, contextlib.nullcontext()
+    if tp.axis.batch_over_model:
+        raise NotImplementedError(
+            f"the batch rule splits rows over 'model': the MoE layer runs that layout "
+            f"(models/moe.py), the attention over it does not: {sharding.SHARDED_WEIGHTS}")
+    return tp, sharding.logical_sizes(tensor.logical_sizes_of(cfg))
+
+
+def _final(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
     x = L.rms_norm(params["ln_f"], x)
-    y = L.logits(head(params, cfg), x)
+    y = L.logits(head(params, cfg), x, tp)
     if cfg.logit_softcap:
         y = torch.tanh(y / cfg.logit_softcap) * cfg.logit_softcap
     return y
 
 
 def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                 mrope_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mrope_positions: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     h = L.rms_norm(lp["ln1"], x)
     h = L.attention_train(
         lp["attn"], h, positions=positions, causal=True, window=cfg.window,
         rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections or None,
-        mrope_positions=mrope_positions, precision=cfg.train_precision,
+        mrope_positions=mrope_positions, precision=cfg.train_precision, tp=tp,
     )
     x = x + h
     h = L.rms_norm(lp["ln2"], x)
-    return x + L.mlp_apply(lp["mlp"], h, cfg.mlp)
+    return x + L.mlp_apply(lp["mlp"], h, cfg.mlp, tp)
 
 
 def _scan_blocks(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
@@ -117,7 +140,9 @@ def _run_layer(cfg: ModelConfig, body: Callable[[PyTree, torch.Tensor], Any],
     without autograd (the encoder of a serving prefill) it just runs.  Under
     ZeRO-3 the layer's ``data``-sharded weights (``lp`` is a layer of
     ``params["blocks"]``) are gathered inside the recomputed body, so the
-    backward gathers them again and no layer's whole weights outlive it."""
+    backward gathers them again and no layer's whole weights outlive it.
+    A tensor-parallel body's collectives (its copy-in and reduce-out) sit
+    inside it too, so the recompute repeats them."""
     def run(shards, h):
         return body(zero.gather(shards, "blocks", stacked=True), h)
 
@@ -127,10 +152,10 @@ def _run_layer(cfg: ModelConfig, body: Callable[[PyTree, torch.Tensor], Any],
 
 
 def _inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            inputs_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+            inputs_embeds: Optional[torch.Tensor], tp=None) -> torch.Tensor:
     if inputs_embeds is not None:
         return inputs_embeds.to(cfg.dtype)
-    return L.embed(embedding(params), tokens, cfg.dtype)
+    return L.embed(embedding(params), tokens, cfg.dtype, tp)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -138,12 +163,16 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             mrope_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Training forward. tokens: (B, S) int -> logits (B, S, V);
     ``inputs_embeds`` (B, S, d) replaces the token embedding (the VLM's
-    [patches | text] sequence)."""
-    x = _inputs(params, cfg, tokens, inputs_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x = _scan_blocks(params, x, cfg,
-                     lambda lp, h: _block_train(lp, h, cfg, positions, mrope_positions))
-    return _final(params, x, cfg)
+    [patches | text] sequence).  Tensor-parallel on a mesh with a ``model``
+    axis: then the logits are this rank's vocabulary columns where the axis
+    divides the vocabulary."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = _inputs(params, cfg, tokens, inputs_embeds, tp)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = _scan_blocks(params, x, cfg,
+                         lambda lp, h: _block_train(lp, h, cfg, positions, mrope_positions, tp))
+        return _final(params, x, cfg, tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,

@@ -6,10 +6,18 @@ cross-attention, the SwiGLU, GeGLU, GELU and squared-ReLU MLPs, linear,
 embedding and logits.
 
 Plain functions on tensors over the nested-dict parameter tree of
-:mod:`repro_torch.models.param`, in the JAX layouts.  The JAX package's
-``with_logical_constraint`` annotations have no counterpart: this slice runs
-on one device.  Attention goes through :mod:`repro_torch.kernels.ops`, so it
-runs the CUDA kernels on the card and their plain versions on the CPU.
+:mod:`repro_torch.models.param`, in the JAX layouts.  Attention goes
+through :mod:`repro_torch.kernels.ops`, so it runs the CUDA kernels on the
+card and their plain versions on the CPU.
+
+Training's attention, MLPs, embedding and logits take a
+:class:`~repro_torch.distributed.tensor.TensorPlan` (``tp``; None on one
+device): under it a rank holds its ``model`` pieces of the weights and
+computes its query heads (reading the KV heads of those heads), FFN
+columns or vocabulary rows, with the collectives of
+:mod:`repro_torch.distributed.tensor` around them.  The reference's
+``with_logical_constraint`` points are kept (``repro/models/layers.py``):
+on a mesh they hold each activation's piece to its layout.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor
+from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as KR
 from repro_torch.models.param import (
@@ -142,8 +152,39 @@ def qkv_project(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, t
     return q_project(p, x), k, v
 
 
-def out_project(p: Dict, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+def out_project(p: Dict, o: torch.Tensor, tp=None) -> torch.Tensor:
+    """``o`` through ``wo``; under ``tp`` the rank's heads' partial sums,
+    summed over the ``model`` group."""
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    if tp is not None and tp.heads:
+        y = tensor.reduce_out(y, tp.axis)
+    return wlc(y, "batch", "seq", "act_embed")
+
+
+def _tp_qkv(p: Dict, x: torch.Tensor, tp) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v of a tensor-parallel rank: its query heads; its KV heads
+    where the axis divides them, else every KV head computed whole (its
+    gradient summed over the group, as the rank's heads read only theirs)
+    and the ones its query heads read picked out."""
+    xq = tensor.copy_in(x, tp.axis)
+    q = wlc(q_project(p, xq), "batch", "seq", "act_heads", None)
+    k, v = cross_kv(p, xq if tp.kv_heads else x)
+    k = wlc(k, "batch", "seq", "act_kv_heads", None)
+    v = wlc(v, "batch", "seq", "act_kv_heads", None)
+    if tp.kv_heads:
+        return q, k, v
+    k, v = tensor.copy_in(k, tp.axis), tensor.copy_in(v, tp.axis)
+    h_loc, group = q.shape[2], tp.n_heads // tp.n_kv_heads
+    first = tp.axis.index * h_loc
+    if h_loc % group == 0:             # whole groups: their KV heads, in order
+        sel = slice(first // group, first // group + h_loc // group)
+        return q, k[:, :, sel], v[:, :, sel]
+    if group % h_loc == 0:             # part of one group: its one KV head
+        sel = slice(first // group, first // group + 1)
+        return q, k[:, :, sel], v[:, :, sel]
+    idx = torch.div(torch.arange(first, first + h_loc, device=k.device), group,
+                    rounding_mode="floor")
+    return q, k.index_select(2, idx), v.index_select(2, idx)
 
 
 def attention_train(
@@ -158,6 +199,7 @@ def attention_train(
     mrope_sections: Optional[Tuple[int, ...]] = None,
     mrope_positions: Optional[torch.Tensor] = None,
     precision: str = "f32",
+    tp=None,
 ) -> torch.Tensor:
     """Full-sequence attention of training (``layers.py:365-411``).
 
@@ -166,14 +208,15 @@ def attention_train(
     int8-K/V op, whose backward saves int8 residuals.  Positions rotate q and
     k by M-RoPE when ``mrope_sections`` is given, else by RoPE unless
     ``use_rope`` is False (whisper's learned and sinusoidal positions).
+    Under ``tp`` the kernel runs at the rank's heads (any group size).
     """
-    q, k, v = qkv_project(p, x)
+    q, k, v = qkv_project(p, x) if tp is None else _tp_qkv(p, x, tp)
     q, k = _rotate(q, k, positions, rope_theta, use_rope, mrope_sections, mrope_positions)
     if precision == "bf16":
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     attend = kops.flash_attention_q8 if precision == "int8-fused" else kops.flash_attention
     o = attend(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window)
-    return out_project(p, o.to(x.dtype))
+    return out_project(p, o.to(x.dtype), tp)
 
 
 def attention_prefill(
@@ -287,7 +330,7 @@ def cross_attention(p: Dict, x: torch.Tensor, ctx_k: torch.Tensor,
     """Decoder cross-attention against precomputed encoder K/V, no RoPE, no
     mask (``layers.py:569-585``): every query row sees every frame, through
     the flash op with ``causal=False`` (Sq decoder rows against Skv frames)."""
-    q = q_project(p, x)
+    q = wlc(q_project(p, x), "batch", "seq", "act_heads", None)
     o = kops.flash_attention(q.contiguous(), ctx_k.contiguous(), ctx_v.contiguous(),
                              causal=False)
     return out_project(p, o)
@@ -324,23 +367,37 @@ def init_swiglu(b: ParamBuilder, name: str, d_model: int, d_ff: int):
     s.param("wo", (d_ff, d_model), ("mlp", "embed"), init=scaled_init(0))
 
 
-def swiglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def _column_in(x: torch.Tensor, tp) -> torch.Tensor:
+    """An MLP's input: copied in where the rank holds FFN columns."""
+    return tensor.copy_in(x, tp.axis) if tp is not None and tp.mlp else x
+
+
+def _row_out(y: torch.Tensor, tp) -> torch.Tensor:
+    """An MLP's output: its columns' partial sums summed over the group."""
+    return tensor.reduce_out(y, tp.axis) if tp is not None and tp.mlp else y
+
+
+def swiglu(p: Dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    x = _column_in(x, tp)
     g = torch.matmul(x, p["wi_gate"].to(x.dtype))
     u = torch.matmul(x, p["wi_up"].to(x.dtype))
-    return torch.matmul(F.silu(g) * u, p["wo"].to(x.dtype))
+    h = wlc(F.silu(g) * u, "batch", "seq", "act_mlp")
+    return wlc(_row_out(torch.matmul(h, p["wo"].to(x.dtype)), tp), "batch", "seq", "act_embed")
 
 
 def init_geglu(b: ParamBuilder, name: str, d_model: int, d_ff: int):
     init_swiglu(b, name, d_model, d_ff)
 
 
-def geglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def geglu(p: Dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """GELU-gated MLP; the GELU is ``jax.nn.gelu``'s default, the tanh
     approximation."""
+    x = _column_in(x, tp)
     g = torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(x.dtype))
-    h = F.gelu(g, approximate="tanh") * u
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    h = wlc(F.gelu(g, approximate="tanh") * u, "batch", "seq", "act_mlp")
+    y = torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    return wlc(_row_out(y, tp), "batch", "seq", "act_embed")
 
 
 def init_gelu_mlp(b: ParamBuilder, name: str, d_model: int, d_ff: int, bias: bool = True):
@@ -352,25 +409,28 @@ def init_gelu_mlp(b: ParamBuilder, name: str, d_model: int, d_ff: int, bias: boo
         s.param("bo", (d_model,), ("embed",), init=zeros_init())
 
 
-def _two_layer(p: Dict, x: torch.Tensor, act) -> torch.Tensor:
-    """``act(x wi + bi) wo + bo``, the biases where the tree holds them."""
+def _two_layer(p: Dict, x: torch.Tensor, act, tp=None) -> torch.Tensor:
+    """``act(x wi + bi) wo + bo``, the biases where the tree holds them
+    (``bo``, whole on every rank, after the partial sums are summed)."""
+    x = _column_in(x, tp)
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
     if "bi" in p:
         h = h + p["bi"].to(x.dtype)
-    y = torch.einsum("bsf,fd->bsd", act(h), p["wo"].to(x.dtype))
+    h = wlc(h, "batch", "seq", "act_mlp")
+    y = _row_out(torch.einsum("bsf,fd->bsd", act(h), p["wo"].to(x.dtype)), tp)
     if "bo" in p:
         y = y + p["bo"].to(x.dtype)
-    return y
+    return wlc(y, "batch", "seq", "act_embed")
 
 
-def gelu_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: Dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Whisper's MLP: GELU in ``jax.nn.gelu``'s default, tanh form."""
-    return _two_layer(p, x, lambda h: F.gelu(h, approximate="tanh"))
+    return _two_layer(p, x, lambda h: F.gelu(h, approximate="tanh"), tp)
 
 
-def relu2_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def relu2_mlp(p: Dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Nemotron's squared-ReLU MLP (no biases)."""
-    return _two_layer(p, x, lambda h: torch.square(F.relu(h)))
+    return _two_layer(p, x, lambda h: torch.square(F.relu(h)), tp)
 
 
 def init_mlp(b: ParamBuilder, name: str, kind: str, d_model: int, d_ff: int):
@@ -386,8 +446,8 @@ def init_mlp(b: ParamBuilder, name: str, kind: str, d_model: int, d_ff: int):
 _MLPS = {"swiglu": swiglu, "geglu": geglu, "gelu": gelu_mlp, "relu2": relu2_mlp}
 
 
-def mlp_apply(p: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    return _MLPS[kind](p, x)
+def mlp_apply(p: Dict, x: torch.Tensor, kind: str, tp=None) -> torch.Tensor:
+    return _MLPS[kind](p, x, tp)
 
 
 def init_linear(b: ParamBuilder, name: str, d_in: int, d_out: int,
@@ -415,9 +475,20 @@ def init_embedding(b: ParamBuilder, name: str, vocab: int, d_model: int):
     b.scope(name).param("table", (vocab, d_model), ("vocab", "embed"), init=normal_init(1.0))
 
 
-def embed(p: Dict, tokens: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return p["table"].to(dtype)[tokens]
+def embed(p: Dict, tokens: torch.Tensor, dtype: torch.dtype = torch.float32,
+          tp=None) -> torch.Tensor:
+    """Token rows; under ``tp`` over vocabulary shards
+    (:func:`repro_torch.distributed.tensor.embed`)."""
+    if tp is not None and tp.vocab:
+        x = tensor.embed(p["table"], tokens, dtype, tp.axis)
+    else:
+        x = p["table"].to(dtype)[tokens]
+    return wlc(x, "batch", "seq", "act_embed")
 
 
-def logits(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsd,vd->bsv", x, p["table"].to(x.dtype))
+def logits(p: Dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits; under ``tp`` the rank's vocabulary columns (B, S, V/m)."""
+    if tp is not None and tp.vocab:
+        x = tensor.copy_in(x, tp.axis)
+    y = torch.einsum("bsd,vd->bsv", x, p["table"].to(x.dtype))
+    return wlc(y, "batch", "seq", "act_vocab")

@@ -11,9 +11,10 @@ leaf after leaf in creation order.  They never reproduce ``jax.random``'s
 numbers: tests carry JAX weights across with :func:`repro_torch.interop.params_from_jax`.
 
 Under :func:`keeping`, each concrete leaf passes through a function of its
-key path as soon as it is drawn: a ZeRO-3 rank keeps its slice and frees
-the rest, one leaf at a time, so it never holds the whole tree and its
-slices are bit for bit those of the whole init.
+key path as soon as it is drawn: a ZeRO-3 or tensor-parallel rank keeps its
+piece (over ``data``, ``model`` or both) and frees the rest, one leaf at a
+time, so it never holds the whole tree and its pieces are bit for bit those
+of the whole init.
 """
 from __future__ import annotations
 

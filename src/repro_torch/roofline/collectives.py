@@ -70,3 +70,71 @@ def collective_bytes(ops: Iterable[Op]) -> Dict[str, int]:
     for kind, result, n in ops:
         out[kind] = out.get(kind, 0) + wire_bytes(kind, result, n)
     return out
+
+
+def tp_step_ops(cfg, rows: int, seq: int, model: int, *, data: int = 1, model_index: int = 0,
+                grad_bytes: Iterable[int] = ()) -> List[Op]:
+    """The collectives one rank issues in one training step of a dense or
+    MoE ``cfg`` on a ``(data, model)`` mesh, tensor- and expert-parallel
+    over ``model`` (:mod:`repro_torch.distributed.tensor`), with ``rows`` of
+    the batch on the rank at ``seq``, under the default rules (a dim is
+    split where the axis divides it): the closed form the step's
+    :func:`recording` log is held to.  A forward all-reduce of an
+    activation (``A``: rows x seq x d_model, float32) runs once a forward
+    execution of its layer, twice under ``cfg.remat`` (the recompute),
+    except a layer's last one, the split MLP's or the MoE layer's combine:
+    it saves nothing for the backward, and the recompute (torch's
+    non-reentrant checkpoint) stops at the last tensor the backward reads.
+    A backward all-reduce runs once:
+
+      * a layer's attention: ``A`` forward (the heads' partial sums), ``A``
+        backward (the copy-in of its input), and where the axis does not
+        divide the KV heads, K and V backward (their gradients summed);
+      * a dense layer's split MLP: ``A`` forward, ``A`` backward;
+      * an MoE layer whose experts the axis divides: the router all-gathered
+        forward and reduce-scattered backward (float32), over ``data`` of
+        two or more the routing statistics' mean (2 x E float32) forward
+        and, at ``model_index`` 0 alone (the rank that sends the aux loss's
+        gradient), backward, then the partial outputs ``A`` forward and the
+        input's copy-in ``A`` backward;
+      * a split vocabulary: the embedding's ``A`` forward, the head's
+        copy-in ``A`` backward, and the loss's max, sum of exponentials and
+        target logit (rows x seq float32 each);
+      * over ``data`` of two or more: every gradient of ``grad_bytes`` (the
+        leaves replicated over ``data``) and the loss sums (3 float32);
+      * the gradient norm's partial sum of squares of the model-sharded
+        leaves over ``model`` (float32).
+
+    A plan that also shards over ``data`` (ZeRO-3) adds its gathers,
+    reduce-scatters and norm sums, which this count leaves out.
+    """
+    reps = 2 if cfg.remat else 1
+    act = rows * seq * cfg.d_model * 4
+    param = cfg.dtype.itemsize
+    ops: List[Op] = []
+
+    def ar(nbytes, n=model, times=1):
+        ops.extend([("all-reduce", nbytes, n)] * times)
+
+    for _ in range(cfg.n_layers):
+        ar(act, times=reps + 1)
+        if cfg.family == "moe" and cfg.n_experts % model == 0:
+            E = cfg.n_experts
+            ops.extend([("all-gather", cfg.d_model * E * param, model)] * reps)
+            ops.append(("reduce-scatter", cfg.d_model * (E // model) * 4, model))
+            if data > 1:
+                ar(2 * E * 4, data, times=reps + (model_index == 0))
+            ar(act, times=2)             # the layer's last: forward once
+        elif cfg.family != "moe" and cfg.d_ff % model == 0:
+            ar(act, times=2)
+        if cfg.n_kv_heads % model:
+            ar(rows * seq * cfg.n_kv_heads * cfg.resolved_head_dim() * 4, times=2)
+    if cfg.vocab % model == 0:
+        ar(act, times=2)
+        ar(rows * seq * 4, times=3)
+    if data > 1:
+        for nbytes in grad_bytes:
+            ar(nbytes, data)
+        ar(12, data)
+    ar(4)
+    return ops

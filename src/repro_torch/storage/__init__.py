@@ -24,7 +24,7 @@ Three interchangeable backends (select via ``StorageSpec`` /
     synthetic; models the paper's flash medium.
   * ``meshfeed``  — each process lands only its own dp-groups' rows on its
     one device (the cluster's data plane, ``spmd`` and ``hostsync``; several
-    devices a process is the second half of ROADMAP item 19).
+    devices a process is the rest of the second half of ROADMAP item 19).
 """
 from repro_torch.storage.device import BaseStorageDevice, StorageDevice
 from repro_torch.storage.flash import FlashDevice

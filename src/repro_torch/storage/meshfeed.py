@@ -18,7 +18,7 @@ and shard custody disagree), as the reference's does.
 accepted where it equals the cluster's world (its processes, one device
 each: the ``spmd`` mesh's data axis, replicated or ZeRO-3), and each rank
 lands only its own span.  Any other value would put several devices in a
-process, the second half of ROADMAP item 19, and raises
+process, the rest of the second half of ROADMAP item 19, and raises
 ``NotImplementedError``.
 
 Sampling custody is inherited from :class:`SyntheticDevice` -- mesh feeding

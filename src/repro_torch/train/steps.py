@@ -32,10 +32,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.hetero import masked_mean_loss
-from repro_torch.distributed import zero
+from repro_torch.distributed import tensor, zero
 from repro_torch.distributed.sharding import (
-    ShardingPlan, arg_shardings_for_tree, layout_for, make_rules, mesh_axis_sizes,
+    ShardingPlan, arg_shardings_for_tree, layout_for, make_rules, mesh_axis_sizes, use_mesh,
+    use_rules,
 )
+from repro_torch.models.param import keeping
 from repro_torch.roofline import collectives
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, OptState, tree_leaves, tree_map
@@ -50,8 +52,18 @@ BATCH_AXES: Dict[str, Tuple[Optional[str], ...]] = {
 }
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-token CE, numerically stable. logits (B,S,V) f32/bf16; labels (B,S)."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: Optional[int] = None) -> torch.Tensor:
+    """Per-token CE, numerically stable. logits (B,S,V) f32/bf16; labels (B,S).
+    Logits narrower than ``vocab`` are a tensor-parallel rank's vocabulary
+    columns: the loss is then the vocabulary-parallel one over the mesh in
+    scope (:func:`repro_torch.distributed.tensor.cross_entropy`)."""
+    if vocab is not None and logits.shape[-1] != vocab:
+        axis = tensor.model_axis()
+        if axis is None or logits.shape[-1] * axis.size != vocab:
+            raise ValueError(f"logits of {logits.shape[-1]} columns for a vocabulary of "
+                             f"{vocab} outside a model axis that splits it")
+        return tensor.cross_entropy(logits, labels, axis)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -74,7 +86,7 @@ def loss_fn(
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, -labels.shape[1]:]
-    ce = cross_entropy(logits, labels)
+    ce = cross_entropy(logits, labels, model.cfg.vocab)
     mask = batch["loss_mask"]
     loss = masked_mean_loss(ce, mask)
     total = loss + aux_weight * aux
@@ -221,7 +233,7 @@ def make_partial_grad_step(model: Model, *, aux_weight: float = 0.01) -> Callabl
         mask = batch["loss_mask"]
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:]
-        ce = cross_entropy(logits, labels)
+        ce = cross_entropy(logits, labels, model.cfg.vocab)
         num = torch.sum(ce * mask)
         den = torch.sum(mask)
         auxden = den * aux
@@ -399,10 +411,10 @@ def allreduce_tree(tree: PyTree, group=None) -> PyTree:
 
 
 def _zero3_reduce(grads: PyTree, lays: List[Any], group) -> PyTree:
-    """A ZeRO-3 rank's gradients after the step's reduction: the sharded
-    leaves' arrived summed from the gathers' backward; the replicated
-    leaves (the norms) are all-reduced here.  ``lays``: the layouts in the
-    reference's leaf order."""
+    """A rank's gradients after the step's reduction over its ``data``
+    group: the ``data``-sharded leaves' arrived summed from the gathers'
+    backward; the others (replicated over ``data``) are all-reduced here.
+    ``lays``: the layouts in the reference's leaf order."""
     import torch.distributed as dist
 
     size = dist.get_world_size(group)
@@ -428,6 +440,58 @@ def _zero3_grad_sq(lays: List[Any], group) -> Callable[[PyTree], torch.Tensor]:
     return grad_sq
 
 
+def _mesh_grad_sq(lays: List[Any], data_group, model_group) -> Callable[[PyTree], torch.Tensor]:
+    """The squared gradient norm on a (data, model) mesh: each leaf's sum of
+    squares all-reduced over the axes that shard it (``data`` first), so a
+    ``model``-sharded leaf's squares count once over ``model`` and a
+    replicated leaf's once."""
+    import torch.distributed as dist
+
+    d_size = 1 if data_group is None else dist.get_world_size(data_group)
+    m_size = dist.get_world_size(model_group)
+
+    def over(x: torch.Tensor, axes: Tuple[bool, bool]) -> torch.Tensor:
+        if axes[0] and d_size > 1:
+            x = zero.all_reduce(x, data_group, d_size)
+        if axes[1]:
+            x = zero.all_reduce(x, model_group, m_size)
+        return x
+
+    def grad_sq(grads: PyTree) -> torch.Tensor:
+        parts: Dict[Tuple[bool, bool], List[torch.Tensor]] = {}
+        for g, lay in zip(tree_leaves_sorted(grads), lays):
+            key = (lay.data_dim is not None, lay.model_dim is not None)
+            parts.setdefault(key, []).append(torch.sum(torch.square(g.float())))
+        return sum(over(torch.sum(torch.stack(xs)), key) for key, xs in sorted(parts.items()))
+
+    return grad_sq
+
+
+def mesh_rank(mesh) -> int:
+    """This rank's flat index on ``mesh`` (row-major over its dims), what
+    :meth:`~repro_torch.distributed.sharding.Layout.local` takes."""
+    coord = mesh.get_coordinate()
+    rank = 0
+    for c, size in zip(coord, mesh_axis_sizes(mesh).values()):
+        rank = rank * size + int(c)
+    return rank
+
+
+def init_rank_params(model: Model, plan: ShardingPlan, rank: int, *, seed: int,
+                     device) -> PyTree:
+    """The pieces the device at flat ``rank`` holds of the weights drawn
+    from ``seed``: each leaf drawn whole on ``device``, its piece kept and
+    the rest freed, one leaf at a time, so the pieces are bit for bit the
+    slices of the whole init on both mesh axes."""
+    def keep(path, leaf):
+        lay = zero.subtree(plan.params, path)
+        return leaf if lay.n_shards == 1 else lay.local(leaf, rank).clone()
+
+    with keeping(keep):
+        params, _ = model.init_params(seed=seed, device=device)
+    return params
+
+
 def make_spmd_train_step(
     model: Model,
     optimizer: Optimizer,
@@ -438,6 +502,7 @@ def make_spmd_train_step(
     aux_weight: float = 0.01,
     layouts: Optional[PyTree] = None,
     collective_log: Optional[List[collectives.Op]] = None,
+    plan: Optional[ShardingPlan] = None,
 ) -> Callable:
     """The ``spmd`` cluster step: ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` over this rank's rows.
@@ -458,10 +523,21 @@ def make_spmd_train_step(
     where it runs, their gradients reduce-scattered), only the replicated
     leaves are all-reduced, and the update touches the local shards.
 
+    ``plan`` (a :class:`ShardingPlan` on a ``DeviceMesh`` of the ranks, the
+    reference's ``set_mesh`` + ``jit(make_train_step)``) gives the layouts,
+    the rule table and the mesh: on a ``model`` axis of two or more ranks
+    the forward is tensor- and expert-parallel
+    (:mod:`repro_torch.distributed.tensor`), ``params`` hold the rank's
+    pieces on both axes (:func:`init_rank_params`), the gradients and loss
+    sums are reduced over the rank's ``data`` group only (every ``model``
+    piece's gradient arrives whole from the forward's collectives), and the
+    gradient norm counts each piece once.
+
     ``timing`` accumulates the seconds of ``grad_s`` (to the gradient's end
-    on the device, ZeRO-3's gathers and reduce-scatters included),
-    ``reduce_s`` (the all-reduces) and ``apply_s`` and counts ``steps``;
-    ``collective_log``, where given, holds the last step's collectives
+    on the device, ZeRO-3's gathers and reduce-scatters and the tensor-
+    parallel collectives included), ``reduce_s`` (the all-reduces) and
+    ``apply_s`` and counts ``steps``; ``collective_log``, where given,
+    holds the last step's collectives
     (:mod:`repro_torch.roofline.collectives`).
     """
     import contextlib
@@ -469,30 +545,55 @@ def make_spmd_train_step(
 
     import torch.distributed as dist
 
+    mesh = None
+    if plan is not None:
+        mesh, layouts = plan.mesh, plan.params
+        sizes = mesh_axis_sizes(mesh)
+        group = mesh.get_group("data") if sizes.get("data", 1) > 1 else None
+        model_group = mesh.get_group("model") if sizes.get("model", 1) > 1 else None
     lays = [] if layouts is None else tree_leaves_sorted(layouts)
     sharded = any(lay.data_dim is not None for lay in lays)
+    if mesh is not None and model_group is not None:
+        grad_sq = _mesh_grad_sq(lays, group, model_group)
+    else:
+        grad_sq = _zero3_grad_sq(lays, group) if sharded else None
     grad_step = make_partial_grad_step(model, aux_weight=aux_weight)
     apply_step = make_apply_step(optimizer, lr_schedule, aux_weight=aux_weight,
-                                 grad_sq=_zero3_grad_sq(lays, group) if sharded else None)
+                                 grad_sq=grad_sq)
     keys = ("num", "den", "auxden")
+    # a mesh's data group of one rank reduces nothing
+    reduce_data = mesh is None or group is not None
 
     def sync(device) -> float:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
+    def scope():
+        stack = contextlib.ExitStack()
+        if mesh is not None:
+            stack.enter_context(use_rules(plan.rules))
+            stack.enter_context(use_mesh(mesh))
+        if sharded:
+            stack.enter_context(zero.zero3(layouts, group))
+        return stack
+
     def train_step(params, opt_state: OptState, batch):
         device = tree_leaves(params)[0].device
         log: List[collectives.Op] = []
         t0 = time.perf_counter()
         with collectives.recording(log):
-            with zero.zero3(layouts, group) if sharded else contextlib.nullcontext():
+            with scope():
                 grads, sums = grad_step(params, batch)
             t1 = sync(device)
-            grads = (_zero3_reduce(grads, lays, group) if sharded
-                     else allreduce_tree(grads, group))
-            totals = zero.all_reduce(torch.stack([sums[k].float() for k in keys]), group,
-                                     dist.get_world_size(group))
+            if mesh is not None:
+                grads = _zero3_reduce(grads, lays, group) if reduce_data else grads
+            else:
+                grads = (_zero3_reduce(grads, lays, group) if sharded
+                         else allreduce_tree(grads, group))
+            totals = torch.stack([sums[k].float() for k in keys])
+            if reduce_data:
+                totals = zero.all_reduce(totals, group, dist.get_world_size(group))
             t2 = sync(device)
             out = apply_step(params, opt_state, grads,
                              {k: totals[i] for i, k in enumerate(keys)})
@@ -552,7 +653,7 @@ def build_sharding_plan(
         mesh=mesh, rules=rules, params=p_sh, opt=opt_sh, batch=b_sh, replicated=replicated,
         global_rows=int(global_rows),
         data_axis=mesh_axis_sizes(mesh).get("data", 1),
-        device=torch.device(device),
+        device=torch.device(device), family=model.cfg.family, axes=p_axes,
     )
 
 

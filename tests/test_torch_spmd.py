@@ -20,8 +20,9 @@ file store under the test's temporary directory (no fixed port).  Held:
   ``tests/test_torch_zero.py``);
 * ``ClusterContext.detect`` picks ``hostsync`` on CPU devices, wherever
   the workers outnumber the cards or a worker is not on a card of its own,
-  and wherever the plan shards a weight over ``model`` (naming the second
-  half of ROADMAP item 19); a plan that shards weights over ``data`` (the
+  and wherever the plan is resolved over a ``model`` axis (the cluster's
+  mesh keeps ``model = 1``; tensor parallelism is
+  ``tests/test_torch_tensor_parallel.py``'s); a plan that shards weights over ``data`` (the
   full-width deepseek-7b's ``fsdp`` rules at world 2) runs ``spmd``.
 """
 import os
@@ -261,9 +262,10 @@ def test_detect_needs_a_plan_that_keeps_every_leaf_whole(capsys, smoke_session):
     """Workers bound a card each run ``spmd`` where the plan keeps every
     leaf whole or shards it over ``data`` (ZeRO-3: the full-width
     deepseek-7b's ``fsdp`` rules at world 2, the smoke config under
-    ``embed="data"``), and ``hostsync`` where it shards a leaf over
-    ``model`` (tensor parallelism, the second half of ROADMAP item 19),
-    where two workers share a card, or with no plan at all."""
+    ``embed="data"``), and ``hostsync`` where it is resolved over a
+    ``model`` axis (the cluster's mesh keeps ``model = 1``, as the
+    reference's; tensor parallelism runs on ``make_host_mesh``), where two
+    workers share a card, or with no plan at all."""
     from repro_torch.api import FleetSpec, Session
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import ProcessMesh
@@ -298,7 +300,7 @@ def test_detect_needs_a_plan_that_keeps_every_leaf_whole(capsys, smoke_session):
     ctx = ClusterContext.detect(0, 2, device=torch.device("cuda", 0), n_cards=2, plan=tp)
     out = capsys.readouterr().out
     assert ctx.mode == "hostsync"
-    assert "over 'model'" in out and "second half of ROADMAP item 19" in out
+    assert "model axis of 2" in out and "keeps model = 1" in out
     assert ClusterContext.detect(0, 2, device=torch.device("cuda", 0), n_cards=2).mode == \
         "hostsync"
     assert "no plan to check" in capsys.readouterr().out

@@ -360,8 +360,8 @@ def test_drift_retune_keeps_compiled_step():
 def test_unported_paths_raise_naming_their_roadmap_item(capsys):
     # cluster execution is ported (tests/test_torch_cluster.py, the spmd mode
     # tests/test_torch_spmd.py), and so is the measured tune
-    # (tests/test_torch_tune.py); what stays unported is weights on several
-    # devices and several devices a process (the second half of item 19)
+    # (tests/test_torch_tune.py); what stays unported is several devices a
+    # process (the rest of the second half of item 19)
     from repro_torch.launch.mesh import ClusterContext
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
