@@ -372,14 +372,37 @@ steps and read just after:
      there to their plain versions on a rank's slot tables of the whole
      routing; flash at a rank's (8, 256, 24 over 4, 128).  Its lap is printed
      beside EP_BUDGET_S.
+ 39. ``tp_family_training("tpr")``, the ``tp_recurrent_training`` path
+     (``--rank tpr``, TP_FAMILY_CELLS): rwkv6-7b at full width cut to 2 of 32
+     layers, 8 rows x 256, f32, and recurrentgemma-2b cut to 3 of 26 layers
+     (R, R, A), 8 rows x 256, once in f32 and once in int8-fused; AdamW,
+     TP_STEPS steps a cell, bf16 weights from seed 0 with the block
+     matrices redrawn at their fan-in; each cell's one process on the card
+     first (forward and backward on the whole weights, then freed).  A
+     rwkv6 rank holds 32 of 64 heads (the WKV scan at (8, 256, 32, 64)), a
+     recurrentgemma rank 1,280 of 2,560 RG-LRU channels (its int8 scan
+     quantized with the whole row's scale) and 5 of 10 query heads over the
+     one KV head.  Held as phase 38, per cell: step 1 against the one
+     process, the ranks' losses and replicated digests equal, resident
+     bytes, launches, flash and scan shapes, the collectives equal
+     ``tp_step_ops`` op for op; then the WKV-6, RG-LRU, quantizer and flash
+     kernels at a rank's shapes against their plain versions.
+ 40. ``tp_family_training("tpe")``, the ``tp_encdec_vlm_training`` path:
+     whisper-medium at full width, 4 of 24 encoder and 4 of 24 decoder
+     layers, 4 rows x 256 tokens over 1,500 frames, and qwen2-vl-7b cut to 2
+     of 28 layers, 2 rows x (1,024 patches + 512 tokens), f32, held as
+     phase 39; flash at a rank's whisper encoder, decoder and cross shapes
+     (8 of 16 heads) and qwen2-vl's (14 over 2 heads) against its plain
+     version beside SDPA.  Laps beside TP_FAMILY_BUDGET_S.
 
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
 ``engine_serving``, ``families_serving``, ``encdec_serving``,
 ``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training``,
 ``cluster_training``, ``measured_tune``, ``spmd_training``,
-``compressed_allreduce``, ``zero3_training``, ``tp_training`` or
-``ep_training``) whose shapes it was
+``compressed_allreduce``, ``zero3_training``, ``tp_training``,
+``ep_training``, ``tp_recurrent_training`` or ``tp_encdec_vlm_training``)
+whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
 The last two lines are ``{"kernels": [...]}`` and
@@ -4718,9 +4741,10 @@ def _replicated_digest(params, plan):
 
 
 def _tp_rank_run(torch, ops, dev, rank, model, optimizer, sched, plan, next_batch, steps,
-                 seed):
-    """One rank of phases 37-38: its pieces of the seed's weights
-    (``init_rank_params``), ``steps`` of ``make_spmd_train_step(plan=)``
+                 seed, params=None):
+    """One rank of phases 37-40: its pieces of the seed's weights
+    (``init_rank_params``, or ``params`` where given), ``steps`` of
+    ``make_spmd_train_step(plan=)``
     with the launch counts set to 0 just before and read just after, the
     heads and expert shapes the kernels ran at, the last step's
     collectives.  -> the rank's record."""
@@ -4728,23 +4752,42 @@ def _tp_rank_run(torch, ops, dev, rank, model, optimizer, sched, plan, next_batc
     from repro_torch.roofline.collectives import collective_bytes
     from repro_torch.train.steps import init_rank_params, make_spmd_train_step
 
-    params = init_rank_params(model, plan, rank, seed=seed, device=dev)
+    if params is None:
+        params = init_rank_params(model, plan, rank, seed=seed, device=dev)
     opt_state = optimizer.init(params)
-    timing, log, shapes = {}, [], {"flash_heads": set(), "moe": set()}
+    timing, log = {}, []
+    shapes = {"flash_heads": set(), "moe": set(), "scans": set()}
     step = make_spmd_train_step(model, optimizer, sched, timing=timing, plan=plan,
                                 collective_log=log)
-    flash, gemm = kops.flash_attention, kops.fused_moe_gemm
+    seen = {name: getattr(kops, name) for name in (
+        "flash_attention", "flash_attention_q8", "fused_moe_gemm", "rwkv6_scan",
+        "rwkv6_scan_q8", "rglru_scan", "rglru_scan_q8")}
 
-    def flash_seen(q, *a, **kw):
-        shapes["flash_heads"].add((int(q.shape[2]), int(a[0].shape[2])))
-        return flash(q, *a, **kw)
+    def flash_seen(name):
+        def run(q, *a, **kw):
+            shapes["flash_heads"].add((int(q.shape[2]), int(a[0].shape[2])))
+            return seen[name](q, *a, **kw)
+        return run
 
     def gemm_seen(x, wg, wu, wo, slot_tok, slot_gate):
         E = int(wg.shape[0])
         shapes["moe"].add((E, int(slot_tok.shape[0]) // E, int(wg.shape[1]), int(wg.shape[2])))
-        return gemm(x, wg, wu, wo, slot_tok, slot_gate)
+        return seen["fused_moe_gemm"](x, wg, wu, wo, slot_tok, slot_gate)
 
-    kops.flash_attention, kops.fused_moe_gemm = flash_seen, gemm_seen
+    def scan_seen(name, arg):
+        def run(*a, **kw):
+            shapes["scans"].add((name, tuple(int(n) for n in a[arg].shape)))
+            return seen[name](*a, **kw)
+        return run
+
+    wrapped = {"flash_attention": flash_seen("flash_attention"),
+               "flash_attention_q8": flash_seen("flash_attention_q8"),
+               "fused_moe_gemm": gemm_seen, "rwkv6_scan": scan_seen("rwkv6_scan", 0),
+               "rwkv6_scan_q8": scan_seen("rwkv6_scan_q8", 0),
+               "rglru_scan": scan_seen("rglru_scan", 1),
+               "rglru_scan_q8": scan_seen("rglru_scan_q8", 1)}
+    for name, fn in wrapped.items():
+        setattr(kops, name, fn)
     losses, norms, times = [], [], []
     try:
         ops.reset_launches()
@@ -4758,10 +4801,12 @@ def _tp_rank_run(torch, ops, dev, rank, model, optimizer, sched, plan, next_batc
             times.append(time.perf_counter() - t0)
         launches = dict(ops.LAUNCHES)
     finally:
-        kops.flash_attention, kops.fused_moe_gemm = flash, gemm
+        for name, fn in seen.items():
+            setattr(kops, name, fn)
     return {"rank": rank, "losses": losses, "grad_norms": norms, "step_times": times,
             "step_split": timing, "launches": launches,
             "flash_heads": sorted(shapes["flash_heads"]), "moe_shapes": sorted(shapes["moe"]),
+            "scan_shapes": sorted(shapes["scans"]),
             "collective_ops": [list(op) for op in log],
             "collective_bytes": collective_bytes(log),
             "param_bytes": _rank_tree_bytes(params),
@@ -4787,9 +4832,10 @@ def _ep_config():
 
 
 def rank_main(argv) -> int:
-    """A rank of phase 37 (``tp``) or 38 (``ep``): ``chip_smoke.py --rank
-    PHASE RANK IO`` joins the two ranks' gloo group at ``IO/store``, runs
-    its cell and writes ``IO/PHASE.RANK.json``."""
+    """A rank of phase 37 (``tp``), 38 (``ep``), 39 (``tpr``) or 40
+    (``tpe``): ``chip_smoke.py --rank PHASE RANK IO`` joins the two ranks'
+    gloo group at ``IO/store``, runs its cell or cells and writes
+    ``IO/PHASE.RANK.json``."""
     import datetime
 
     import torch
@@ -4824,7 +4870,7 @@ def rank_main(argv) -> int:
             rec = _tp_rank_run(torch, ops, dev, rank, model, optimizer, sched, plan,
                                lambda: session.dataset.next_device_batch(dev), TP_STEPS,
                                cfg.seed)
-        else:
+        elif phase == "ep":
             cfg = _ep_config()
             model, optimizer = get_model(cfg), adamw()
             plan = build_sharding_plan(model, optimizer, mesh=mesh, global_rows=EP_CELL["rows"],
@@ -4833,6 +4879,8 @@ def rank_main(argv) -> int:
             rec = _tp_rank_run(torch, ops, dev, rank, model, optimizer,
                                lambda s: torch.tensor(EP_CELL["lr"], device=dev), plan,
                                lambda: batch, EP_STEPS, EP_CELL["seed"])
+        else:
+            rec = _tp_family_ranks(torch, ops, dev, rank, mesh, phase)
         with open(io / f"{phase}.{rank}.json", "w") as f:
             json.dump(rec, f)
         dist.barrier()
@@ -4872,12 +4920,12 @@ def _run_ranks(phase: str, io: Path, timeout: float):
 
 
 def _tp_report(torch, tag, cfg, recs, rows, seq, resident, want_launches, want_heads,
-               want_loss, want_norm, label):
-    """Print and hold phase 37's or 38's ranks (see the module doc); -> the
+               want_loss, want_norm, label, patches=0):
+    """Print and hold the ranks of phases 37-40 (see the module doc); -> the
     two ranks' summed launches."""
     from repro_torch.roofline.collectives import collective_bytes, tp_step_ops
 
-    ops_want = tp_step_ops(cfg, rows, seq, 2)
+    ops_want = tp_step_ops(cfg, rows, seq, 2, patches=patches)
     totals = {}
     for rec in recs:
         what = f"[{tag}] rank {rec['rank']}"
@@ -5072,6 +5120,336 @@ def ep_training(torch, ops, R, F, dev, root: Path):
     return totals, records
 
 
+# phases 39-40: tensor parallelism for the recurrent, encoder-decoder and
+# vision-language families, two gloo ranks sharing the card at mesh data 1 x
+# model 2, as phases 37-38.  Each cell: its arch at full width cut to
+# ``layers`` (whisper: that many encoder and decoder layers), ``rows`` x
+# ``seq`` seeded tokens (and the VLM's ``patches`` patch embeddings, the
+# encoder-decoder's n_frames frames), AdamW at a constant ``lr``, seed-0
+# weights with their block matrices redrawn at their fan-in
+# (``_fan_in_tree``: at the port's init the step-1 gradient of these cut
+# models is chaotic, so a rank's bf16 rounding alone moved recurrentgemma-2b's
+# gradient norm from the one process's by 6.6%), its train precision; held as
+# phase 38, step 1 against the one process on the same weights and batch.
+# recurrentgemma-2b runs in f32 and in int8-fused.
+TP_FAMILY_CELLS = {
+    "tpr": (dict(name="rwkv6-7b", arch="rwkv6-7b", layers=2, rows=8, seq=256, patches=0,
+                 prec="f32", lr=1e-5, seed=0),
+            dict(name="recurrentgemma-2b f32", arch="recurrentgemma-2b", layers=3, rows=8,
+                 seq=256, patches=0, prec="f32", lr=1e-5, seed=0),
+            dict(name="recurrentgemma-2b int8-fused", arch="recurrentgemma-2b", layers=3,
+                 rows=8, seq=256, patches=0, prec="int8-fused", lr=1e-5, seed=0)),
+    "tpe": (dict(name="whisper-medium", arch="whisper-medium", layers=4, rows=4, seq=256,
+                 patches=0, prec="f32", lr=1e-5, seed=0),
+            dict(name="qwen2-vl-7b", arch="qwen2-vl-7b", layers=2, rows=2, seq=512,
+                 patches=1024, prec="f32", lr=1e-5, seed=0)),
+}
+TP_FAMILY_PHASES = {"tpr": ("39", "tp_recurrent_training"),
+                    "tpe": ("40", "tp_encdec_vlm_training")}
+TP_FAMILY_BUDGET_S = {"tpr": 75.0, "tpe": 75.0}
+
+
+def _tp_family_config(cell):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(cell["arch"]).with_(train_precision=cell["prec"])
+    if cfg.family == "encdec":
+        return cfg.with_(n_enc_layers=cell["layers"], n_dec_layers=cell["layers"])
+    return cfg.with_(n_layers=cell["layers"])
+
+
+def _fan_in_tree(torch, params, seed):
+    """``params`` with every stacked block matrix (a leaf of three or more
+    dims under ``blocks``, ``groups``, ``enc_blocks`` or ``dec_blocks``, the
+    QKV biases aside) redrawn in place at N(0, 1/fan_in) over the axes it
+    contracts: its second, and an attention out-projection's heads x head
+    dim, as tests/test_torch_tp_families.py::numpy_params draws them.  The
+    port's init, as the reference's, reads a stacked leaf's fan-in from its
+    layer axis (std 1/sqrt(layers)): at seed 0, whisper-medium cut to 4 + 4
+    layers starts at a gradient norm of 1.6e9.  Drawn on the leaves' device
+    from ``seed`` in sorted path order, so every process draws the same."""
+    gen = None
+    for path, t in sorted(_paths(params).items()):
+        name = path.rsplit("/", 1)[-1]
+        if (t.dim() < 3 or name in ("bq", "bk", "bv")
+                or path.split("/")[0] not in ("blocks", "groups", "enc_blocks", "dec_blocks")):
+            continue
+        if gen is None:
+            gen = torch.Generator(device=t.device)
+            gen.manual_seed(seed)
+        fan_in = t.shape[1] * (t.shape[2] if name == "wo" and t.dim() == 4 else 1)
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device) / fan_in ** 0.5)
+    return params
+
+
+def _tp_family_weights(torch, model, cell, dev):
+    """A cell's whole weights: the seed's init, its block matrices redrawn
+    at their fan-in."""
+    params, _ = model.init_params(seed=cell["seed"], device=dev)
+    return _fan_in_tree(torch, params, cell["seed"] + 1)
+
+
+def _tp_family_batch(torch, cfg, cell, dev):
+    """A cell's batch, drawn on the card from its seed (the same in every
+    process): tokens and labels, every position scored, and the stub
+    frontend's frames or patch embeddings."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cell["seed"] + 3939)
+    rows, seq = cell["rows"], cell["seq"]
+    toks = torch.randint(0, cfg.vocab, (rows, seq + 1), generator=gen, device=dev)
+    return {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous(),
+            "loss_mask": torch.ones(rows, seq, device=dev),
+            **_side_inputs(torch, cfg, rows, cell["patches"], gen, dev)}
+
+
+def _tp_family_ranks(torch, ops, dev, rank, mesh, phase):
+    """A rank of phase 39 or 40: each cell's plan (checked), then its steps
+    (``_tp_rank_run``), its state freed before the next.  -> {name: record}."""
+    import gc
+
+    from repro_torch.distributed.sharding import check_plan
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train.steps import build_sharding_plan
+
+    out = {}
+    for cell in TP_FAMILY_CELLS[phase]:
+        cfg = _tp_family_config(cell)
+        model, optimizer = get_model(cfg), adamw()
+        plan = check_plan(build_sharding_plan(model, optimizer, mesh=mesh,
+                                              global_rows=cell["rows"], seq_len=cell["seq"],
+                                              device=dev), 2)
+        batch = _tp_family_batch(torch, cfg, cell, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = tree_map(lambda t, lay: lay.local(t, rank).clone(),
+                          _tp_family_weights(torch, model, cell, dev), plan.params)
+        torch.cuda.empty_cache()
+        out[cell["name"]] = _tp_rank_run(
+            torch, ops, dev, rank, model, optimizer,
+            lambda s, lr=cell["lr"]: torch.tensor(lr, device=dev), plan, lambda: batch,
+            TP_STEPS, cell["seed"], params=params)
+        del batch, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_family_baseline(torch, cfg, cell, dev):
+    """A cell's one process on the card: its whole weights, forward and
+    backward on its batch.  -> (loss, grad norm, peak bytes)."""
+    import gc
+
+    from repro_torch.models.api import get_model
+    from repro_torch.train.steps import value_and_grad
+
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = _tp_family_weights(torch, model, cell, dev)
+    (_, parts), grads = value_and_grad(model, params, _tp_family_batch(torch, cfg, cell, dev))
+    norm = float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))))
+    loss, peak = float(parts["loss"]), torch.cuda.max_memory_allocated(dev)
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, norm, peak
+
+
+def _tp_family_shapes(cfg, cell):
+    """(flash (heads, KV heads) a rank runs, its scans' (name, shape)) on a
+    model axis of 2."""
+    B, S = cell["rows"], cell["seq"]
+    q8 = cell["prec"] == "int8-fused"
+    if cfg.family == "rwkv6":
+        H = cfg.d_model // cfg.rwkv_head_dim // 2
+        return [], [("rwkv6_scan_q8" if q8 else "rwkv6_scan", (B, S, H, cfg.rwkv_head_dim))]
+    heads = [(cfg.n_heads // 2, cfg.n_kv_heads // 2 if cfg.n_kv_heads % 2 == 0
+              else cfg.n_kv_heads)]
+    if cfg.family == "rglru":
+        return heads, [("rglru_scan_q8" if q8 else "rglru_scan", (B, S, cfg.lru_width // 2))]
+    return heads, []
+
+
+def tp_family_training(torch, ops, R, F, dev, phase, root: Path):
+    """Phase 39 (``tpr``) or 40 (``tpe``), see the module doc: each cell's
+    one process on the card first (then freed), the two ranks, the checks
+    of phase 38 a cell, then each kernel of the path at a rank's shapes
+    against its plain version.  -> (the ranks' summed launches, records)."""
+    from repro_torch.models.api import get_model
+
+    number, path = TP_FAMILY_PHASES[phase]
+    t0 = time.perf_counter()
+    base = {}
+    for cell in TP_FAMILY_CELLS[phase]:
+        cfg = _tp_family_config(cell)
+        model = get_model(cfg)
+        plan = _model2_plan(torch, model, cell["rows"], cell["seq"])
+        resident = _resident(plan, model)
+        t_base = time.perf_counter()
+        loss, norm, peak = _tp_family_baseline(torch, cfg, cell, dev)
+        print(f"[{phase}] {cfg.name} ({cell['prec']}, {str(cfg.dtype).split('.')[-1]} weights), "
+              f"{cell['layers']} layers"
+              f"{' each side' if cfg.family == 'encdec' else ''}, "
+              f"{cfg.param_count() / 1e9:.3f} B params, rows {cell['rows']} x seq {cell['seq']}"
+              f"{' + ' + str(cell['patches']) + ' patches' if cell['patches'] else ''}, mesh "
+              f"data 1 x model 2 ({plan.describe()}): a rank's params {resident[0]:,} B, "
+              f"moments {resident[1]:,} B ({sum(resident) / 2**30:.2f} GiB); the one process, "
+              f"forward and backward: loss {loss:.6f}, grad norm {norm:.6f}, peak "
+              f"{peak / 2**30:.2f} GiB, {time.perf_counter() - t_base:.1f} s")
+        base[cell["name"]] = (cfg, resident, loss, norm)
+    print(f"[{phase}] before the ranks: this process holds "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved; card free "
+          f"{torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB")
+    recs = _run_ranks(phase, root, timeout=900)
+    totals = {}
+    for cell in TP_FAMILY_CELLS[phase]:
+        cfg, resident, loss, norm = base[cell["name"]]
+        heads, scans = _tp_family_shapes(cfg, cell)
+        mine = [rec[cell["name"]] for rec in recs]
+        got = _tp_report(torch, f"{phase} {cell['name']}", cfg, mine, cell["rows"],
+                         cell["seq"], resident,
+                         expected_train_launches(cfg, cell["prec"], TP_STEPS), heads, loss,
+                         norm, "the one process", patches=cell["patches"])
+        for rec in mine:
+            if [(n, tuple(s)) for n, s in rec["scan_shapes"]] != scans:
+                raise AssertionError(f"[{phase}] {cell['name']} rank {rec['rank']}: the scans "
+                                     f"ran at {rec['scan_shapes']}, not {scans}")
+        print(f"[{phase}] {cell['name']}: flash at (heads, KV heads) {heads}, scans at {scans} on "
+              f"each rank")
+        for name, c in got.items():
+            totals[name] = totals.get(name, 0) + c
+    records = tp_family_kernel_records(torch, R, F, dev, phase, path)
+    print(f"[{phase}] phase {number}: {time.perf_counter() - t0:.1f} s (budget "
+          f"{TP_FAMILY_BUDGET_S[phase]:.0f})")
+    return totals, records
+
+
+def tp_family_kernel_records(torch, R, F, dev, phase, path):
+    """The kernels of phase 39's or 40's path at a rank's shapes (model = 2)
+    against their plain versions on the card, timed: -> the kernels-line
+    records of the kernels the path launched.  Phase 39 also holds the
+    int8 WKV-6 scan at its rank's shape (not launched there: its rwkv6 cell
+    trains in f32) and prints it."""
+    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_int8
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_int8
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4040 if phase == "tpe" else 3939)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    def record(name, shape, source, replaces, err, kernel, plain, nbytes, flops, dtype):
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        return dict(name=name, path=path, shape=shape, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=f"src/repro/kernels/{replaces}", launches=0, max_abs_err=err,
+                    ms=timed_ms(kernel, flush), plain_ms=timed_plain(plain, flush),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    def show(rec):
+        print(f"[{phase}] not launched on the {path} path, held at a rank's shape: "
+              f"{json.dumps(rec)}")
+
+    records = []
+    if phase == "tpe":
+        whisper, vlm = (_tp_family_config(c) for c in TP_FAMILY_CELLS["tpe"])
+        wc, vc = TP_FAMILY_CELLS["tpe"]
+        B, S, F_, H, D = wc["rows"], wc["seq"], whisper.n_frames, whisper.n_heads // 2, \
+            whisper.resolved_head_dim()
+        for label, Sq, Skv, causal in (("encoder", F_, F_, False), ("decoder self", S, S, True),
+                                       ("cross", S, F_, False)):
+            records += attention_records(
+                torch, R, F, rand, flush, path,
+                f"whisper {label}: a rank's ({B}, {Sq} over {Skv}, {H}, {D})", B, Sq, Skv, H, H,
+                D, causal, int8=False)
+        B, S, H = vc["rows"], vc["patches"] + vc["seq"], vlm.n_heads // 2
+        records += attention_records(
+            torch, R, F, rand, flush, path,
+            f"qwen2-vl: a rank's ({B}, {S}, {H} over {vlm.n_kv_heads // 2}, "
+            f"{vlm.resolved_head_dim()})", B, S, S, H, vlm.n_kv_heads // 2,
+            vlm.resolved_head_dim(), True, int8=False)
+        del scratch
+        torch.cuda.empty_cache()
+        return records
+
+    wc, gc_ = TP_FAMILY_CELLS["tpr"][:2]
+    rw, rg = _tp_family_config(wc), _tp_family_config(gc_)
+    # WKV-6 at a rank's heads, bf16 (the cell's weights and activations)
+    B, S, H, D = wc["rows"], wc["seq"], rw.d_model // rw.rwkv_head_dim // 2, rw.rwkv_head_dim
+    r, k, v = (rand(B, S, H, D) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, S, H, D, generator=gen, device=dev) * 0.5)).to(bf16)
+    u = torch.randn(H, D, generator=gen, device=dev)
+    q = [quantize_rows(t.reshape(-1, D), 0.5) for t in (r, k, v)]
+    (rq, rs), (kq, ks), (vq, vs) = ((a.view(B, S, H, D), b.view(B, S, H, 1)) for a, b in q)
+    deq = R.dequantize_int8_ref
+    for name, kernel, plain in (
+            ("rwkv6_scan", lambda: rwkv6_scan(r, k, v, w, u),
+             lambda: R.rwkv6_scan_ref(r, k, v, w, u)),
+            ("rwkv6_scan_q8", lambda: rwkv6_scan_int8(rq, rs, kq, ks, vq, vs, w, u, bf16),
+             lambda: R.rwkv6_scan_ref(deq(rq, rs), deq(kq, ks), deq(vq, vs), w, u))):
+        out, state = kernel()
+        want_out, want_state = plain()
+        want_out = want_out.to(bf16)
+        torch.cuda.synchronize()
+        atol = 2.0 ** (math.frexp(want_out.float().abs().max().item())[1] - 8)
+        err = close_check(torch, f"{name} a rank's {(B, S, H, D)} bf16 out", out, want_out,
+                          0.0, atol)
+        close_check(torch, f"{name} a rank's state", state, want_state, 1e-4,
+                    1e-4 * want_state.abs().max().item())
+        q8 = name.endswith("q8")
+        nbytes = (3 * r.numel() * (1 if q8 else 2) + (3 * rs.numel() * 4 if q8 else 0)
+                  + 2 * w.numel() * 2 + u.numel() * 4 + state.numel() * 4)
+        rec = record(name, f"rwkv6-7b: a rank's {(B, S, H, D)} bf16", "rwkv6_scan.cu",
+                     "rwkv6_scan.py:171" if q8 else "rwkv6_scan.py:119", err, kernel, plain,
+                     nbytes, wkv6_ops(B, S, H, D), "bfloat16")
+        if name == "rwkv6_scan":
+            records.append(rec)
+        else:
+            show(rec)
+        del out, state, want_out, want_state
+    del r, k, v, w, u, rq, rs, kq, ks, vq, vs
+    # RG-LRU at a rank's channels: the int8 input quantized against the
+    # whole row's absmax (four more columns), float32 gates
+    B, S, W = gc_["rows"], gc_["seq"], rg.lru_width // 2
+    a = torch.rand(B, S, W, generator=gen, device=dev) * 0.499 + 0.5
+    x = torch.randn(B, S, W, generator=gen, device=dev)
+    row = 2.0 * x.abs().amax(dim=-1, keepdim=True)        # the other rank's larger absmax
+    wide = torch.cat([x, row.expand(B, S, 4)], dim=-1).view(-1, W + 4)
+    rec = quant_record(torch, R, path, wide, flush)
+    records.append(dict(rec, shape=f"recurrentgemma-2b: a rank's {B * S} rows of {W} f32 and "
+                                   f"the whole row's absmax as 4 more columns, {rec['shape']}"))
+    xq, xs = quantize_rows(wide, 0.5)
+    xq, xs = xq[:, :W].contiguous().view(B, S, W), xs.view(B, S, 1)
+    xd = deq(xq, xs)
+    for name, kernel, plain in (("rglru_scan_q8", lambda: rglru_scan_int8(a, xq, xs),
+                                 lambda: R.rglru_scan_ref(a, xd)),
+                                ("rglru_scan", lambda: rglru_scan(a, x),
+                                 lambda: R.rglru_scan_ref(a, x))):
+        bit_check(torch, f"{name} a rank's {(B, S, W)} f32", kernel(), plain())
+        q8 = name.endswith("q8")
+        x_bytes = xq.numel() + xs.numel() * 4 if q8 else x.numel() * 4
+        records.append(record(name, f"recurrentgemma-2b: a rank's {(B, S, W)}",
+                              "rglru_scan.cu", "rglru_scan.py:103" if q8 else "rglru_scan.py:65",
+                              0.0, kernel, plain, 2 * a.numel() * 4 + x_bytes, 2.0 * x.numel(),
+                              "float32"))
+    del a, x, row, wide, xq, xs, xd
+    # the local attention at a rank's 5 query heads over the one KV head, D
+    # 256 (window 2048 > seq: causal), over bf16 and int8 K/V; the K rows'
+    # quantizer
+    H, Hkv, D = rg.n_heads // 2, rg.n_kv_heads, rg.resolved_head_dim()
+    records += attention_records(torch, R, F, rand, flush, path,
+                                 f"recurrentgemma-2b: a rank's ({B}, {S}, {H} over {Hkv}, {D})",
+                                 B, S, S, H, Hkv, D, True, int8=True)
+    del scratch
+    torch.cuda.empty_cache()
+    return records
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5263,6 +5641,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         ep_totals, ep_records = ep_training(torch, ops, R, F, dev, tp_root)
         lap("phase 38")
+        family_tp = {}
+        for phase in ("tpr", "tpe"):
+            torch.cuda.empty_cache()
+            number, path = TP_FAMILY_PHASES[phase]
+            family_tp[path], recs = tp_family_training(torch, ops, R, F, dev, phase, tp_root)
+            records += recs
+            lap(f"phase {number}")
     finally:
         shutil.rmtree(tp_root, ignore_errors=True)
     records += tp_records + ep_records
@@ -5287,7 +5672,7 @@ def main() -> int:
               "cluster_training": cluster_totals, "measured_tune": tune_totals,
               "spmd_training": spmd_totals, "compressed_allreduce": comp_totals,
               "zero3_training": zero_totals, "tp_training": tp_totals,
-              "ep_training": ep_totals}
+              "ep_training": ep_totals, **family_tp}
     for rec in records:
         rec["launches"] = totals[rec["path"]][rec["name"]]
         print(f"[launches] {rec['name']} on the {rec['path']} path: {rec['launches']}"

@@ -46,8 +46,8 @@ whole init), the step gathers a layer's weights where it runs
 (:mod:`repro_torch.distributed.zero`), and checkpoints are written as
 per-shard chunks.  The session's meshes keep ``model = 1`` (one process,
 or the cluster's, as the reference's); tensor and expert parallelism over
-``model`` run through ``train.steps.make_spmd_train_step(plan=)`` on
-``launch.mesh.make_host_mesh``.
+``model``, in every family, run through
+``train.steps.make_spmd_train_step(plan=)`` on ``launch.mesh.make_host_mesh``.
 
 Cluster mode (:meth:`Session.attach_cluster`, done by
 :class:`~repro_torch.launch.cluster.WorkerRuntime` in each worker process):

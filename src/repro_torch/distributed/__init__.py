@@ -8,8 +8,9 @@ replica a rank and sums gradients with these collectives: NCCL between
 cards, ``gloo`` between CPU processes (or ranks that share a card).  Under
 a plan that shards weights over ``data`` it is ZeRO-3 (:mod:`.zero`): a rank
 keeps its slice of every such leaf and gathers one layer's weights at a
-time.  On a mesh with a ``model`` axis (``launch.mesh.make_host_mesh``) the
-dense and MoE decoders are tensor- and expert-parallel (:mod:`.tensor`).
+time.  On a mesh with a ``model`` axis (``launch.mesh.make_host_mesh``)
+every family's training forward is tensor-parallel, the MoE layer
+expert-parallel (:mod:`.tensor`).
 """
 from repro_torch.distributed.sharding import (
     SHARDED_WEIGHTS, Layout, ProcessMesh, ShardingPlan, arg_shardings_for_tree,

@@ -21,13 +21,15 @@ rank holding the slice at its coordinate (:meth:`Layout.local`), gathered
 a layer at a time inside the step (:mod:`repro_torch.distributed.zero`).
 A leaf that names ``model`` (heads, FFN columns, vocabulary rows, experts)
 is the rank's piece of a tensor- or expert-parallel product
-(:mod:`repro_torch.distributed.tensor`), for the dense and MoE families.
-The models read the mesh in scope (:func:`use_mesh`, the counterpart of
-the reference's ``set_mesh``) and check their activations' layout with
+(:mod:`repro_torch.distributed.tensor`), in every family: the dense and MoE
+decoders, RWKV-6 and RecurrentGemma (their ``lru`` channel blocks), the
+encoder-decoder and the vision-language backbone.  The models read the mesh
+in scope (:func:`use_mesh`, the counterpart of the reference's
+``set_mesh``) and check their activations' layout with
 :func:`with_logical_constraint`.  :func:`check_plan` refuses what is not
-ported, :data:`SHARDED_WEIGHTS`: the ``model`` axis for the other
-families, query heads the ``model`` axis does not divide, and several
-devices a process.
+ported, :data:`SHARDED_WEIGHTS`: query heads the ``model`` axis does not
+divide, an ``lru`` split that cuts an RWKV head, and several devices a
+process.
 """
 from __future__ import annotations
 
@@ -43,16 +45,15 @@ PyTree = Any
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
 
-SHARDED_WEIGHTS = ("the rest of the second half of ROADMAP item 19 'Multi-device' (the "
-                   "model axis for the recurrent, encoder-decoder and vision-language "
-                   "families; query heads the model axis does not divide; batch rows over "
-                   "model outside the MoE layer; serving under a model axis; several "
-                   "devices a process)")
+SHARDED_WEIGHTS = ("the rest of the second half of ROADMAP item 19 'Multi-device' (query "
+                   "heads the model axis does not divide; an lru split that cuts an RWKV "
+                   "head; batch rows over model outside the MoE layer; serving under a "
+                   "model axis; several devices a process)")
 
 # the families whose forward runs tensor and expert parallelism over ``model``
-TP_FAMILIES = ("dense", "moe")
+TP_FAMILIES = ("dense", "moe", "rwkv6", "rglru", "encdec", "vlm")
 # the logical axes a tensor-parallel forward reads a ``model`` shard of
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts")
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts", "lru")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +223,10 @@ class ShardingPlan:
     device: torch.device = torch.device("cpu")
     family: Optional[str] = None   # the model's family (what check_plan reads)
     axes: PyTree = None            # the parameters' logical-axes tree
+    # the whole width of the ``lru`` axis and the channels a split keeps
+    # together (an RWKV head's: its group norm and bonus are per head)
+    lru_width: int = 0
+    lru_group: int = 1
 
     @property
     def n_devices(self) -> int:
@@ -418,17 +423,18 @@ def check_plan(plan: ShardingPlan, processes: Optional[int] = None) -> ShardingP
     not run (:data:`SHARDED_WEIGHTS`): more devices than ``processes``; a
     leaf sharded over ``model`` in a family other than :data:`TP_FAMILIES`,
     or on a logical axis other than :data:`TP_AXES`; query heads the
-    ``model`` axis does not divide.  Leaves whole on every device, sharded
-    over ``data`` (ZeRO-3) or over ``model`` (tensor and expert
-    parallelism of the dense and MoE families) pass; return the plan."""
+    ``model`` axis does not divide; an ``lru`` piece of a width that is not
+    a whole number of ``plan.lru_group`` channels.  Leaves whole on every
+    device, sharded over ``data`` (ZeRO-3) or over ``model`` (tensor and
+    expert parallelism) pass; return the plan."""
     if processes is not None and plan.n_devices > processes:
         raise NotImplementedError(
             f"the plan spans {plan.n_devices} devices over {processes} process(es): a "
             f"process drives one device; several devices a process is {SHARDED_WEIGHTS}")
     for name, path, lay in _model_leaves(plan):
-        where = (f"the plan shards {name} leaf {path!r} over 'model' on "
-                 f"{dict(lay.mesh_shape)['model']} devices (spec {lay.spec} on mesh "
-                 f"{dict(lay.mesh_shape)})")
+        m = dict(lay.mesh_shape)["model"]
+        where = (f"the plan shards {name} leaf {path!r} over 'model' on {m} devices (spec "
+                 f"{lay.spec} on mesh {dict(lay.mesh_shape)})")
         if plan.family not in TP_FAMILIES:
             raise NotImplementedError(
                 f"{where}, but the {plan.family} family runs no tensor parallelism "
@@ -439,14 +445,20 @@ def check_plan(plan: ShardingPlan, processes: Optional[int] = None) -> ShardingP
                 raise NotImplementedError(
                     f"{where} at its {axis!r} axis; a tensor-parallel forward reads model "
                     f"shards of {TP_AXES} only: {SHARDED_WEIGHTS}")
+            if axis == "lru" and (plan.lru_width // m) % plan.lru_group:
+                raise NotImplementedError(
+                    f"{where}: a rank's {plan.lru_width // m} of {plan.lru_width} lru "
+                    f"channels are not whole heads of {plan.lru_group} (the group norm and "
+                    f"the bonus u are per head): {SHARDED_WEIGHTS}")
     if mesh_axis_sizes(plan.mesh).get("model", 1) > 1 and plan.axes is not None:
         for path, lay in iter_layouts(plan.params):
             axes = _axes_at(plan.axes, path)
             if "heads" in axes and lay.model_dim is None:
                 raise NotImplementedError(
-                    f"the query heads of {path!r} (shape spec {lay.spec}) do not divide the "
-                    f"model axis of {mesh_axis_sizes(plan.mesh)['model']}; the reference pads "
-                    f"them through GSPMD, the port does not yet: {SHARDED_WEIGHTS}")
+                    f"the query heads of {path!r} (shape spec {lay.spec}) are not split over "
+                    f"the model axis of {mesh_axis_sizes(plan.mesh)['model']} (it does not "
+                    f"divide them, or the rules keep them whole); the reference pads or "
+                    f"replicates them through GSPMD, the port does not yet: {SHARDED_WEIGHTS}")
     return plan
 
 

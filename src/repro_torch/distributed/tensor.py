@@ -18,6 +18,12 @@ every rank of a ``model`` group:
     product: an all-reduce of the partial sums forward, the identity
     backward.  Partial sums and gradients are reduced in float32 and
     rounded once to the activation's dtype;
+  * :func:`gather_features`: a rank's feature columns of an activation
+    whole along the last dim (every rank's piece in rank order), whose
+    gradient is whole on every rank: the backward keeps the rank's slice,
+    no collective (RWKV-6's channel-mix gate ``r`` and its decay mix);
+  * :func:`row_absmax`: the max over the group of each row's absmax of a
+    rank's columns (the int8 RG-LRU's whole-row scale);
   * :func:`gather_batch` / :func:`scatter_batch`: the over-model layout's
     tiled all-gather of a group's rows along the batch and its
     reduce-scatter back (the MoE layer's, where the ``batch`` rule names
@@ -95,7 +101,8 @@ def model_axis() -> Optional[ModelAxis]:
 
 @dataclasses.dataclass(frozen=True)
 class TensorPlan:
-    """Which of a config's products a rank computes a ``model`` piece of."""
+    """Which of a config's products a rank computes a ``model`` piece of
+    (``lru``: the recurrent families' channel blocks, RWKV-6's heads)."""
 
     axis: ModelAxis
     heads: bool
@@ -105,6 +112,7 @@ class TensorPlan:
     experts: bool
     n_heads: int
     n_kv_heads: int
+    lru: bool = False
 
 
 def _names_model(spec) -> bool:
@@ -118,34 +126,56 @@ def _over_model(name: str, size: int) -> bool:
     return _names_model(_divisible_spec(spec_for((name,), get_rules()), (size,), get_mesh()))
 
 
+def lru_width(cfg) -> int:
+    """The whole width of ``cfg``'s ``lru`` axis (0 where it has none)."""
+    if cfg.family == "rwkv6":
+        return cfg.d_model
+    if cfg.family == "rglru":
+        return cfg.lru_width or cfg.d_model
+    return 0
+
+
 def plan_for(cfg) -> Optional[TensorPlan]:
     """The :class:`TensorPlan` of ``cfg`` on the mesh in scope, or None.
     Query heads that the rules put on ``model`` but the axis does not
-    divide raise ``NotImplementedError`` (the reference pads them)."""
+    divide raise ``NotImplementedError`` (the reference pads them); so does
+    an ``lru`` split that cuts an RWKV head."""
     axis = model_axis()
     if axis is None:
         return None
-    heads = _over_model("heads", cfg.n_heads)
-    if not heads and _names_model(spec_for(("heads",), get_rules())):
+    attention = cfg.family != "rwkv6"
+    heads = attention and _over_model("heads", cfg.n_heads)
+    if attention and not heads and _names_model(spec_for(("heads",), get_rules())):
         raise NotImplementedError(
             f"{cfg.name}'s {cfg.n_heads} query heads do not divide the model axis of "
             f"{axis.size}: {SHARDED_WEIGHTS}")
-    return TensorPlan(axis=axis, heads=heads, kv_heads=_over_model("kv_heads", cfg.n_kv_heads),
+    width = lru_width(cfg)
+    lru = width > 0 and _over_model("lru", width)
+    if lru and cfg.family == "rwkv6" and (width // axis.size) % cfg.rwkv_head_dim:
+        raise NotImplementedError(
+            f"{cfg.name}'s {width} channels over a model axis of {axis.size} are not whole "
+            f"heads of {cfg.rwkv_head_dim}: {SHARDED_WEIGHTS}")
+    return TensorPlan(axis=axis, heads=heads,
+                      kv_heads=attention and _over_model("kv_heads", cfg.n_kv_heads),
                       mlp=_over_model("mlp", cfg.d_ff) and cfg.family != "moe",
                       vocab=_over_model("vocab", cfg.vocab),
                       experts=bool(cfg.n_experts) and _over_model("experts", cfg.n_experts),
-                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, lru=lru)
 
 
 def logical_sizes_of(cfg) -> Dict[str, int]:
     """The whole sizes of ``cfg``'s sharded activation axes (what
     :func:`~repro_torch.distributed.sharding.with_logical_constraint`
-    holds a rank's pieces to)."""
+    holds a rank's pieces to).  The recurrent families' channel-block
+    activations are named ``lru``, the weights' axis (the reference names
+    them ``act_mlp``, which the port keeps for the FFN columns)."""
     sizes = {"act_heads": cfg.n_heads, "act_kv_heads": cfg.n_kv_heads, "act_vocab": cfg.vocab}
     if cfg.family == "moe":
         sizes["act_experts"] = cfg.n_experts
     else:
         sizes["act_mlp"] = cfg.d_ff
+    if lru_width(cfg):
+        sizes["lru"] = lru_width(cfg)
     return sizes
 
 
@@ -232,6 +262,35 @@ def gather_weight(w: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
     """A ``model``-sharded weight whole along ``dim`` (every rank's piece in
     rank order); its gradient comes back reduce-scattered."""
     return zero._Gather.apply(w, dim, axis.scope)
+
+
+class _GatherFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.width = axis, x.shape[-1]
+        return zero.all_gather(x, x.dim() - 1, axis.group, axis.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n = ctx.axis.index, ctx.width
+        return g[..., i * n:(i + 1) * n], None
+
+
+def gather_features(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Every rank's feature columns of ``x`` (its last dim) in rank order.
+    The gradient of the whole is whole on every rank (it flows from whole
+    activations), so the backward keeps the rank's slice of it and moves
+    nothing."""
+    return _GatherFeatures.apply(x, axis)
+
+
+@torch.no_grad()
+def row_absmax(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The absmax of each row of the whole (..., W) of which ``x`` holds
+    this rank's columns: the max over the group of the ranks' row absmax,
+    float32 (..., 1)."""
+    return _all_reduce_max(x.detach().float().abs().amax(dim=-1, keepdim=True).contiguous(),
+                           axis)
 
 
 class _DataMean(torch.autograd.Function):

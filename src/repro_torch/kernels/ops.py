@@ -105,9 +105,18 @@ def quantize_int8(
     return out
 
 
-def _quantize_q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_q8(x: torch.Tensor, row_absmax: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Round-half-up int8 over the last axis of any shape (the training
-    quantizer: constant noise 0.5)."""
+    quantizer: constant noise 0.5).  ``row_absmax`` (..., 1), where given,
+    is the absmax of a wider row of which ``x`` holds columns: it rides as
+    four more columns (16 bytes of float32), so the quantizer's own absmax
+    is that row's and so is the scale, and they are dropped from ``q``."""
+    if row_absmax is not None:
+        n = x.shape[-1]
+        wide = torch.cat([x, row_absmax.to(x.dtype).expand(x.shape[:-1] + (4,))], dim=-1)
+        q, s = _quantize_q8(wide)
+        return q[..., :n].contiguous(), s
     q, s = quantize_int8(x.reshape(-1, x.shape[-1]).contiguous(), 0.5)
     return q.view(x.shape), s.view(x.shape[:-1] + (1,))
 
@@ -568,8 +577,8 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 class _RGLRUScanQ8(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, x):
-        xq, xs = _quantize_q8(x)
+    def forward(ctx, a, x, row_absmax):
+        xq, xs = _quantize_q8(x, row_absmax)
         ctx.save_for_backward(a, xq, xs)
         ctx.x_dtype = x.dtype
         if x.is_meta:
@@ -585,11 +594,15 @@ class _RGLRUScanQ8(torch.autograd.Function):
     def backward(ctx, g):
         a, xq, xs = ctx.saved_tensors
         da, dx = _rglru_vjp(a, R.dequantize_int8_ref(xq, xs), g)
-        return da.to(a.dtype), dx.to(ctx.x_dtype)
+        return da.to(a.dtype), dx.to(ctx.x_dtype), None
 
 
-def rglru_scan_q8(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def rglru_scan_q8(a: torch.Tensor, x: torch.Tensor,
+                  row_absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Int8-fused RG-LRU: the gated input is quantized per row of W (round
     half up) and dequantized inside the scan; the decay stays float32 and the
-    backward residual is the int8 input + scales.  -> (B, S, W) in x.dtype."""
-    return _RGLRUScanQ8.apply(a, x)
+    backward residual is the int8 input + scales.  -> (B, S, W) in x.dtype.
+    ``row_absmax`` (B, S, 1): the absmax of each whole row where x holds a
+    tensor-parallel rank's channels of it (the row's scale is then the
+    reference's, which quantizes the whole row)."""
+    return _RGLRUScanQ8.apply(a, x, row_absmax)

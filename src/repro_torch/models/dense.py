@@ -88,9 +88,10 @@ def embedding(params: PyTree) -> Dict[str, torch.Tensor]:
 
 def tensor_plan(cfg: ModelConfig):
     """``(TensorPlan or None, the context that holds the activations to
-    their layout)`` of a training forward on the mesh in scope.  Batch rows
-    split over ``model`` too (the reference's DP-attention layout) run only
-    the MoE layer's over-model path; the attention over them is not ported."""
+    their layout)`` of a training forward of any family on the mesh in
+    scope.  Batch rows split over ``model`` too (the reference's
+    DP-attention layout) run only the MoE layer's over-model path; the
+    attention and the recurrent blocks over them are not ported."""
     tp = tensor.plan_for(cfg)
     if tp is None:
         return None, contextlib.nullcontext()

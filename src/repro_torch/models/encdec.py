@@ -20,6 +20,13 @@ The cache holds the decoder's self-attention K/V (``k``, ``v``: (L, B,
 cache_len, Hkv, D)) and every layer's cross-attention K/V over the frames
 (``xk``, ``xv``: (L, B, n_frames, Hkv, D)), written once by ``prefill``;
 an int8 cache stores all four as int8 rows plus f32 row scales (8 leaves).
+
+On a mesh with a ``model`` axis the training forward is tensor-parallel
+(:class:`~repro_torch.distributed.tensor.TensorPlan`): the encoder's and the
+decoder's attention and MLPs run the rank's heads and FFN columns, the
+cross-attention's query heads read the rank's K/V heads of the encoder
+output (which passes a copy-in: its gradient, the rank's heads' part, is
+summed once), and the tied embedding and head split the vocabulary.
 """
 from __future__ import annotations
 
@@ -29,10 +36,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor
 from repro_torch.kernels import ref as KR
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.dense import _layer, _run_layer
+from repro_torch.models.dense import _layer, _run_layer, tensor_plan
 from repro_torch.models.param import ParamBuilder, build, normal_init, stacked
 
 PyTree = Any
@@ -95,9 +103,9 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
-def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor, tp=None) -> torch.Tensor:
     """frames (B, n_frames, d_model), the stubbed frontend's output ->
-    encoder output (B, n_frames, d_model)."""
+    encoder output (B, n_frames, d_model), whole on every rank under ``tp``."""
     if frames is None:
         raise ValueError("encdec: encode needs frames (B, n_frames, d_model)")
     x = frames.to(cfg.dtype) + sinusoids(frames.shape[1], cfg.d_model,
@@ -106,9 +114,10 @@ def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
 
     def body(lp, h):
         a = L.attention_train(lp["attn"], L.layer_norm(lp["ln1"], h), positions=positions,
-                              causal=False, use_rope=False, precision=cfg.train_precision)
+                              causal=False, use_rope=False, precision=cfg.train_precision,
+                              tp=tp)
         h = h + a
-        return h + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], h))
+        return h + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], h), tp)
 
     for i in range(cfg.n_enc_layers):
         x = _run_layer(cfg, body, _layer(params["enc_blocks"], i), x)
@@ -126,34 +135,44 @@ def _dec_positions(params: PyTree, S: int) -> torch.Tensor:
     return table[torch.clamp(torch.arange(S, device=table.device), max=table.shape[0] - 1)]
 
 
-def _embed_dec(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
+def _embed_dec(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+               tp=None) -> torch.Tensor:
+    x = L.embed(params["embedding"], tokens, cfg.dtype, tp)
     return x + _dec_positions(params, tokens.shape[1]).to(cfg.dtype)
 
 
 def decode_train(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-                 enc_out: torch.Tensor) -> torch.Tensor:
-    x = _embed_dec(params, cfg, tokens)
+                 enc_out: torch.Tensor, tp=None) -> torch.Tensor:
+    """The decoder over ``tokens`` against ``enc_out`` -> logits (B, S, V),
+    under ``tp`` the rank's vocabulary columns."""
+    x = _embed_dec(params, cfg, tokens, tp)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    # every layer's cross K/V of the rank's KV heads read the encoder output
+    # through one copy-in: one all-reduce of its gradient a step
+    ctx = tensor.copy_in(enc_out, tp.axis) if tp is not None and tp.kv_heads else enc_out
 
     def body(lp, h):
         a = L.attention_train(lp["self_attn"], L.layer_norm(lp["ln1"], h), positions=positions,
-                              causal=True, use_rope=False, precision=cfg.train_precision)
+                              causal=True, use_rope=False, precision=cfg.train_precision,
+                              tp=tp)
         h = h + a
-        ck, cv = L.cross_kv(lp["cross_attn"], enc_out)
-        h = h + L.cross_attention(lp["cross_attn"], L.layer_norm(lp["ln_x"], h), ck, cv)
-        return h + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], h))
+        ck, cv = L.cross_kv(lp["cross_attn"], ctx)
+        h = h + L.cross_attention(lp["cross_attn"], L.layer_norm(lp["ln_x"], h), ck, cv, tp)
+        return h + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], h), tp)
 
     for i in range(cfg.n_dec_layers):
         x = _run_layer(cfg, body, _layer(params["dec_blocks"], i), x)
     x = L.layer_norm(params["ln_dec"], x)
-    return L.logits(params["embedding"], x)
+    return L.logits(params["embedding"], x, tp)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Encoder over ``frames``, then the decoder over ``tokens`` -> logits (B, S, V)."""
-    return decode_train(params, cfg, tokens, encode(params, cfg, frames))
+    """Encoder over ``frames``, then the decoder over ``tokens`` -> logits
+    (B, S, V); on a mesh with a ``model`` axis, tensor-parallel."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        return decode_train(params, cfg, tokens, encode(params, cfg, frames, tp), tp)
 
 
 # ---------------------------------------------------------------------------

@@ -169,22 +169,30 @@ def _tp_qkv(p: Dict, x: torch.Tensor, tp) -> Tuple[torch.Tensor, torch.Tensor, t
     xq = tensor.copy_in(x, tp.axis)
     q = wlc(q_project(p, xq), "batch", "seq", "act_heads", None)
     k, v = cross_kv(p, xq if tp.kv_heads else x)
+    return (q,) + _tp_kv(k, v, q.shape[2], tp)
+
+
+def _tp_kv(k: torch.Tensor, v: torch.Tensor, h_loc: int, tp
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V heads a rank's ``h_loc`` query heads read: ``k``, ``v`` as
+    they are where they are the rank's KV heads, else (every KV head,
+    computed whole) copied in and the rank's picked out."""
     k = wlc(k, "batch", "seq", "act_kv_heads", None)
     v = wlc(v, "batch", "seq", "act_kv_heads", None)
     if tp.kv_heads:
-        return q, k, v
+        return k, v
     k, v = tensor.copy_in(k, tp.axis), tensor.copy_in(v, tp.axis)
-    h_loc, group = q.shape[2], tp.n_heads // tp.n_kv_heads
+    group = tp.n_heads // tp.n_kv_heads
     first = tp.axis.index * h_loc
     if h_loc % group == 0:             # whole groups: their KV heads, in order
         sel = slice(first // group, first // group + h_loc // group)
-        return q, k[:, :, sel], v[:, :, sel]
+        return k[:, :, sel], v[:, :, sel]
     if group % h_loc == 0:             # part of one group: its one KV head
         sel = slice(first // group, first // group + 1)
-        return q, k[:, :, sel], v[:, :, sel]
+        return k[:, :, sel], v[:, :, sel]
     idx = torch.div(torch.arange(first, first + h_loc, device=k.device), group,
                     rounding_mode="floor")
-    return q, k.index_select(2, idx), v.index_select(2, idx)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def attention_train(
@@ -326,14 +334,22 @@ def cross_kv(p: Dict, ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def cross_attention(p: Dict, x: torch.Tensor, ctx_k: torch.Tensor,
-                    ctx_v: torch.Tensor) -> torch.Tensor:
+                    ctx_v: torch.Tensor, tp=None) -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V, no RoPE, no
     mask (``layers.py:569-585``): every query row sees every frame, through
-    the flash op with ``causal=False`` (Sq decoder rows against Skv frames)."""
-    q = wlc(q_project(p, x), "batch", "seq", "act_heads", None)
+    the flash op with ``causal=False`` (Sq decoder rows against Skv frames).
+
+    Under ``tp`` the rank's query heads read the rank's K/V heads:
+    ``ctx_k`` / ``ctx_v`` are those where the axis divides the KV heads
+    (:func:`cross_kv` of the rank's ``wk`` / ``wv`` over the copied-in
+    encoder output), else every KV head, of which the rank's are picked."""
+    xq = x if tp is None else tensor.copy_in(x, tp.axis)
+    q = wlc(q_project(p, xq), "batch", "seq", "act_heads", None)
+    if tp is not None:
+        ctx_k, ctx_v = _tp_kv(ctx_k, ctx_v, q.shape[2], tp)
     o = kops.flash_attention(q.contiguous(), ctx_k.contiguous(), ctx_v.contiguous(),
                              causal=False)
-    return out_project(p, o)
+    return out_project(p, o, tp)
 
 
 def cross_attention_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor]

@@ -18,6 +18,16 @@ Entry points as :mod:`repro_torch.models.dense`.  ``forward`` and
 :func:`~repro_torch.kernels.ops.rglru_scan_q8`) and the A layers through the
 flash attention ops; ``decode_step`` steps the recurrence in plain PyTorch and
 attends through the decode op over each A layer's rotating window.
+
+On a mesh whose ``model`` axis splits the ``lru`` channels
+(:func:`repro_torch.distributed.tensor.plan_for`) the training forward is
+tensor-parallel: a recurrent block's ``in_rec`` / ``in_gate`` are column
+pieces, the conv, the gates, ``lam`` and the scan run on the rank's
+channels, and ``out`` is a row piece with a reduce-out; the local attention
+and the GeGLU split heads and FFN columns as the dense layers do, and the
+tied embedding and head split the vocabulary.  Under ``int8-fused`` the
+gated input is quantized with the whole row's scale (the max over the
+group of the ranks' row absmax), as the reference quantizes the whole row.
 """
 from __future__ import annotations
 
@@ -27,10 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor
+from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.dense import _final, _layer, _run_layer
+from repro_torch.models.dense import _final, _layer, _run_layer, tensor_plan
 from repro_torch.models.param import (
     ParamBuilder, build, normal_init, stacked, uniform_init, zeros_init,
 )
@@ -66,13 +78,16 @@ def _rglru_gates(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return log_a, gated
 
 
-def rglru_scan(p: Dict, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
-    """The whole sequence through the scan op. x: (B, S, W) -> y (B, S, W) in x.dtype."""
+def rglru_scan(p: Dict, x: torch.Tensor, precision: str = "f32", tp=None) -> torch.Tensor:
+    """The whole sequence through the scan op. x: (B, S, W) -> y (B, S, W)
+    in x.dtype.  Under ``tp`` (an ``lru`` split) x holds the rank's channels."""
     log_a, gated = _rglru_gates(p, x)
     a = torch.exp(log_a)
     if precision == "int8-fused":
-        # the gated input streams as int8 + row scales; the decay stays f32
-        return kops.rglru_scan_q8(a, gated).to(x.dtype)
+        # the gated input streams as int8 + row scales; the decay stays f32.
+        # A rank's row is part of the reference's: it takes the whole row's scale
+        row = tensor.row_absmax(gated, tp.axis) if tp is not None and tp.lru else None
+        return kops.rglru_scan_q8(a, gated, row_absmax=row).to(x.dtype)
     if precision == "bf16":
         gated = gated.to(torch.bfloat16).float()
     return kops.rglru_scan(a, gated).to(x.dtype)
@@ -128,13 +143,19 @@ def init_recurrent_block(s, cfg: ModelConfig):
     L.init_linear(s, "out", w, cfg.d_model, axes=("lru", "embed"))
 
 
-def recurrent_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig
+def recurrent_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, tp=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The prompt through the block -> (out, decode-ready {"conv", "lru"})."""
-    rec_in = L.linear(lp["in_rec"], x)
-    gate = F.gelu(L.linear(lp["in_gate"], x), approximate="tanh")
-    rec = rglru_scan(lp["lru"], causal_conv1d(lp["conv"], rec_in), cfg.train_precision)
-    out = L.linear(lp["out"], rec * gate)
+    """The prompt through the block -> (out, decode-ready {"conv", "lru"}).
+    Under ``tp`` the rank's channels, the row piece's partial sums summed
+    (``out`` has no bias to add once)."""
+    split = tp is not None and tp.lru
+    xc = tensor.copy_in(x, tp.axis) if split else x
+    rec_in = L.linear(lp["in_rec"], xc)
+    gate = F.gelu(L.linear(lp["in_gate"], xc), approximate="tanh")
+    rec = rglru_scan(lp["lru"], causal_conv1d(lp["conv"], rec_in), cfg.train_precision, tp)
+    out = L.linear(lp["out"], wlc(rec * gate, "batch", "seq", "lru"))
+    if split:
+        out = tensor.reduce_out(out, tp.axis)
     # conv window: the last (k-1) conv INPUTS, zero-padded on the left when
     # the prompt is shorter; lru h: the last scan output, after its cast to
     # the model dtype (rglru.py:169)
@@ -200,29 +221,33 @@ def init_params(
 
 
 def _layer_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, tp=None) -> torch.Tensor:
     h = L.rms_norm(lp["ln1"], x)
     if kind == "A":
         h = L.attention_train(
             lp["attn"], h, positions=positions, causal=True, window=cfg.window,
-            rope_theta=cfg.rope_theta, precision=cfg.train_precision)
+            rope_theta=cfg.rope_theta, precision=cfg.train_precision, tp=tp)
     else:
-        h, _ = recurrent_block(lp, h, cfg)
+        h, _ = recurrent_block(lp, h, cfg, tp)
     x = x + h
-    return x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x))
+    return x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x), tp)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Training forward. tokens: (B, S) int -> logits (B, S, V).  The layers
-    run in pattern order, each a view of its kind's stacked group."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
-    idx = {"R": 0, "A": 0}
-    for kind in layer_kinds(cfg):
-        x = _run_layer(cfg, lambda lp, h, kind=kind: _layer_train(lp, h, cfg, kind, positions),
-                       _layer(params["groups"][kind], idx[kind]), x)
-        idx[kind] += 1
-    return _final(params, x, cfg)
+    run in pattern order, each a view of its kind's stacked group.  On a
+    mesh with a ``model`` axis, tensor-parallel (the module doc)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = L.embed(params["embedding"], tokens, cfg.dtype, tp)
+        positions = torch.arange(x.shape[1], device=x.device)
+        idx = {"R": 0, "A": 0}
+        for kind in layer_kinds(cfg):
+            x = _run_layer(cfg, lambda lp, h, kind=kind: _layer_train(lp, h, cfg, kind,
+                                                                      positions, tp),
+                           _layer(params["groups"][kind], idx[kind]), x)
+            idx[kind] += 1
+        return _final(params, x, cfg, tp)
 
 
 def _attn_len(cfg: ModelConfig, cache_len: int) -> int:

@@ -23,6 +23,17 @@ Entry points:
 ``train_precision="int8-fused"`` through
 :func:`~repro_torch.kernels.ops.rwkv6_scan_q8` (the CUDA kernels on the card);
 ``decode_step`` through the plain one-token step, as the reference does.
+
+On a mesh whose ``model`` axis splits the ``lru`` channels (whole heads a
+rank, :func:`repro_torch.distributed.tensor.plan_for`) the training forward
+is tensor-parallel: a rank computes r, k, v, g and the decay of its heads
+(the WKV scan at (B, S, H/m, D)), their group norm and gate, and its rows of
+``wo`` (a reduce-out); channel mixing splits its FFN columns as the dense
+MLP does, and its gate r (column-sharded by ``cmix.wr``) is gathered whole
+before it gates the reduced output.  The ``mu_*`` vectors are ``lru``
+pieces that mix the whole ``x``, so they are gathered whole; the decay
+LoRA's ``wa`` is replicated, so ``tanh(x_w wa)`` is computed whole on
+every rank and copied in after it.
 """
 from __future__ import annotations
 
@@ -32,10 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor
+from repro_torch.distributed.sharding import with_logical_constraint as wlc
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.dense import _layer, _scan_blocks, embedding, head
+from repro_torch.models.dense import _layer, _scan_blocks, embedding, head, tensor_plan
 from repro_torch.models.param import (
     ParamBuilder, build, normal_init, ones_init, scaled_init, stacked, zeros_init,
 )
@@ -98,6 +111,25 @@ def _mixer(x: torch.Tensor, xp: torch.Tensor):
     return mix
 
 
+def _whole_mus(p: Dict, partial: Dict[str, bool], tp) -> Dict[str, torch.Tensor]:
+    """The mix vectors named in ``partial``, whole.  Under an ``lru`` split
+    each is the rank's piece, gathered in one all-gather a kind: where the
+    rank's gradient of the whole vector is a partial sum (``partial[name]``:
+    it mixes the input of the rank's columns) the backward reduce-scatters
+    it, else (whole on every rank) it keeps the rank's slice."""
+    if tp is None or not tp.lru:
+        return {name: p[name] for name in partial}
+    out = {}
+    for summed in (True, False):
+        names = [name for name, k in partial.items() if k == summed]
+        if names:
+            pieces = torch.stack([p[name] for name in names])
+            whole = (tensor.gather_weight(pieces, 1, tp.axis) if summed
+                     else tensor.gather_features(pieces, tp.axis))
+            out.update(zip(names, whole.unbind(0)))
+    return out
+
+
 def _group_norm(p: Dict, x: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
     """Head-wise group norm over (B, S, H, D), flattened back to channels."""
     B, S, H, D = x.shape
@@ -109,21 +141,34 @@ def _group_norm(p: Dict, x: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
 
 
 def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-             state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+             state: Optional[Dict] = None, tp=None) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d).  ``state`` None: the whole prompt through the scan op;
     otherwise one decode token against ``{"shift": (B, d), "wkv": (B, H, D, D)}``.
-    Returns (out, {"shift": x[:, -1], "wkv": state after the last position})."""
+    Returns (out, {"shift": x[:, -1], "wkv": state after the last position}).
+    Under ``tp`` (training) the rank's heads, as the module doc says."""
     hd = cfg.rwkv_head_dim
     B, S, d = x.shape
-    H = d // hd
     mix = _mixer(x, _token_shift(x, state["shift"] if state else None))
+    if tp is not None and tp.lru:
+        # r, k, v, g read the copied-in x (their gradients are the rank's
+        # columns' parts, summed once); the decay's whole LoRA input reads
+        # x itself, its gradient whole on every rank
+        xc = tensor.copy_in(x, tp.axis)
+        mix_c = _mixer(xc, _token_shift(xc))
+        mu = _whole_mus(p, {"mu_r": True, "mu_k": True, "mu_v": True, "mu_g": True,
+                            "mu_w": False}, tp)
+        lora = tensor.copy_in(torch.tanh(mix(mu["mu_w"]) @ p["wa"].to(x.dtype)), tp.axis)
+    else:
+        mix_c, mu = mix, p
+        lora = torch.tanh(mix(p["mu_w"]) @ p["wa"].to(x.dtype))
 
-    r = mix(p["mu_r"]) @ p["wr"].to(x.dtype)
-    k = mix(p["mu_k"]) @ p["wk"].to(x.dtype)
-    v = mix(p["mu_v"]) @ p["wv"].to(x.dtype)
-    g = mix(p["mu_g"]) @ p["wg"].to(x.dtype)
-    decay_in = torch.tanh(mix(p["mu_w"]) @ p["wa"].to(x.dtype)) @ p["wb"].to(x.dtype)
+    r = mix_c(mu["mu_r"]) @ p["wr"].to(x.dtype)
+    k = mix_c(mu["mu_k"]) @ p["wk"].to(x.dtype)
+    v = mix_c(mu["mu_v"]) @ p["wv"].to(x.dtype)
+    g = mix_c(mu["mu_g"]) @ p["wg"].to(x.dtype)
+    decay_in = lora @ p["wb"].to(x.dtype)
     w = torch.exp(-torch.exp(torch.clamp(p["w0"].float() + decay_in.float(), -10.0, 5.0)))
+    H = r.shape[-1] // hd              # this rank's heads
 
     # the decay goes to the scan in the model dtype (rwkv6.py:156)
     r4, k4, v4, w4 = (t.reshape(B, S, H, hd) for t in (r, k, v, w.to(x.dtype)))
@@ -139,8 +184,11 @@ def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         out, s_new = wkv6_step(r4[:, 0], k4[:, 0], v4[:, 0], w4[:, 0], u, state["wkv"])
         out = out[:, None]
 
-    out = _group_norm(p, out) * F.silu(g)
-    return out @ p["wo"].to(x.dtype), {"shift": x[:, -1], "wkv": s_new}
+    out = wlc(_group_norm(p, out) * F.silu(g), "batch", "seq", "lru")
+    y = out @ p["wo"].to(x.dtype)
+    if tp is not None and tp.lru:
+        y = tensor.reduce_out(y, tp.axis)
+    return y, {"shift": x[:, -1], "wkv": s_new}
 
 
 # ---------------------------------------------------------------------------
@@ -157,11 +205,34 @@ def init_channel_mix(b, cfg: ModelConfig):
     s.param("wv", (cfg.d_ff, cfg.d_model), ("mlp", "embed"), init=scaled_init(0))
 
 
-def channel_mix(p: Dict, x: torch.Tensor, shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+def channel_mix(p: Dict, x: torch.Tensor, shift: Optional[torch.Tensor] = None,
+                tp=None) -> torch.Tensor:
+    """``sigmoid(x_r wr) * (relu(x_k wk)^2 wv)``.  Under ``tp`` the rank's
+    ``lru`` columns of r, gathered whole (its gradient, whole, comes back
+    as the rank's slice), and its FFN columns of k with a reduce-out."""
+    split_r = tp is not None and tp.lru
+    split_k = tp is not None and tp.mlp
     mix = _mixer(x, _token_shift(x, shift))
-    r = torch.sigmoid(mix(p["mu_r"]) @ p["wr"].to(x.dtype))
-    k = torch.square(torch.relu(mix(p["mu_k"]) @ p["wk"].to(x.dtype)))
-    return r * (k @ p["wv"].to(x.dtype))
+    if split_r:
+        # the mix vectors are lru pieces, gathered whole; they mix the
+        # copied-in x where the rank's columns read it
+        xc = tensor.copy_in(x, tp.axis)
+        mix_c = _mixer(xc, _token_shift(xc, shift))
+        mu = _whole_mus(p, {"mu_r": True, "mu_k": split_k}, tp)
+        x_r, x_k = mix_c(mu["mu_r"]), (mix_c if split_k else mix)(mu["mu_k"])
+    else:
+        # whole mix vectors: their gradients stay whole, the copy-in after them
+        x_r, x_k = mix(p["mu_r"]), mix(p["mu_k"])
+        if split_k:
+            x_k = tensor.copy_in(x_k, tp.axis)
+    r = torch.sigmoid(x_r @ p["wr"].to(x.dtype))
+    if split_r:
+        r = tensor.gather_features(r, tp.axis)
+    k = torch.square(torch.relu(x_k @ p["wk"].to(x.dtype)))
+    kv = wlc(k, "batch", "seq", "act_mlp") @ p["wv"].to(x.dtype)
+    if split_k:
+        kv = tensor.reduce_out(kv, tp.axis)
+    return r * kv
 
 
 # ---------------------------------------------------------------------------
@@ -197,23 +268,27 @@ def init_params(
     return build(f, seed=seed, abstract=abstract, dtype=dtype or cfg.dtype, device=dev)
 
 
-def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
     x = L.layer_norm(params["ln_f"], x)
-    return L.logits(head(params, cfg), x)
+    return L.logits(head(params, cfg), x, tp)
 
 
-def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h, _ = time_mix(lp["tmix"], L.layer_norm(lp["ln1"], x), cfg)
+def _block_train(lp: Dict, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    h, _ = time_mix(lp["tmix"], L.layer_norm(lp["ln1"], x), cfg, tp=tp)
     x = x + h
-    return x + channel_mix(lp["cmix"], L.layer_norm(lp["ln2"], x))
+    return x + channel_mix(lp["cmix"], L.layer_norm(lp["ln2"], x), tp=tp)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Training forward. tokens: (B, S) int -> logits (B, S, V)."""
-    x = L.embed(embedding(params), tokens, cfg.dtype)
-    x = L.layer_norm(params["ln0"], x)
-    x = _scan_blocks(params, x, cfg, lambda lp, h: _block_train(lp, h, cfg))
-    return _logits(params, cfg, x)
+    """Training forward. tokens: (B, S) int -> logits (B, S, V); on a mesh
+    with a ``model`` axis, tensor-parallel (the logits are then this rank's
+    vocabulary columns where the axis divides the vocabulary)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = L.embed(embedding(params), tokens, cfg.dtype, tp)
+        x = L.layer_norm(params["ln0"], x)
+        x = _scan_blocks(params, x, cfg, lambda lp, h: _block_train(lp, h, cfg, tp))
+        return _logits(params, cfg, x, tp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, dtype=None,

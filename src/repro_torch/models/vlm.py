@@ -13,6 +13,11 @@ Past the multimodal prefix all three streams move together, so a text
 decode step is plain RoPE at position ``pos + mrope_offset``; ``prefill``
 writes that offset into the cache (``mrope_offset``, (B,) int32) and
 ``decode_step`` reads it.
+
+On a mesh with a ``model`` axis the training forward is the dense
+decoder's tensor-parallel one; the text tokens go through the
+vocabulary-parallel embedding before the patch embeddings (replicated over
+``model``) are placed in front of them.
 """
 from __future__ import annotations
 
@@ -50,9 +55,11 @@ def mrope_positions(cfg: ModelConfig, batch: int, seq: int, grid: Optional[int] 
 
 
 def _sequence(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-              patch_embeds: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[int]]:
-    """[patches | text] embeddings, and the patch count (None without patches)."""
-    x = L.embed(dense.embedding(params), tokens, cfg.dtype)
+              patch_embeds: Optional[torch.Tensor], tp=None
+              ) -> Tuple[torch.Tensor, Optional[int]]:
+    """[patches | text] embeddings, and the patch count (None without
+    patches); under ``tp`` the text rows from the vocabulary shards."""
+    x = L.embed(dense.embedding(params), tokens, cfg.dtype, tp)
     if patch_embeds is None:
         return x, None
     return torch.cat([patch_embeds.to(cfg.dtype), x], dim=1), patch_embeds.shape[1]
@@ -61,8 +68,11 @@ def _sequence(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S_text), patch_embeds (B, n_patches, d) -> logits for every
-    position of [patches | text]."""
-    x, n_vis = _sequence(params, cfg, tokens, patch_embeds)
+    position of [patches | text] (under a ``model`` axis, this rank's
+    vocabulary columns)."""
+    tp, sizes = dense.tensor_plan(cfg)
+    with sizes:
+        x, n_vis = _sequence(params, cfg, tokens, patch_embeds, tp)
     mpos = mrope_positions(cfg, x.shape[0], x.shape[1], n_vis=n_vis, device=x.device)
     return dense.forward(params, cfg, tokens, inputs_embeds=x, mrope_positions=mpos)
 

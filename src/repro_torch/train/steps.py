@@ -654,7 +654,16 @@ def build_sharding_plan(
         global_rows=int(global_rows),
         data_axis=mesh_axis_sizes(mesh).get("data", 1),
         device=torch.device(device), family=model.cfg.family, axes=p_axes,
+        **lru_split(model.cfg),
     )
+
+
+def lru_split(cfg) -> Dict[str, int]:
+    """The ``lru`` axis's whole width and the channels a ``model`` split
+    keeps together: an RWKV-6 head's (its group norm and bonus ``u`` are
+    per head), else one (every RG-LRU gate is diagonal)."""
+    return {"lru_width": tensor.lru_width(cfg),
+            "lru_group": cfg.rwkv_head_dim if cfg.family == "rwkv6" else 1}
 
 
 def make_eval_step(model: Model, *, aux_weight: float = 0.01) -> Callable:

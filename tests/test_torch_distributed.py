@@ -422,13 +422,13 @@ def test_plan_placements_equal_the_reference(both_sides, i):
     assert plan.opt.mu is plan.params and plan.opt.step.placements == (Replicate(),) * 2
     assert plan.describe() == (f"ShardingPlan(mesh={{'data': {data}, 'model': {model}}}, "
                                f"rows={PLAN_ROWS}, data_axis={data})")
-    # leaves whole, sharded over data (ZeRO-3) or, for the dense and MoE
-    # families, over model (tensor and expert parallelism) run; the other
-    # families' leaves over model do not
+    # leaves whole, sharded over data (ZeRO-3) or over model (tensor and
+    # expert parallelism, every family) run; query heads that the rules keep
+    # whole beside leaves split over model (whisper's heads: None) do not
     over_model = any(p.is_shard() and size > 1 for _, lay in SH.iter_layouts(plan.params)
                      for (axis, size), p in zip(lay.mesh_shape, lay.placements)
                      if axis == "model")
-    if over_model and m.cfg.family not in SH.TP_FAMILIES:
+    if over_model and (m.cfg.family not in SH.TP_FAMILIES or extra.get("heads", "model") is None):
         with pytest.raises(NotImplementedError, match="second half of ROADMAP item 19"):
             SH.check_plan(plan)
     else:

@@ -735,19 +735,22 @@ PLAN_VERDICTS = [
     ("deepseek-7b", True, (2, 2), None),
     ("qwen3-moe-30b-a3b", False, (1, 4), None),
     ("dbrx-132b", True, (2, 2), None),
-    ("rwkv6-7b", False, (1, 2), "rwkv6 family"),
-    ("recurrentgemma-2b", False, (1, 2), "rglru family"),
-    ("whisper-medium", False, (1, 2), "encdec family"),
-    ("qwen2-vl-7b", False, (1, 2), "vlm family"),
+    ("rwkv6-7b", False, (1, 2), None),
+    ("recurrentgemma-2b", False, (1, 2), None),
+    ("whisper-medium", False, (1, 2), None),
+    ("qwen2-vl-7b", False, (1, 2), None),
     ("deepseek-7b", False, (1, 8), "query heads"),
+    ("recurrentgemma-2b", False, (1, 4), "query heads"),
+    ("rwkv6-7b", False, (1, 8), "whole heads"),
 ]
 
 
 @pytest.mark.parametrize("case", PLAN_VERDICTS, ids=lambda c: f"{c[0]}-{c[2][0]}x{c[2][1]}")
 def test_check_plan_verdicts(case):
-    """``check_plan`` passes the dense and MoE families' plans over
-    ``model`` (ZeRO-3 over ``data`` beside them) and refuses the other
-    families', indivisible query heads, and several devices a process."""
+    """``check_plan`` passes every family's plans over ``model`` (ZeRO-3
+    over ``data`` beside them) and refuses indivisible query heads, an
+    ``lru`` split that cuts an RWKV head (the smoke rwkv6's 64 channels of
+    16 a head over 8 ranks), and several devices a process."""
     arch, fsdp, (data, model_ways), refusal = case
     plan = build_sharding_plan(get_model(smoke_config(arch).with_(fsdp=fsdp)), adamw(),
                                mesh=SH.ProcessMesh(torch.device("cpu"), (data, model_ways)),
