@@ -395,13 +395,54 @@ steps and read just after:
      (8 of 16 heads) and qwen2-vl's (14 over 2 heads) against its plain
      version beside SDPA.  Laps beside TP_FAMILY_BUDGET_S.
 
+Serving under the model axis (after phase 40, before the profiles), the same
+two ranks and mesh (``chip_smoke.py --rank tsd|tsf``), each rank under
+``sharding.use_mesh`` on its pieces of the weights (``init_rank_params``,
+then ``_serve_fan_in``: every block matrix redrawn at its fan-in); each cell
+served first by one process on the card, the yardstick (a bf16 cell then
+again with the same weights in float32: the yardstick of bf16's own
+rounding), whose weights are then freed (TS_CELLS: each arch at full width
+in bf16, batch 8, 4 greedy tokens, and cut to 4 layers in float32, batch 4,
+8 greedy tokens):
+ 41. ``tp_serving("tsd")``, the ``tp_serving_dense_moe`` path: deepseek-7b
+     (30 layers, native and int8 K/V) and qwen3-moe-30b-a3b (24 of 48 layers:
+     the one process and then the two ranks each fit the card) through
+     ``ServeSession.generate`` at batch 8, prompt 128: a rank serves 16 of 32
+     heads, the MoE layer's 64 of 128 experts (the group-local EP path).
+ 42. ``tp_serving("tsf")``, the ``tp_serving_families`` path:
+     rwkv6-7b and recurrentgemma-2b through the batched route
+     (``make_prefill_step`` at prompt 128, then ``make_serve_step``) and
+     ``generate``'s stepped prefill at prompt 4 (float32: 8); whisper-medium (prompt 32
+     over 1,500 stub frames) and qwen2-vl-7b (256 stub patches + 128 tokens)
+     through ``generate``.
+     Held a cell: the two ranks' tokens and logits equal; each main-path
+     run's launches (counts set to 0 just before it, read just after) every
+     kernel's expected count (``_ts_launches``), in the one process and on
+     each rank; each cache leaf's bytes, of ``init_cache`` and of the
+     prefill, its ``Layout.local`` shape's; the collectives ``tp_serve_ops``
+     op for op; the whole prefill's and N teacher-forced decode steps'
+     logits (fed the one process's tokens, from the main path's own prefill
+     cache) within TS_LOGIT_SHARE of the one process's largest |logit| in a
+     float32 cell (TS_INT8_LOGIT_SHARE over an int8 cache) and within
+     TS_BF16_GAP times the one process's own bf16-against-float32 gap in a
+     bf16 cell; the first tokens the one process's (bf16: where its own
+     rounding changes none of its greedy tokens); int8 K/V bytes within TS_INT8_LSB of the one
+     process's at the rank's heads at the prompt's rows, every layer in
+     float32, the first in bf16 (a later layer's input carries the bf16
+     rounding of the ranks' partial sums; every layer's byte counts are
+     printed).  Printed: prefill ms, decode ms a step and peak a rank.  Then
+     each kernel at a rank's bf16 serving shapes against its plain version
+     (``ts_kernel_records``), its launches the bf16 cells' main-path runs'
+     on both ranks.  Laps beside TS_BUDGET_S.
+
 Each record of the kernels line carries the main path (``serving``,
 ``training``, ``moe_serving``, ``recurrent_serving``, ``recurrent_training``,
 ``engine_serving``, ``families_serving``, ``encdec_serving``,
 ``vlm_serving``, ``moe_training``, ``encdec_training``, ``vlm_training``,
 ``cluster_training``, ``measured_tune``, ``spmd_training``,
 ``compressed_allreduce``, ``zero3_training``, ``tp_training``,
-``ep_training``, ``tp_recurrent_training`` or ``tp_encdec_vlm_training``)
+``ep_training``, ``tp_recurrent_training``, ``tp_encdec_vlm_training``,
+``tp_serving_dense_moe`` or ``tp_serving_families``)
 whose shapes it was
 timed at and whose launches it counts, and a ``shape`` where one path times a
 kernel at two or where its shape is not the path's first.
@@ -4832,10 +4873,10 @@ def _ep_config():
 
 
 def rank_main(argv) -> int:
-    """A rank of phase 37 (``tp``), 38 (``ep``), 39 (``tpr``) or 40
-    (``tpe``): ``chip_smoke.py --rank PHASE RANK IO`` joins the two ranks'
-    gloo group at ``IO/store``, runs its cell or cells and writes
-    ``IO/PHASE.RANK.json``."""
+    """A rank of phase 37 (``tp``), 38 (``ep``), 39 (``tpr``), 40
+    (``tpe``), 41 (``tsd``) or 42 (``tsf``): ``chip_smoke.py --rank PHASE
+    RANK IO`` joins the two ranks' gloo group at ``IO/store``, runs its cell
+    or cells and writes ``IO/PHASE.RANK.json``."""
     import datetime
 
     import torch
@@ -4879,6 +4920,8 @@ def rank_main(argv) -> int:
             rec = _tp_rank_run(torch, ops, dev, rank, model, optimizer,
                                lambda s: torch.tensor(EP_CELL["lr"], device=dev), plan,
                                lambda: batch, EP_STEPS, EP_CELL["seed"])
+        elif phase in TS_CELLS:
+            rec = _ts_rank_cells(torch, ops, dev, rank, mesh, phase, io)
         else:
             rec = _tp_family_ranks(torch, ops, dev, rank, mesh, phase)
         with open(io / f"{phase}.{rank}.json", "w") as f:
@@ -5450,6 +5493,678 @@ def tp_family_kernel_records(torch, R, F, dev, phase, path):
     return records
 
 
+# phases 41-42: serving under the model axis, tensor- and expert-parallel
+# prefill and decode on two gloo ranks that share the card at mesh data 1 x
+# model 2, as phases 37-40.  Each cell: its arch at full width, cut to
+# ``layers`` where given (whisper: that many encoder and decoder layers),
+# weights of ``dtype`` from ``seed`` with every block matrix redrawn at its
+# fan-in a layer slice at a time (``_serve_fan_in``), ``B`` rows of a seeded
+# ``P``-token prompt (whisper's frames, qwen2-vl's ``patches`` patch
+# embeddings before it), ``N`` greedy tokens, each KV dtype of ``kvs``; the
+# recurrent pair through the batched route (``make_prefill_step`` at ``P``,
+# then ``make_serve_step``) and through generate's stepped prefill at ``P2``
+# tokens.  The bf16 cells are at full depth but qwen3-moe (48 -> 24 layers,
+# so that the one process and then the two ranks each fit the card with
+# margin), batch 8, cut to 4 greedy tokens and a stepped prefill of 4 tokens
+# (16 and 32 would take the script past its limit: over gloo a rank's
+# rwkv6-7b decode step takes 0.9 s); their logits are held to the one
+# process within TS_BF16_GAP times the one process's own bf16 rounding (its
+# bf16 logits against the same weights in float32), which alone moves these
+# random-weight models' logits by 1-20% of the largest.  The float32 cells,
+# 4 layers each, batch 4, 8 greedy tokens and a stepped prefill of 8, hold
+# a rank to the one process without that rounding.
+def _ts_cell(arch, dtype, layers=None, kvs=("native",), stepped=False, patches=0, P=None):
+    """A cell of phases 41-42: float32 ones at 4 layers, batch 4, prompt 32,
+    8 greedy tokens; bf16 ones at batch 8, prompt 128 (whisper 32), 4 greedy
+    tokens; the recurrent pair's (``stepped``) generate prompt of N tokens."""
+    f32 = dtype == "float32"
+    N = 8 if f32 else 4
+    return dict(name=arch + (" f32" if f32 else ""), arch=arch, dtype=dtype,
+                layers=4 if f32 else layers, kvs=kvs, B=4 if f32 else 8,
+                P=P or (32 if f32 else 128), N=N, P2=N if stepped else 0, patches=patches,
+                seed=0)
+
+
+TS_CELLS = {
+    "tsd": (_ts_cell("deepseek-7b", "float32", kvs=("native", "int8")),
+            _ts_cell("qwen3-moe-30b-a3b", "float32"),
+            _ts_cell("deepseek-7b", "bfloat16", kvs=("native", "int8")),
+            _ts_cell("qwen3-moe-30b-a3b", "bfloat16", layers=24)),
+    "tsf": (_ts_cell("rwkv6-7b", "float32", stepped=True),
+            _ts_cell("recurrentgemma-2b", "float32", stepped=True),
+            _ts_cell("whisper-medium", "float32"),
+            _ts_cell("qwen2-vl-7b", "float32", patches=64),
+            _ts_cell("rwkv6-7b", "bfloat16", stepped=True),
+            _ts_cell("recurrentgemma-2b", "bfloat16", stepped=True),
+            _ts_cell("whisper-medium", "bfloat16", P=32),
+            _ts_cell("qwen2-vl-7b", "bfloat16", patches=256)),
+}
+TS_PHASES = {"tsd": ("41", "tp_serving_dense_moe"), "tsf": ("42", "tp_serving_families")}
+TS_BUDGET_S = {"tsd": 90.0, "tsf": 120.0}
+TS_LOGIT_SHARE = 1e-4        # a float32 cell's logits within this share of the largest |logit|
+# ... and over an int8 cache, whose 1-LSB flips (TS_INT8_LSB) move the attention: a rank's
+# flips moved deepseek-7b's (4 layers, on the H100) by 2.3e-4
+TS_INT8_LOGIT_SHARE = 1e-3
+TS_INT8_LSB = 1              # int8 K/V bytes within this of the one process's (float32: every
+                             # layer; bf16: the first, whose input both sides round alike)
+# a bf16 cell's logits within this many times the one process's own bf16-against-float32
+# gap: the rank is a second bf16 rounding of the same function, and two roundings that are
+# each that far from the float32 logits are at most twice as far from each other
+TS_BF16_GAP = 2.0
+
+
+def _ts_config(cell, kv, dtype=None):
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(cell["arch"]).with_(kv_cache_dtype=kv,
+                                         dtype=getattr(torch, dtype or cell["dtype"]))
+    if not cell["layers"]:
+        return cfg
+    if cfg.family == "encdec":
+        return cfg.with_(n_enc_layers=cell["layers"], n_dec_layers=cell["layers"])
+    return cfg.with_(n_layers=cell["layers"])
+
+
+def _serve_fan_in(torch, params, seed, plan=None, rank=0):
+    """Every stacked block matrix of ``params`` (as ``_fan_in_tree`` picks
+    them) redrawn at N(0, 1/fan_in) over the axes it contracts (an expert
+    matrix's third, its per-expert input), one layer slice of the whole
+    leaf at a time from one generator in sorted path order, so every process
+    draws the same numbers; under ``plan`` ``params`` are the pieces of flat
+    ``rank``, which keeps its piece of each slice."""
+    from repro_torch.distributed.sharding import iter_layouts
+
+    lays = dict(iter_layouts(plan.params)) if plan is not None else {}
+    gen = None
+    for path, t in sorted(_paths(params).items()):
+        name = path.rsplit("/", 1)[-1]
+        if (t.dim() < 3 or name in ("bq", "bk", "bv")
+                or path.split("/")[0] not in ("blocks", "groups", "enc_blocks", "dec_blocks")):
+            continue
+        if gen is None:
+            gen = torch.Generator(device=t.device)
+            gen.manual_seed(seed)
+        lay = lays.get(path)
+        whole = tuple(t.shape) if lay is None else lay.whole_shape(tuple(t.shape))
+        if "/moe/" in path and name != "router":
+            fan_in = whole[2]
+        else:
+            fan_in = whole[1] * (whole[2] if name == "wo" and len(whole) == 4 else 1)
+        for i in range(whole[0]):
+            w = torch.randn(whole[1:], generator=gen, device=t.device) / fan_in ** 0.5
+            t[i].copy_(w if lay is None else lay.local(w[None], rank)[0])
+    return params
+
+
+def _upcast(tree):
+    """Every floating leaf of a nested dict to float32, in place, one leaf
+    at a time (its bf16 storage freed as it goes)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _upcast(v)
+        elif v.is_floating_point():
+            tree[k] = v.float()
+
+
+def _tree_clone(tree):
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _ts_inputs(torch, cfg, cell, dev):
+    """A cell's seeded prompt (B, P), the recurrent pair's generate prompt
+    (B, P2), and whisper's frames or qwen2-vl's patch embeddings, drawn on
+    the card (the same in every process)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cell["seed"] + 4141)
+    B = cell["B"]
+    prompt = torch.randint(0, cfg.vocab, (B, cell["P"]), generator=gen, device=dev)
+    prompt2 = (torch.randint(0, cfg.vocab, (B, cell["P2"]), generator=gen, device=dev)
+               if cell["P2"] else None)
+    return prompt, prompt2, _side_inputs(torch, cfg, B, cell["patches"], gen, dev)
+
+
+def _ts_launches(cfg, cell, route):
+    """Each kernel's launches in one main-path run of ``cell`` in one
+    process or on a rank at model = 2 (a rank runs every layer's kernels at
+    its heads or experts): generate's prefill and N steps (the recurrent
+    pair's prompt stepped: P2 + N steps), or the recurrent pair's batched
+    prefill and N steps (``route`` "batched")."""
+    N, kv = cell["N"], cfg.kv_cache_dtype
+    if cfg.family in ("rwkv6", "rglru"):
+        batched = route == "batched"
+        return _expected_launches(cfg, kv, int(batched), N if batched else cell["P2"] + N)
+    n_flash, decode_op, n_decode = _slice_launches(cfg, kv, N)
+    want = {"flash_attention": n_flash, decode_op: n_decode}
+    if cfg.family == "moe":
+        want["fused_moe_gemm"] = want["fused_moe_combine"] = (N + 1) * cfg.n_layers
+    return want
+
+
+class _KeptPrefill:
+    """``model`` whose ``prefill`` keeps its last position's logits and its
+    cache in ``kept``: generate's own prefill, read after the run.  The
+    decode steps write the cache's later rows in place; a step from a given
+    position writes that row before it reads the rows up to it."""
+
+    def __init__(self, model):
+        self.model, self.kept = model, {}
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill(self, *args, **kwargs):
+        logits, cache = self.model.prefill(*args, **kwargs)
+        self.kept.update(logits=logits[:, -1], cache=cache)
+        return logits, cache
+
+
+def _ts_serve(torch, ops, model, params, cell, inputs, dev, forced=None):
+    """One cell's serving in this process (the one process, or a rank under
+    the mesh in scope): the main path (generate; the recurrent pair's
+    batched route, then generate's stepped prefill), each run with its
+    collectives recorded and its launches set to 0 just before it and read
+    just after; then ``N`` decode steps fed ``forced`` (the one process's
+    tokens; its own where None) from the main path's own prefill cache.
+    -> (record, the logits of the prefill's last position and of each step
+    (B, N+1, V), the prefill's int8 K/V and scales at the prompt's rows (the
+    int8 cells are dense: leaves (L, B, T, Hkv, ·)))."""
+    from repro_torch.api.serving import ServeSession
+    from repro_torch.roofline.collectives import recording
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    B, P, N = cell["B"], cell["P"], cell["N"]
+    prompt, prompt2, side = inputs
+    n_pre = P + cell["patches"]
+    cache_len = n_pre + N + 1
+    rec, logs, counts = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    if model.cfg.family in ("rwkv6", "rglru"):
+        log = []
+        ops.reset_launches()
+        with recording(log):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            logits, cache = make_prefill_step(model, cache_len)(params, prompt)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            # the decode steps update the state in place: keep the prefill's
+            kept = {"logits": logits[:, -1], "cache": _tree_clone(cache)}
+            torch.cuda.synchronize(dev)
+            t_kept = time.perf_counter()
+            step, toks = make_serve_step(model), [tok]
+            for t in range(N):
+                pos = torch.full((B,), P + t, dtype=torch.int32, device=dev)
+                tok, _, cache = step(params, tok, cache, pos)
+                toks.append(tok)
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+        counts["batched"] = dict(ops.LAUNCHES)
+        del logits, cache
+        logs["batched"] = log
+        rec.update(tokens=torch.cat(toks, dim=1), prefill_ms=(t1 - t0) * 1e3,
+                   step_ms=(t2 - t_kept) / N * 1e3)
+        log = []
+        ops.reset_launches()
+        with recording(log):
+            out = ServeSession(model=model, params=params, device=dev).generate(
+                prompt2, max_new_tokens=N)
+        counts["generate"] = dict(ops.LAUNCHES)
+        logs["generate"] = log
+        rec.update(gen_tokens=out.tokens, gen_prefill_ms=out.prefill_time * 1e3,
+                   gen_step_ms=out.ms_per_step)
+    else:
+        keep = _KeptPrefill(model)
+        log = []
+        ops.reset_launches()
+        with recording(log):
+            out = ServeSession(model=keep, params=params, device=dev).generate(
+                prompt, max_new_tokens=N, cache_len=cache_len, **side)
+        counts["generate"] = dict(ops.LAUNCHES)
+        kept = keep.kept
+        logs["generate"] = log
+        rec.update(tokens=out.tokens, prefill_ms=out.prefill_time * 1e3,
+                   step_ms=out.ms_per_step)
+    rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    rec["launches"] = counts
+    forced = rec["tokens"] if forced is None else forced
+    cache = kept["cache"]
+    first = {path: t[:, :, :n_pre].clone() for path, t in _paths(cache).items()
+             if t.dtype == torch.int8 or path.endswith("_scale")}
+    rows = [kept["logits"]]
+    for t in range(N):
+        pos = torch.full((B,), n_pre + t, dtype=torch.int32, device=dev)
+        logits, cache = model.decode_step(params, forced[:, t:t + 1].to(torch.int32), cache,
+                                          pos)
+        rows.append(logits[:, -1])
+    rec["cache_bytes"] = {path: t.numel() * t.element_size() for path, t in _paths(cache).items()}
+    rec["ops"] = {k: [list(op) for op in v] for k, v in logs.items()}
+    return rec, torch.stack(rows, dim=1), first
+
+
+def _ts_rank_cells(torch, ops, dev, rank, mesh, phase, io: Path):
+    """A rank of phase 41 or 42: each cell's plan, its pieces of the seed's
+    weights (``init_rank_params``, then ``_serve_fan_in``), then each KV
+    dtype served under the mesh (``_ts_serve``, fed the one process's
+    tokens from ``io``), its int8 prefill cache held to the one process's at
+    the rank's heads.  Rank 0 leaves its logits in ``io``.  -> record."""
+    import gc
+    import hashlib
+
+    from repro_torch.distributed.sharding import (
+        _divisible_spec, layout_for, spec_for, use_mesh, use_rules,
+    )
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_sharding_plan, init_rank_params
+
+    out = {}
+    for cell in TS_CELLS[phase]:
+        params = None
+        for kv in cell["kvs"]:
+            cfg = _ts_config(cell, kv)
+            model = get_model(cfg)
+            plan = build_sharding_plan(model, adamw(), mesh=mesh, global_rows=cell["B"],
+                                       seq_len=cell["P"], device=dev)
+            if params is None:
+                params = _serve_fan_in(torch, init_rank_params(model, plan, rank,
+                                                               seed=cell["seed"], device=dev),
+                                       cell["seed"] + 1, plan, rank)
+            tag = f"{cell['name']} {kv}"
+            yard = torch.load(io / f"{phase}-{cell['name']}-{kv}.yard.pt", map_location="cpu")
+            inputs = _ts_inputs(torch, cfg, cell, dev)
+            with use_rules(plan.rules), use_mesh(mesh):
+                whole = model.init_cache(cell["B"], cell["P"] + cell["patches"] + cell["N"] + 1,
+                                         device=dev)
+                init_bytes = {p: t.numel() * t.element_size() for p, t in _paths(whole).items()}
+                del whole
+                rec, logits, first = _ts_serve(torch, ops, model, params, cell, inputs, dev,
+                                               forced=yard["tokens"].to(dev))
+                axes = _paths(model.cache_logical_axes())
+            rec["init_bytes"] = init_bytes
+            rec["tokens"] = rec["tokens"].tolist()
+            if "gen_tokens" in rec:
+                rec["gen_tokens"] = rec["gen_tokens"].tolist()
+            rec["int8"] = {}
+            for path, mine in first.items():
+                full = yard["cache"][path]
+                lay = layout_for(_divisible_spec(spec_for(axes[path], plan.rules),
+                                                 tuple(full.shape), mesh), mesh)
+                want = lay.local(full, rank).to(dev)
+                if mine.dtype == torch.int8:
+                    # a layer at a time: (max |byte diff|, bytes that differ, bytes)
+                    diff = (mine.int() - want.int()).abs().flatten(1)
+                    rec["int8"][path] = [[int(m), int(c), diff.shape[1]] for m, c in
+                                         zip(diff.amax(dim=1), (diff > 0).sum(dim=1))]
+                else:
+                    rec["int8"][path] = [float(((mine - want).abs() / want.abs().clamp_min(
+                        1e-30)).max())]
+            h = hashlib.sha256(logits.detach().float().cpu().numpy().tobytes())
+            rec["logits_digest"] = h.hexdigest()[:16]
+            if rank == 0:
+                torch.save(logits.cpu(), io / f"{phase}-{cell['name']}-{kv}.rank0.pt")
+            out[tag] = rec
+            del logits, first, yard, inputs
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"cells": out}
+
+
+def _first_divergence(a, b) -> int:
+    """The first token index (along the generated sequence) at which any row
+    of ``a`` and ``b`` differ, or -1."""
+    diff = (np.asarray(a) != np.asarray(b)).any(axis=0)
+    return int(diff.argmax()) if diff.any() else -1
+
+
+def _ts_check_launches(counts, cfg, cell, what):
+    """``counts`` (route -> every kernel's launches) against ``_ts_launches``,
+    every kernel it does not name at 0."""
+    for route, got in counts.items():
+        want = dict.fromkeys(got, 0)
+        want.update(_ts_launches(cfg, cell, route))
+        _check_launches(got, want, f"{what} {route}")
+
+
+def tp_serving(torch, ops, R, F, dev, phase, root: Path):
+    """Phase 41 (``tsd``) or 42 (``tsf``), see the module doc: each cell's
+    one process on the card first (its tokens, logits and int8 prefill
+    cache kept; a bf16 cell then served again with its weights in float32,
+    the yardstick of its own rounding; the weights freed), the two ranks
+    (``--rank tsd|tsf``), the checks a cell, then each kernel of the path at
+    a rank's serving shapes against its plain version.  -> (the launches of
+    the bf16 cells' main-path runs on both ranks, records)."""
+    import gc
+
+    from repro_torch.distributed.sharding import ProcessMesh, use_mesh, use_rules
+    from repro_torch.models.api import get_model
+    from repro_torch.roofline.collectives import collective_bytes, tp_serve_ops
+
+    number, path = TS_PHASES[phase]
+    t0 = time.perf_counter()
+    base = {}
+    for cell in TS_CELLS[phase]:
+        params = None
+        for kv in cell["kvs"]:
+            cfg = _ts_config(cell, kv)
+            model = get_model(cfg)
+            if params is None:
+                t_init = time.perf_counter()
+                params, _ = model.init_params(seed=cell["seed"], device=dev)
+                _serve_fan_in(torch, params, cell["seed"] + 1)
+                t_init = time.perf_counter() - t_init
+            inputs = _ts_inputs(torch, cfg, cell, dev)
+            t_run = time.perf_counter()
+            rec, logits, first = _ts_serve(torch, ops, model, params, cell, inputs, dev)
+            tag = f"{cell['name']} {kv}"
+            _ts_check_launches(rec["launches"], cfg, cell, f"[{phase}] {tag} the one process")
+            torch.save({"tokens": rec["tokens"].cpu(),
+                        "cache": {p: t.cpu() for p, t in first.items()}},
+                       root / f"{phase}-{cell['name']}-{kv}.yard.pt")
+            plan = _model2_plan(torch, model, cell["B"], cell["P"])
+            with use_rules(plan.rules), use_mesh(ProcessMesh(torch.device("cpu"), (1, 2))):
+                like = model.init_cache(cell["B"], cell["P"] + cell["patches"] + cell["N"] + 1,
+                                        device="meta")
+            want_bytes = {p: t.numel() * t.element_size() for p, t in _paths(like).items()}
+            base[tag] = dict(cfg=cfg, plan=plan, rec=rec, logits=logits.cpu(), inputs=inputs,
+                             want_bytes=want_bytes, cell=cell, kv=kv)
+            print(f"[{phase}] {tag} ({str(cfg.dtype).split('.')[-1]} weights), "
+                  f"{cfg.n_layers if cfg.family != 'encdec' else cfg.n_enc_layers} layers"
+                  f"{' each side' if cfg.family == 'encdec' else ''}, "
+                  f"{cfg.param_count() / 1e9:.3f} B params, batch {cell['B']} x prompt "
+                  f"{cell['P']}{' + ' + str(cell['patches']) + ' patches' if cell['patches'] else ''}"
+                  f", {cell['N']} greedy tokens: the one process: prefill "
+                  f"{rec['prefill_ms']:.3f} ms, decode {rec['step_ms']:.3f} ms/step"
+                  + (f", generate's stepped prefill at {cell['P2']} tokens "
+                     f"{rec['gen_prefill_ms']:.3f} ms then {rec['gen_step_ms']:.3f} ms/step"
+                     if "gen_tokens" in rec else "")
+                  + f", peak {rec['peak'] / 2**30:.2f} GiB (weights drawn in {t_init:.1f} s, "
+                  f"served in {time.perf_counter() - t_run:.1f} s)")
+            del logits, first
+        if cell["dtype"] == "bfloat16":
+            # the one process's own bf16 rounding: the same weights and inputs in float32,
+            # fed the same tokens
+            _upcast(params)
+            for kv in cell["kvs"]:
+                b = base[f"{cell['name']} {kv}"]
+                cfg32 = _ts_config(cell, kv, "float32")
+                prompt, prompt2, side = b.pop("inputs")
+                rec32, logits32, _ = _ts_serve(
+                    torch, ops, get_model(cfg32), params, cell,
+                    (prompt, prompt2, {k: v.float() for k, v in side.items()}), dev,
+                    forced=b["rec"]["tokens"])
+                _ts_check_launches(rec32["launches"], cfg32, cell,
+                                   f"[{phase}] {cell['name']} {kv} in float32")
+                b["own_gap"] = (logits32.cpu() - b["logits"].float()).abs().max().item()
+                # bf16 keeps a route's tokens where it changes none of the one process's
+                agree = {k: (rec32[k] == b["rec"][k]).float().mean().item()
+                         for k in ("tokens", "gen_tokens") if k in rec32}
+                b["keeps"] = {k: a == 1.0 for k, a in agree.items()}
+                print(f"[{phase}] {cell['name']} {kv}: the one process's bf16 logits against "
+                      f"the same weights in float32 (prefill and {cell['N']} teacher-forced "
+                      f"steps): max gap {b['own_gap']:.4e}, "
+                      f"{b['own_gap'] / logits32.abs().max().item():.3e} of the largest "
+                      f"|logit|; greedy tokens agree {agree}")
+                del logits32, rec32
+        for b in base.values():
+            b.pop("inputs", None)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[{phase}] before the ranks: this process holds "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved; card free "
+          f"{torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB")
+    t_ranks = time.perf_counter()
+    recs = _run_ranks(phase, root, timeout=900)
+    print(f"[{phase}] the two ranks: {time.perf_counter() - t_ranks:.1f} s")
+    totals = {}
+    for tag, b in base.items():
+        cfg, plan, yard, cell = b["cfg"], b["plan"], b["rec"], b["cell"]
+        mine = [rec["cells"][tag] for rec in recs]
+        what = f"[{phase}] {tag}"
+        B, P, N = cell["B"], cell["P"], cell["N"]
+        f32 = cell["dtype"] == "float32"
+        for key in ("tokens", "gen_tokens"):
+            if key not in yard:
+                continue
+            ranks = [r[key] for r in mine]
+            if ranks[0] != ranks[1]:
+                raise AssertionError(f"{what}: the ranks' {key} differ")
+            want = yard[key].cpu().numpy()
+            got = np.asarray(ranks[0])
+            same_first = bool((got[:, 0] == want[:, 0]).all())
+            # bf16: held where the one process's own rounding changes none of its tokens
+            held = f32 or b["keeps"][key]
+            print(f"{what}: {key}: the two ranks equal; first token "
+                  f"{'equal to' if same_first else 'DIFFERS from'} the one process's ("
+                  f"{'held' if held else 'not held: bf16 rounding alone changes its tokens'}), "
+                  f"first later divergence at index {_first_divergence(got, want)} of "
+                  f"{N + 1} ({(got == want).mean():.3f} of tokens agree)")
+            if held and not same_first:
+                raise AssertionError(f"{what}: the first {key} differ from the one process's")
+        if mine[0]["logits_digest"] != mine[1]["logits_digest"]:
+            raise AssertionError(f"{what}: the ranks' logits differ")
+        got = torch.load(root / f"{phase}-{cell['name']}-{b['kv']}.rank0.pt")
+        want = b["logits"]
+        scale = want.float().abs().max().item()
+        gap = (got.float() - want.float()).abs().max().item()
+        if f32:
+            share = TS_INT8_LOGIT_SHARE if b["kv"] == "int8" else TS_LOGIT_SHARE
+            limit, why = share * scale, f"{share:g} of the largest"
+        else:
+            limit = TS_BF16_GAP * b["own_gap"]
+            why = f"{TS_BF16_GAP:g} x the one process's own bf16 gap {b['own_gap']:.4e}"
+        print(f"{what}: the whole prefill and {N} teacher-forced decode logits "
+              f"{tuple(got.shape)} equal on both ranks; max |rank - one process| {gap:.4e}, "
+              f"{gap / scale:.3e} of the largest |logit| {scale:.3f} (bound {limit:.4e}: {why})")
+        if not math.isfinite(gap) or gap > limit:
+            raise AssertionError(f"{what}: logits {gap} from the one process's (bound {limit})")
+        for rec in mine:
+            who = f"{what} rank {mine.index(rec)}"
+            for leaf, st in rec["int8"].items():
+                if isinstance(st[0], list):
+                    worst = max(m for m, _, _ in st)
+                    print(f"{who}: int8 {leaf} at the rank's heads against the one process's: "
+                          f"max |byte diff| {worst}; a layer at a time (max, bytes that differ "
+                          f"of {st[0][2]:,}): {[(m, c) for m, c, _ in st]}")
+                    # bf16: the first layer quantizes the same rows on both sides (the
+                    # embedding's reduce is exact); a later layer's input carries the
+                    # bf16 rounding of the ranks' partial sums, so it is printed
+                    held = worst if f32 else st[0][0]
+                    if held > TS_INT8_LSB:
+                        raise AssertionError(f"{who}: int8 {leaf} off by {held} LSB "
+                                             f"({'every layer' if f32 else 'its first layer'})")
+                else:
+                    print(f"{who}: {leaf} at the rank's heads: max relative gap {st[0]:.3e}")
+            for name, want_b in (("init_cache", rec["init_bytes"]),
+                                 ("prefill's cache", rec["cache_bytes"])):
+                if want_b != b["want_bytes"]:
+                    raise AssertionError(f"{who}: {name} bytes {want_b}, the Layout.local shapes' "
+                                         f"{b['want_bytes']}")
+            cache_total = sum(rec["cache_bytes"].values())
+            print(f"{who}: every cache leaf's bytes are its Layout.local shape's "
+                  f"({cache_total:,} B, the one process's {sum(yard['cache_bytes'].values()):,})"
+                  f"; prefill {rec['prefill_ms']:.3f} ms, decode {rec['step_ms']:.3f} ms/step"
+                  + (f", generate's stepped prefill {rec['gen_prefill_ms']:.3f} ms then "
+                     f"{rec['gen_step_ms']:.3f} ms/step" if "gen_tokens" in rec else "")
+                  + f", peak {rec['peak'] / 2**30:.2f} GiB; launches "
+                  f"{ {r: {k: v for k, v in c.items() if v} for r, c in rec['launches'].items()} }")
+            _ts_check_launches(rec["launches"], cfg, cell, who)
+            if not f32:
+                for counts in rec["launches"].values():
+                    for name, c in counts.items():
+                        totals[name] = totals.get(name, 0) + c
+            if cfg.family in ("rwkv6", "rglru"):
+                want_ops = {"batched": tp_serve_ops(cfg, plan, B, P, N),
+                            "generate": tp_serve_ops(cfg, plan, B, 0, cell["P2"] + N)}
+            else:
+                want_ops = {"generate": tp_serve_ops(cfg, plan, B, P, N,
+                                                     patches=cell["patches"])}
+            for key, ops_want in want_ops.items():
+                got_ops = sorted(map(tuple, rec["ops"][key]))
+                print(f"{who}: {key}'s collectives: {len(got_ops)}, wire bytes by kind "
+                      f"{collective_bytes(got_ops)}; roofline.collectives.tp_serve_ops: "
+                      f"{len(ops_want)}, {collective_bytes(ops_want)}")
+                if got_ops != sorted(ops_want):
+                    raise AssertionError(f"{who}: {key}'s collectives are not tp_serve_ops'")
+    print(f"[{phase}] launches of the bf16 cells' main-path runs on the {path} path (both "
+          f"ranks, each run's counts held to its expected ones): "
+          f"{ {k: v for k, v in totals.items() if v} }")
+    records = ts_kernel_records(torch, R, F, dev, phase, path)
+    print(f"[{phase}] phase {number}: {time.perf_counter() - t0:.1f} s (budget "
+          f"{TS_BUDGET_S[phase]:.0f})")
+    return totals, records
+
+
+def ts_kernel_records(torch, R, F, dev, phase, path):
+    """The kernels of phase 41's or 42's path at a rank's serving shapes
+    (model = 2) against their plain versions on the card, timed: flash at a
+    rank's prefill heads (SDPA beside it), decode over a rank's heads of the
+    cache (native, and int8 for deepseek-7b), the expert GEMM and combine on
+    a rank's 64 of qwen3's 128 experts at the prefill's and a decode step's
+    tokens, the WKV-6 scan at a rank's 32 of 64 heads, the RG-LRU scan at
+    a rank's 1,280 of 2,560 channels.  -> the kernels-line records."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_int8
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.models.moe import expert_capacity
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4141 if phase == "tsd" else 4242)
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    bf16 = torch.bfloat16
+    records = []
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf16)
+
+    def decode(shape, H, Hkv, D, cache, valid_l, int8):
+        B = len(valid_l)
+        valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+        rows = int(valid.sum())
+        q, k, v = rand(B, 1, H, D), rand(B, cache, Hkv, D), rand(B, cache, Hkv, D)
+        run = lambda: decode_attention(q, k, v, valid)                          # noqa: E731
+        plain = lambda: R.decode_attention_ref(q, k, v, valid)                  # noqa: E731
+        err = row_ulp_check(torch, f"decode_attention {path} {shape}", run(), plain())
+        mask = (torch.arange(cache, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        small = 2 * q.numel() * 2 + B * 4
+        records.append(_attention_record(
+            "decode_attention", path, shape, err, run, plain, 2 * rows * Hkv * D * 2 + small,
+            4 * D * H * rows, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=Hkv != H), flush))
+        if int8:
+            (kq, ks), (vq, vs) = R.quantize_int8_ref(k), R.quantize_int8_ref(v)
+            run8 = lambda: decode_attention_int8(q, kq, ks, vq, vs, valid)           # noqa: E731
+            plain8 = lambda: R.decode_attention_int8_ref(q, kq, ks, vq, vs, valid)   # noqa: E731
+            err8 = row_ulp_check(torch, f"decode_attention_int8 {path} {shape}", run8(),
+                                 plain8())
+            records.append(_attention_record(
+                "decode_attention_int8", path, shape, err8, run8, plain8,
+                2 * rows * Hkv * (D + 4) + small, 4 * D * H * rows, None, flush))
+
+    def flash(label, B, Sq, Skv, H, Hkv, D, causal):
+        records.extend(attention_records(torch, R, F, rand, flush, path,
+                                         f"{label}: a rank's ({B}, {Sq}"
+                                         f"{'' if Sq == Skv else ' over ' + str(Skv)}, {H}"
+                                         f"{'' if Hkv == H else ' over ' + str(Hkv)}, {D})",
+                                         B, Sq, Skv, H, Hkv, D, causal, int8=False))
+
+    cells = {c["arch"]: c for c in TS_CELLS[phase] if c["dtype"] == "bfloat16"}
+    if phase == "tsd":
+        dc, qc = cells["deepseek-7b"], cells["qwen3-moe-30b-a3b"]
+        ds, qm = _ts_config(dc, "native"), _ts_config(qc, "native")
+        B, P, N = dc["B"], dc["P"], dc["N"]
+        valid = [P + N // 2] * B
+        flash("deepseek-7b prefill", B, P, P, ds.n_heads // 2, ds.n_kv_heads // 2,
+              ds.resolved_head_dim(), True)
+        decode(f"deepseek-7b decode: a rank's ({B}, 1, {ds.n_heads // 2}, "
+               f"{ds.resolved_head_dim()}) over {P + N + 1} rows", ds.n_heads // 2,
+               ds.n_kv_heads // 2, ds.resolved_head_dim(), P + N + 1, valid, int8=True)
+        H, Hkv, D = qm.n_heads // 2, qm.n_kv_heads // 2, qm.resolved_head_dim()
+        flash("qwen3-moe prefill", B, P, P, H, Hkv, D, True)
+        decode(f"qwen3-moe decode: a rank's ({B}, 1, {H} over {Hkv}, {D}) over "
+               f"{P + N + 1} rows", H, Hkv, D, P + N + 1, valid, int8=False)
+        d, f, E, k = qm.d_model, qm.d_ff, qm.n_experts, qm.experts_per_token
+        router = rand(d, E, std=d ** -0.5)
+        wg, wu, wo = rand(E // 2, d, f, std=d ** -0.5), rand(E // 2, d, f, std=d ** -0.5), \
+            rand(E // 2, f, d, std=f ** -0.5)
+        for T, label in ((B * P, "prefill"), (B, "decode")):
+            C = expert_capacity(T, E, k, qm.capacity_factor)
+            records += moe_gemm_combine_records(
+                torch, R, F, rand(T, d), router, wg, wu, wo, k, C,
+                f"EP {label}: a rank's {E // 2} of {E} experts (T={T}, C={C})", path, flush,
+                first_expert=0)
+        del router, wg, wu, wo
+    else:
+        wc, gc_, hc, vc = (cells[a] for a in ("rwkv6-7b", "recurrentgemma-2b",
+                                               "whisper-medium", "qwen2-vl-7b"))
+        rw, rg, wh, vl = (_ts_config(c, "native") for c in (wc, gc_, hc, vc))
+        B, S, H, D = wc["B"], wc["P"], rw.d_model // rw.rwkv_head_dim // 2, rw.rwkv_head_dim
+        r, k, v = (rand(B, S, H, D) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(B, S, H, D, generator=gen, device=dev) * 0.5)
+                      ).to(bf16)
+        u = torch.randn(H, D, generator=gen, device=dev)
+        out, state = rwkv6_scan(r, k, v, w, u)
+        want_out, want_state = R.rwkv6_scan_ref(r, k, v, w, u)
+        want_out = want_out.to(bf16)
+        atol = 2.0 ** (math.frexp(want_out.float().abs().max().item())[1] - 8)
+        err = close_check(torch, f"rwkv6_scan {path} a rank's {(B, S, H, D)} bf16 out", out,
+                          want_out, 0.0, atol)
+        close_check(torch, f"rwkv6_scan {path} a rank's state", state, want_state, 1e-4,
+                    1e-4 * want_state.abs().max().item())
+        nbytes = 3 * r.numel() * 2 + 2 * w.numel() * 2 + u.numel() * 4 + state.numel() * 4
+        b_ms, b_by = bound(nbytes, wkv6_ops(B, S, H, D), "bfloat16")
+        records.append(dict(
+            name="rwkv6_scan", path=path, shape=f"rwkv6-7b prefill: a rank's {(B, S, H, D)} bf16",
+            route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            replaces="src/repro/kernels/rwkv6_scan.py:119", launches=0, max_abs_err=err,
+            ms=timed_ms(lambda: rwkv6_scan(r, k, v, w, u), flush),
+            plain_ms=timed_plain(lambda: R.rwkv6_scan_ref(r, k, v, w, u), flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del r, k, v, w, u, out, state, want_out, want_state
+        B, S, W = gc_["B"], gc_["P"], rg.lru_width // 2
+        a = torch.rand(B, S, W, generator=gen, device=dev) * 0.499 + 0.5
+        x = torch.randn(B, S, W, generator=gen, device=dev)
+        bit_check(torch, f"rglru_scan {path} a rank's {(B, S, W)} f32", rglru_scan(a, x),
+                  R.rglru_scan_ref(a, x))
+        b_ms, b_by = bound(3 * a.numel() * 4, 2.0 * x.numel(), "float32")
+        records.append(dict(
+            name="rglru_scan", path=path,
+            shape=f"recurrentgemma-2b prefill: a rank's {(B, S, W)} f32", route="cuda",
+            source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru_scan.py:65", launches=0, max_abs_err=0.0,
+            ms=timed_ms(lambda: rglru_scan(a, x), flush),
+            plain_ms=timed_plain(lambda: R.rglru_scan_ref(a, x), flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del a, x
+        N = gc_["N"]
+        cache = gc_["P"] + N + 1
+        H, Hkv, D = rg.n_heads // 2, rg.n_kv_heads, rg.resolved_head_dim()
+        flash("recurrentgemma-2b prefill", B, S, S, H, Hkv, D, True)
+        decode(f"recurrentgemma-2b decode: a rank's ({B}, 1, {H} over {Hkv}, {D}) over "
+               f"{cache} rows", H, Hkv, D, cache, [S + N // 2] * B, int8=False)
+        B, H, D, F_ = hc["B"], wh.n_heads // 2, wh.resolved_head_dim(), wh.n_frames
+        flash("whisper-medium encoder", B, F_, F_, H, H, D, False)
+        decode(f"whisper-medium cross decode: a rank's ({B}, 1, {H}, {D}) over {F_} frames",
+               H, H, D, F_, [F_] * B, int8=False)
+        B, S = vc["B"], vc["patches"] + vc["P"]
+        H, Hkv, D = vl.n_heads // 2, vl.n_kv_heads // 2, vl.resolved_head_dim()
+        flash("qwen2-vl-7b prefill", B, S, S, H, Hkv, D, True)
+        decode(f"qwen2-vl-7b decode: a rank's ({B}, 1, {H} over {Hkv}, {D}) over "
+               f"{S + vc['N'] + 1} rows", H, Hkv, D, S + vc["N"] + 1,
+               [S + vc["N"] // 2] * B, int8=False)
+    del scratch
+    torch.cuda.empty_cache()
+    for rec in records:
+        print(json.dumps(rec))
+    return records
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5646,6 +6361,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             number, path = TP_FAMILY_PHASES[phase]
             family_tp[path], recs = tp_family_training(torch, ops, R, F, dev, phase, tp_root)
+            records += recs
+            lap(f"phase {number}")
+        # serving under the model axis, the same two ranks' layout
+        for phase in ("tsd", "tsf"):
+            torch.cuda.empty_cache()
+            number, path = TS_PHASES[phase]
+            family_tp[path], recs = tp_serving(torch, ops, R, F, dev, phase, tp_root)
             records += recs
             lap(f"phase {number}")
     finally:

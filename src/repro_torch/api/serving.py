@@ -16,6 +16,12 @@ for a VLM, whose decode positions then count from the patches' end.
 The decode loop updates the KV cache in place (the JAX package donates it).
 Times are taken on the host clock after ``torch.cuda.synchronize()``.
 
+Under :func:`repro_torch.distributed.sharding.use_mesh` the session serves
+on a rank of the mesh: ``params`` are the rank's pieces, the prompt its
+data group's rows, and prefill and decode are tensor-parallel over the
+``model`` axis, whose ranks all draw the same tokens (the logits come back
+whole on each).  ``ServeEngine`` runs on one device only.
+
 One-shot ``generate`` is self-contained: it is the independent oracle the
 engine-parity tests compare against.  For queued, continuously batched
 serving, ``engine()`` and ``generate_many()`` hand off to
@@ -30,6 +36,7 @@ from typing import Any, List, Optional, Sequence
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models.api import Model
 from repro_torch.serve.engine import EngineConfig, GenOutput, ServeEngine
 from repro_torch.serve.sampling import (
@@ -50,7 +57,8 @@ class GenerateResult:
 
 
 class ServeSession:
-    """Prefill/decode pair with a generate loop, on one device."""
+    """Prefill/decode pair with a generate loop, on one device or one rank
+    of the mesh in scope."""
 
     def __init__(self, *, model: Model, params: PyTree, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -70,7 +78,8 @@ class ServeSession:
         """The prompt one token at a time through ``decode_step``, the cache
         updated in place -> (last logits (B, V), cache)."""
         B, P = prompt.shape
-        cache = self.model.init_cache(B, cache_len, device=self.device)
+        # the whole batch's cache, of which a mesh's rank holds its rows
+        cache = self.model.init_cache(B * sharding.batch_ways(), cache_len, device=self.device)
         for t in range(P):
             pos = torch.full((B,), t, dtype=torch.int32, device=self.device)
             logits, cache = self.model.decode_step(self.params, prompt[:, t:t + 1], cache, pos)

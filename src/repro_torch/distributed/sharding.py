@@ -26,10 +26,13 @@ decoders, RWKV-6 and RecurrentGemma (their ``lru`` channel blocks), the
 encoder-decoder and the vision-language backbone.  The models read the mesh
 in scope (:func:`use_mesh`, the counterpart of the reference's
 ``set_mesh``) and check their activations' layout with
-:func:`with_logical_constraint`.  :func:`check_plan` refuses what is not
-ported, :data:`SHARDED_WEIGHTS`: query heads the ``model`` axis does not
-divide, an ``lru`` split that cuts an RWKV head, and several devices a
-process.
+:func:`with_logical_constraint`.  Serving runs under the same mesh: a
+cache leaf of logical axes (``Model.cache_logical_axes``) is allocated at
+the rank's piece (:func:`local_shape`).  Query heads the ``model`` axis does
+not divide stay whole on every rank, which computes its block of them (the
+reference's padded split).  :func:`check_plan` refuses what is not ported,
+:data:`SHARDED_WEIGHTS`: an ``lru`` split that cuts an RWKV head, and
+several devices a process.
 """
 from __future__ import annotations
 
@@ -45,10 +48,10 @@ PyTree = Any
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
 
-SHARDED_WEIGHTS = ("the rest of the second half of ROADMAP item 19 'Multi-device' (query "
-                   "heads the model axis does not divide; an lru split that cuts an RWKV "
-                   "head; batch rows over model outside the MoE layer; serving under a "
-                   "model axis; several devices a process)")
+SHARDED_WEIGHTS = ("the rest of the second half of ROADMAP item 19 'Multi-device' (an lru "
+                   "split that cuts an RWKV head; batch rows over model outside the MoE "
+                   "layer; query heads that the rules keep whole while the model axis splits "
+                   "other leaves; several devices a process)")
 
 # the families whose forward runs tensor and expert parallelism over ``model``
 TP_FAMILIES = ("dense", "moe", "rwkv6", "rglru", "encdec", "vlm")
@@ -388,6 +391,31 @@ def arg_shardings_for_tree(
         _divisible_spec(spec_for(axes, rules), tuple(leaf.shape), mesh), mesh))
 
 
+def local_shape(axes: Tuple[Optional[str], ...], shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The shape of this rank's piece of a tensor of logical ``axes`` and
+    whole ``shape`` on the mesh in scope, under the rule table in force and
+    size-aware as :func:`arg_shardings_for_tree` (``shape`` itself outside
+    a mesh)."""
+    mesh = get_mesh()
+    shape = tuple(int(n) for n in shape)
+    if mesh is None:
+        return shape
+    return layout_for(_divisible_spec(spec_for(axes, _CURRENT_RULES), shape, mesh),
+                      mesh).shard_shape(shape)
+
+
+def batch_ways() -> int:
+    """How many ways the rule table in force splits batch rows on the mesh
+    in scope (1 outside one): a rank's rows times this is the whole batch."""
+    mesh = get_mesh()
+    if mesh is None:
+        return 1
+    sizes = mesh_axis_sizes(mesh)
+    part = _CURRENT_RULES.get("batch")
+    return math.prod(sizes.get(a, 1) for a in ((part,) if isinstance(part, str)
+                                               else tuple(part or ())))
+
+
 def iter_layouts(tree: PyTree, prefix: str = "") -> Iterator[Tuple[str, Layout]]:
     """(path, layout) of every leaf of a layout tree."""
     if isinstance(tree, dict):
@@ -422,11 +450,13 @@ def check_plan(plan: ShardingPlan, processes: Optional[int] = None) -> ShardingP
     """Raise ``NotImplementedError`` where ``plan`` needs what the port does
     not run (:data:`SHARDED_WEIGHTS`): more devices than ``processes``; a
     leaf sharded over ``model`` in a family other than :data:`TP_FAMILIES`,
-    or on a logical axis other than :data:`TP_AXES`; query heads the
-    ``model`` axis does not divide; an ``lru`` piece of a width that is not
-    a whole number of ``plan.lru_group`` channels.  Leaves whole on every
-    device, sharded over ``data`` (ZeRO-3) or over ``model`` (tensor and
-    expert parallelism) pass; return the plan."""
+    or on a logical axis other than :data:`TP_AXES`; an ``lru`` piece of a
+    width that is not a whole number of ``plan.lru_group`` channels; query
+    heads that the rules keep off ``model`` beside such leaves.  Leaves
+    whole on every device, sharded over ``data`` (ZeRO-3) or over ``model``
+    (tensor and expert parallelism) pass, query heads the axis does not
+    divide among them (whole weights, a block of heads a rank); return the
+    plan."""
     if processes is not None and plan.n_devices > processes:
         raise NotImplementedError(
             f"the plan spans {plan.n_devices} devices over {processes} process(es): a "
@@ -450,16 +480,29 @@ def check_plan(plan: ShardingPlan, processes: Optional[int] = None) -> ShardingP
                     f"{where}: a rank's {plan.lru_width // m} of {plan.lru_width} lru "
                     f"channels are not whole heads of {plan.lru_group} (the group norm and "
                     f"the bonus u are per head): {SHARDED_WEIGHTS}")
-    if mesh_axis_sizes(plan.mesh).get("model", 1) > 1 and plan.axes is not None:
-        for path, lay in iter_layouts(plan.params):
-            axes = _axes_at(plan.axes, path)
-            if "heads" in axes and lay.model_dim is None:
-                raise NotImplementedError(
-                    f"the query heads of {path!r} (shape spec {lay.spec}) are not split over "
-                    f"the model axis of {mesh_axis_sizes(plan.mesh)['model']} (it does not "
-                    f"divide them, or the rules keep them whole); the reference pads or "
-                    f"replicates them through GSPMD, the port does not yet: {SHARDED_WEIGHTS}")
+        if plan.axes is not None and not heads_on_model(plan.rules):
+            for path, axes in _iter_axes(plan.axes):
+                if "heads" in axes:
+                    raise NotImplementedError(
+                        f"{where}, while the rules keep the query heads of {path!r} whole "
+                        f"(heads: {plan.rules.get('heads')!r}): {SHARDED_WEIGHTS}")
     return plan
+
+
+def heads_on_model(rules: Dict[str, MeshAxes]) -> bool:
+    """Whether ``rules`` put the query heads on ``model`` (split where the
+    axis divides them, else a padded split of whole weights)."""
+    part = rules.get("heads")
+    return "model" in ((part,) if isinstance(part, str) else tuple(part or ()))
+
+
+def _iter_axes(tree: PyTree, prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            yield from _iter_axes(v, path)
+        else:
+            yield path, v
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,11 @@ A rank holds the pieces of the weights that the plan shards over ``model``
 query heads (and KV heads, where the axis divides them), FFN columns,
 vocabulary rows and experts.  It computes the piece of each product whose
 weight it holds; a weight the axis does not divide is whole on every rank
-and computed whole.  The activations between the products are whole on
-every rank of a ``model`` group:
+and computed whole, except the query heads: a rank computes its block of
+``ceil(H / m)`` of them from the whole weights (:attr:`TensorPlan.
+head_block`, the reference's padded split; the last ranks hold fewer, or
+none).  The activations between the products are whole on every rank of a
+``model`` group:
 
   * :func:`copy_in` (Megatron's *f*) at the input of a column-parallel
     product: the identity forward, an all-reduce of the gradient backward
@@ -33,7 +36,9 @@ every rank of a ``model`` group:
     and loss (the all-reduced max, sum of exponentials and target logit,
     in float32);
   * :func:`data_mean`: the mean over the ``data`` group (the MoE router's
-    load statistics), whose gradient is the mean of the ranks' gradients.
+    load statistics), whose gradient is the mean of the ranks' gradients;
+  * :func:`whole_logits`: serving's logits, a rank's vocabulary columns
+    gathered whole, so every rank's argmax and sampler read every column.
 
 :func:`plan_for` reads the mesh in scope (:func:`~repro_torch.distributed.
 sharding.use_mesh`) and the rule table in force into a :class:`TensorPlan`
@@ -45,14 +50,14 @@ device.  Every collective is noted in
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.distributed import zero
 from repro_torch.distributed.sharding import (
-    SHARDED_WEIGHTS, ProcessMesh, _divisible_spec, get_mesh, get_rules, mesh_axis_sizes,
-    spec_for,
+    SHARDED_WEIGHTS, ProcessMesh, _divisible_spec, get_mesh, get_rules, heads_on_model,
+    mesh_axis_sizes, spec_for,
 )
 from repro_torch.roofline import collectives
 
@@ -102,7 +107,10 @@ def model_axis() -> Optional[ModelAxis]:
 @dataclasses.dataclass(frozen=True)
 class TensorPlan:
     """Which of a config's products a rank computes a ``model`` piece of
-    (``lru``: the recurrent families' channel blocks, RWKV-6's heads)."""
+    (``lru``: the recurrent families' channel blocks, RWKV-6's heads).
+    ``heads``: the rank computes a block of the query heads, from its piece
+    of the weights or, under ``pad_heads`` (the axis does not divide them),
+    from the whole weights."""
 
     axis: ModelAxis
     heads: bool
@@ -113,6 +121,18 @@ class TensorPlan:
     n_heads: int
     n_kv_heads: int
     lru: bool = False
+    pad_heads: bool = False
+
+    @property
+    def head_block(self) -> Tuple[int, int]:
+        """``[start, stop)`` of the rank's query heads: ``ceil(H / m)`` a
+        rank in rank order, the last ranks fewer or none (every head where
+        the plan does not split them)."""
+        if not self.heads:
+            return 0, self.n_heads
+        per = -(-self.n_heads // self.axis.size)
+        start = min(self.axis.index * per, self.n_heads)
+        return start, min(start + per, self.n_heads)
 
 
 def _names_model(spec) -> bool:
@@ -138,38 +158,44 @@ def lru_width(cfg) -> int:
 def plan_for(cfg) -> Optional[TensorPlan]:
     """The :class:`TensorPlan` of ``cfg`` on the mesh in scope, or None.
     Query heads that the rules put on ``model`` but the axis does not
-    divide raise ``NotImplementedError`` (the reference pads them); so does
-    an ``lru`` split that cuts an RWKV head."""
+    divide are a padded split (``pad_heads``); rules that keep them whole,
+    and an ``lru`` split that cuts an RWKV head, raise
+    ``NotImplementedError``."""
     axis = model_axis()
     if axis is None:
         return None
     attention = cfg.family != "rwkv6"
-    heads = attention and _over_model("heads", cfg.n_heads)
-    if attention and not heads and _names_model(spec_for(("heads",), get_rules())):
+    if attention and not heads_on_model(get_rules()):
         raise NotImplementedError(
-            f"{cfg.name}'s {cfg.n_heads} query heads do not divide the model axis of "
-            f"{axis.size}: {SHARDED_WEIGHTS}")
+            f"{cfg.name} on a model axis of {axis.size} whose rules keep the query heads "
+            f"whole: {SHARDED_WEIGHTS}")
+    split = attention and _over_model("heads", cfg.n_heads)
+    pad = attention and not split
     width = lru_width(cfg)
     lru = width > 0 and _over_model("lru", width)
     if lru and cfg.family == "rwkv6" and (width // axis.size) % cfg.rwkv_head_dim:
         raise NotImplementedError(
             f"{cfg.name}'s {width} channels over a model axis of {axis.size} are not whole "
             f"heads of {cfg.rwkv_head_dim}: {SHARDED_WEIGHTS}")
-    return TensorPlan(axis=axis, heads=heads,
+    return TensorPlan(axis=axis, heads=split or pad,
                       kv_heads=attention and _over_model("kv_heads", cfg.n_kv_heads),
                       mlp=_over_model("mlp", cfg.d_ff) and cfg.family != "moe",
                       vocab=_over_model("vocab", cfg.vocab),
                       experts=bool(cfg.n_experts) and _over_model("experts", cfg.n_experts),
-                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, lru=lru)
+                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, lru=lru, pad_heads=pad)
 
 
-def logical_sizes_of(cfg) -> Dict[str, int]:
+def logical_sizes_of(cfg, tp: Optional[TensorPlan] = None) -> Dict[str, int]:
     """The whole sizes of ``cfg``'s sharded activation axes (what
     :func:`~repro_torch.distributed.sharding.with_logical_constraint`
     holds a rank's pieces to).  The recurrent families' channel-block
     activations are named ``lru``, the weights' axis (the reference names
-    them ``act_mlp``, which the port keeps for the FFN columns)."""
+    them ``act_mlp``, which the port keeps for the FFN columns).  Padded
+    query heads (``tp.pad_heads``) are a block of the rank's, which no
+    even split describes: ``act_heads`` is left out."""
     sizes = {"act_heads": cfg.n_heads, "act_kv_heads": cfg.n_kv_heads, "act_vocab": cfg.vocab}
+    if tp is not None and tp.pad_heads:
+        del sizes["act_heads"]
     if cfg.family == "moe":
         sizes["act_experts"] = cfg.n_experts
     else:
@@ -315,6 +341,17 @@ def data_mean(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Vocabulary parallelism
 # ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def whole_logits(y: torch.Tensor, tp: Optional[TensorPlan]) -> torch.Tensor:
+    """Serving's logits whole from this rank's vocabulary columns ``y``
+    (..., V/m) under ``tp``: one all-gather along the last dim, every rank's
+    columns in rank order, the same bytes on every rank; ``y`` itself on one
+    device or where the plan keeps the vocabulary whole."""
+    if tp is None or not tp.vocab:
+        return y
+    return zero.all_gather(y, y.dim() - 1, tp.axis.group, tp.axis.size)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype,

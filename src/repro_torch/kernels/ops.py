@@ -139,11 +139,21 @@ def _attention_vjp(q, k, v, g, causal, window):
         return torch.autograd.grad(out, (qd, kd, vd), g)
 
 
+def _no_heads(q: torch.Tensor) -> bool:
+    """A tensor-parallel rank whose block of query heads is empty (the
+    last ranks of a padded split): the attention ops return the empty
+    output and launch nothing, and their backward the zero gradients, so
+    the rank's graph, and the collectives around it, are its peers'."""
+    return q.shape[2] == 0
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if _no_heads(q):
+            return torch.empty_like(q)
         if q.is_meta:
             return _meta_kernel("flash_attention", _attention_ops(q, k, causal, window),
                                 (q, k, v), (torch.empty_like(q),))
@@ -156,6 +166,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
+        if _no_heads(q):
+            return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v), None, None
         return (*_attention_vjp(q, k, v, g, ctx.causal, ctx.window), None, None)
 
 
@@ -172,6 +184,10 @@ def flash_attention(
 class _FlashAttentionQ8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
+        ctx.empty = _no_heads(q)
+        if ctx.empty:
+            ctx.save_for_backward(q, k, v)
+            return torch.empty_like(q)
         kq, ks = _quantize_q8(k)
         vq, vs = _quantize_q8(v)
         ctx.save_for_backward(q, kq, ks, vq, vs)
@@ -190,6 +206,8 @@ class _FlashAttentionQ8(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.empty:
+            return (*(torch.zeros_like(t) for t in ctx.saved_tensors), None, None)
         # straight-through across the rounding: the base op's gradient at
         # the dequantized K/V, cast back to the primal dtypes
         q, kq, ks, vq, vs = ctx.saved_tensors
@@ -234,6 +252,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query row per (batch, head) against a contiguous cache; positions
     ``< valid_len[b]`` attend.  q (B, 1, H, D), k/v (B, Skv, Hkv, D)."""
+    if _no_heads(q):
+        return torch.empty_like(q)
     if q.is_meta:
         return _meta_decode("decode_attention", q, (q, k, v, valid_len), k.shape[1], window)
     if not q.is_cuda:
@@ -251,6 +271,8 @@ def decode_attention_int8(
 ) -> torch.Tensor:
     """:func:`decode_attention` over an int8 cache + per-row f32 scales,
     dequantized inside the kernel."""
+    if _no_heads(q):
+        return torch.empty_like(q)
     if q.is_meta:
         return _meta_decode("decode_attention_int8", q,
                             (q, k, k_scale, v, v_scale, valid_len), k.shape[1], window)
@@ -299,6 +321,8 @@ def paged_decode_attention_int8(
 ) -> torch.Tensor:
     """:func:`paged_decode_attention` over int8 pages + per-row f32 scales,
     dequantized inside the kernel."""
+    if _no_heads(q):
+        return torch.empty_like(q)
     if q.is_meta:
         return _meta_decode("paged_decode_attention_int8", q, (q, block_table, valid_len),
                             block_table.shape[1] * k_pages.shape[1], window,

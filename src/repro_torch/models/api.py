@@ -6,6 +6,12 @@ family module.  ``forward`` and ``prefill`` pass side inputs through
 (``frames=`` for encdec, ``patch_embeds=`` for vlm), as the reference's
 ``api.py:49-61`` does.  ``forward`` returns ``(logits, aux)``: the MoE
 family's summed router loss, a float32 zero for every other family.
+
+Under :func:`repro_torch.distributed.sharding.use_mesh` (the reference's
+``set_mesh``) ``prefill`` and ``decode_step`` are tensor-parallel over the
+mesh's ``model`` axis and ``init_cache`` allocates this rank's piece of
+each leaf, as ``cache_logical_axes`` lays it out under the rule table in
+force: the shard shape the reference's ``arg_shardings_for_tree`` gives it.
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import dense, encdec, moe, rglru, rwkv6, vlm
 from repro_torch.models.config import ModelConfig
 
@@ -53,7 +60,27 @@ class Model:
         return self.mod.decode_writes(self.cfg, cache, pos, rows)
 
     def init_cache(self, batch: int, cache_len: int, dtype=None, device: DeviceLike = "cuda"):
-        return self.mod.init_cache(self.cfg, batch, cache_len, dtype=dtype, device=device)
+        """A zeroed cache for ``batch`` rows (the whole batch); on a mesh,
+        this rank's piece of each leaf (:func:`~repro_torch.distributed.
+        sharding.local_shape` of its logical axes)."""
+        if sharding.get_mesh() is None:
+            return self.mod.init_cache(self.cfg, batch, cache_len, dtype=dtype, device=device)
+        whole = self.mod.init_cache(self.cfg, batch, cache_len, dtype=dtype, device="meta")
+        dev = resolve_device(device)
+        return _zip(lambda t, axes: torch.zeros(sharding.local_shape(axes, t.shape),
+                                                dtype=t.dtype, device=dev),
+                    whole, self.cache_logical_axes())
+
+    def cache_logical_axes(self):
+        """The cache tree's logical axes, one tuple a leaf (the reference's
+        ``Model.cache_logical_axes``)."""
+        return self.mod.cache_logical_axes(self.cfg)
+
+
+def _zip(fn, tree, axes):
+    if isinstance(tree, dict):
+        return {k: _zip(fn, v, axes[k]) for k, v in tree.items()}
+    return fn(tree, axes)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -12,11 +12,16 @@ tensor-parallel: each rank holds its ``model`` pieces of the weights and
 runs its heads, FFN columns and vocabulary rows
 (:class:`~repro_torch.distributed.tensor.TensorPlan`); its logits are its
 vocabulary columns, which ``train.steps.cross_entropy`` reads as such.
+Prefill and decode are tensor-parallel on the same mesh: the cache holds
+the rank's pieces of the leaves that :func:`cache_logical_axes` names
+(``Model.init_cache`` allocates them so), and the logits come back whole
+(every rank's columns gathered), so every rank picks the same token.
 
 Entry points:
   * ``init_params(cfg, seed=..., device=...)``        -> (params, logical_axes)
   * ``forward(params, cfg, tokens)``                   -> logits (train)
   * ``init_cache(cfg, batch, cache_len, device=...)``  -> zeroed KV cache
+  * ``cache_logical_axes(cfg)``                        -> the cache's logical axes
   * ``prefill(params, cfg, tokens, cache_len)``        -> (last logits, cache)
   * ``decode_step(params, cfg, token, cache, pos)``    -> (logits, cache)
 """
@@ -99,7 +104,7 @@ def tensor_plan(cfg: ModelConfig):
         raise NotImplementedError(
             f"the batch rule splits rows over 'model': the MoE layer runs that layout "
             f"(models/moe.py), the attention over it does not: {sharding.SHARDED_WEIGHTS}")
-    return tp, sharding.logical_sizes(tensor.logical_sizes_of(cfg))
+    return tp, sharding.logical_sizes(tensor.logical_sizes_of(cfg, tp))
 
 
 def _final(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
@@ -194,12 +199,20 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _mlp(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return L.mlp_apply(lp["mlp"], x, cfg.mlp)
+def cache_logical_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The cache leaves' logical axes (``repro/models/dense.py:153``)."""
+    ax = ("layers", "batch", "kv_seq", "act_kv_heads", None)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": ax, "k_scale": ax, "v": ax, "v_scale": ax}
+    return {"k": ax, "v": ax}
 
 
-# (layer params, normed activations, cfg) -> the block's FFN output
-FFN = Callable[[Dict, torch.Tensor, ModelConfig], torch.Tensor]
+def _mlp(lp: Dict, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    return L.mlp_apply(lp["mlp"], x, cfg.mlp, tp)
+
+
+# (layer params, normed activations, cfg, tensor plan) -> the block's FFN output
+FFN = Callable[[Dict, torch.Tensor, ModelConfig, Any], torch.Tensor]
 
 
 @torch.no_grad()
@@ -207,25 +220,28 @@ def prefill_with(ffn: FFN, params: PyTree, cfg: ModelConfig, tokens: torch.Tenso
                  cache_len: int, *, inputs_embeds: Optional[torch.Tensor] = None,
                  mrope_positions: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefill of the attention skeleton with ``ffn`` as each block's MLP."""
-    x = _inputs(params, cfg, tokens, inputs_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    sections = (cfg.mrope_sections or None) if mrope_positions is not None else None
-    kvs = []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        hn = L.rms_norm(lp["ln1"], x)
-        attn_out, kv = L.attention_prefill(
-            lp["attn"], hn, positions=positions, cache_len=cache_len,
-            causal=True, window=cfg.window, rope_theta=cfg.rope_theta,
-            mrope_sections=sections, mrope_positions=mrope_positions,
-            kv_cache_dtype=cfg.kv_cache_dtype,
-        )
-        x = x + attn_out
-        x = x + ffn(lp, L.rms_norm(lp["ln2"], x), cfg)
-        kvs.append(kv)
-    cache = {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
-    return _final(params, x[:, -1:], cfg), cache
+    """Prefill of the attention skeleton with ``ffn`` as each block's MLP;
+    tensor-parallel on a mesh with a ``model`` axis (the module doc)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = _inputs(params, cfg, tokens, inputs_embeds, tp)
+        positions = torch.arange(x.shape[1], device=x.device)
+        sections = (cfg.mrope_sections or None) if mrope_positions is not None else None
+        kvs = []
+        for i in range(cfg.n_layers):
+            lp = _layer(params["blocks"], i)
+            hn = L.rms_norm(lp["ln1"], x)
+            attn_out, kv = L.attention_prefill(
+                lp["attn"], hn, positions=positions, cache_len=cache_len,
+                causal=True, window=cfg.window, rope_theta=cfg.rope_theta,
+                mrope_sections=sections, mrope_positions=mrope_positions,
+                kv_cache_dtype=cfg.kv_cache_dtype, tp=tp,
+            )
+            x = x + attn_out
+            x = x + ffn(lp, L.rms_norm(lp["ln2"], x), cfg, tp)
+            kvs.append(kv)
+        cache = {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
+        return tensor.whole_logits(_final(params, x[:, -1:], cfg, tp), tp), cache
 
 
 @torch.no_grad()
@@ -236,19 +252,21 @@ def decode_step_with(ffn: FFN, params: PyTree, cfg: ModelConfig, token: torch.Te
     """One decode step of the attention skeleton with ``ffn`` as each block's
     MLP; ``cache`` is updated in place and returned.  RoPE rotates at ``pos
     + rope_offset`` (the VLM's M-RoPE text position), the K/V row is written
-    at ``pos``."""
-    x = L.embed(params["embedding"], token, cfg.dtype)
-    rope_pos = pos if rope_offset is None else pos + rope_offset
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        hn = L.rms_norm(lp["ln1"], x)
-        attn_out, _ = L.attention_decode(
-            lp["attn"], hn, _layer(cache, i), pos=rope_pos, window=cfg.window,
-            rope_theta=cfg.rope_theta, slot=pos,
-        )
-        x = x + attn_out
-        x = x + ffn(lp, L.rms_norm(lp["ln2"], x), cfg)
-    return _final(params, x, cfg), cache
+    at ``pos``.  Tensor-parallel on a mesh with a ``model`` axis."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = L.embed(params["embedding"], token, cfg.dtype, tp)
+        rope_pos = pos if rope_offset is None else pos + rope_offset
+        for i in range(cfg.n_layers):
+            lp = _layer(params["blocks"], i)
+            hn = L.rms_norm(lp["ln1"], x)
+            attn_out, _ = L.attention_decode(
+                lp["attn"], hn, _layer(cache, i), pos=rope_pos, window=cfg.window,
+                rope_theta=cfg.rope_theta, slot=pos, tp=tp,
+            )
+            x = x + attn_out
+            x = x + ffn(lp, L.rms_norm(lp["ln2"], x), cfg, tp)
+        return tensor.whole_logits(_final(params, x, cfg, tp), tp), cache
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int, *,

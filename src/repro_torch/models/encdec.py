@@ -13,6 +13,7 @@ Entry points:
   * ``encode(params, cfg, frames)``                            -> encoder output
   * ``forward(params, cfg, tokens, frames=...)``               -> logits
   * ``init_cache(cfg, batch, cache_len, device=...)``          -> zeroed cache
+  * ``cache_logical_axes(cfg)``                                -> the cache's logical axes
   * ``prefill(params, cfg, tokens, cache_len, frames=...)``    -> (last logits, cache)
   * ``decode_step(params, cfg, token, cache, pos)``            -> (logits, cache)
 
@@ -27,6 +28,10 @@ decoder's attention and MLPs run the rank's heads and FFN columns, the
 cross-attention's query heads read the rank's K/V heads of the encoder
 output (which passes a copy-in: its gradient, the rank's heads' part, is
 summed once), and the tied embedding and head split the vocabulary.
+Prefill runs the encoder so too (the flash kernel at the rank's heads over
+the frames) and the decoder at the rank's heads; the self and cross K/V
+caches hold the rank's KV heads (``cache_logical_axes``, the reference's
+table), every KV head where the axis does not divide them.
 """
 from __future__ import annotations
 
@@ -203,36 +208,49 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
             "xv": torch.zeros(x_shape, dtype=dtype, device=dev)}
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The cache's logical axes (``repro/models/encdec.py:177``)."""
+    kv = ("layers", "batch", "kv_seq", "act_kv_heads", None)
+    x = ("layers", "batch", None, "act_kv_heads", None)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": kv, "k_scale": kv, "v": kv, "v_scale": kv,
+                "xk": x, "xk_scale": x, "xv": x, "xv_scale": x}
+    return {"k": kv, "v": kv, "xk": x, "xv": x}
+
+
 @torch.no_grad()
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int, *,
             frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Encode the frames, run the decoder prompt; return last-position logits
     (B, 1, V) and the decode-ready cache: self K/V padded to ``cache_len``
-    and every layer's cross K/V over the frames."""
-    enc_out = encode(params, cfg, frames)
-    x = _embed_dec(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    layers: List[Dict[str, torch.Tensor]] = []
-    for i in range(cfg.n_dec_layers):
-        lp = _layer(params["dec_blocks"], i)
-        a, kv = L.attention_prefill(
-            lp["self_attn"], L.layer_norm(lp["ln1"], x), positions=positions,
-            cache_len=cache_len, causal=True, use_rope=False,
-            kv_cache_dtype=cfg.kv_cache_dtype)
-        x = x + a
-        ck, cv = L.cross_kv(lp["cross_attn"], enc_out)
-        x = x + L.cross_attention(lp["cross_attn"], L.layer_norm(lp["ln_x"], x), ck, cv)
-        x = x + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], x))
-        if cfg.kv_cache_dtype == "int8":
-            (xkq, xks), (xvq, xvs) = KR.quantize_int8_ref(ck), KR.quantize_int8_ref(cv)
-            kv.update(xk=xkq, xk_scale=xks, xv=xvq, xv_scale=xvs)
-        else:
-            kv.update(xk=ck, xv=cv)
-        layers.append(kv)
-    x = L.layer_norm(params["ln_dec"], x)
-    cache = {k: torch.stack([kv[k] for kv in layers]) for k in layers[0]}
-    return L.logits(params["embedding"], x[:, -1:]), cache
+    and every layer's cross K/V over the frames.  Tensor-parallel on a mesh
+    with a ``model`` axis (the module doc)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        enc_out = encode(params, cfg, frames, tp)
+        x = _embed_dec(params, cfg, tokens, tp)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        layers: List[Dict[str, torch.Tensor]] = []
+        for i in range(cfg.n_dec_layers):
+            lp = _layer(params["dec_blocks"], i)
+            a, kv = L.attention_prefill(
+                lp["self_attn"], L.layer_norm(lp["ln1"], x), positions=positions,
+                cache_len=cache_len, causal=True, use_rope=False,
+                kv_cache_dtype=cfg.kv_cache_dtype, tp=tp)
+            x = x + a
+            ck, cv = L.cross_kv(lp["cross_attn"], enc_out)
+            x = x + L.cross_attention(lp["cross_attn"], L.layer_norm(lp["ln_x"], x), ck, cv, tp)
+            x = x + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), tp)
+            if cfg.kv_cache_dtype == "int8":
+                (xkq, xks), (xvq, xvs) = KR.quantize_int8_ref(ck), KR.quantize_int8_ref(cv)
+                kv.update(xk=xkq, xk_scale=xks, xv=xvq, xv_scale=xvs)
+            else:
+                kv.update(xk=ck, xv=cv)
+            layers.append(kv)
+        x = L.layer_norm(params["ln_dec"], x)
+        cache = {k: torch.stack([kv[k] for kv in layers]) for k in layers[0]}
+        return tensor.whole_logits(L.logits(params["embedding"], x[:, -1:], tp), tp), cache
 
 
 @torch.no_grad()
@@ -240,21 +258,25 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict[str, torch.Tensor], pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """token (B, 1), pos (B,) -> logits (B, 1, V).  The self K/V row at
-    ``pos`` is written in place; the cross K/V are only read."""
-    x = L.embed(params["embedding"], token, cfg.dtype)
-    table = params["dec_pos"]
-    x = x + table[torch.clamp(pos.long(), max=table.shape[0] - 1)][:, None].to(cfg.dtype)
-    for i in range(cfg.n_dec_layers):
-        lp = _layer(params["dec_blocks"], i)
-        kv = _layer(cache, i)
-        self_kv = {n: t for n, t in kv.items() if not n.startswith("x")}
-        a, _ = L.attention_decode(lp["self_attn"], L.layer_norm(lp["ln1"], x), self_kv,
-                                  pos=pos, use_rope=False)
-        x = x + a
-        x = x + L.cross_attention_decode(lp["cross_attn"], L.layer_norm(lp["ln_x"], x), kv)
-        x = x + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], x))
-    x = L.layer_norm(params["ln_dec"], x)
-    return L.logits(params["embedding"], x), cache
+    ``pos`` is written in place; the cross K/V are only read.
+    Tensor-parallel on a mesh with a ``model`` axis (the module doc)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = L.embed(params["embedding"], token, cfg.dtype, tp)
+        table = params["dec_pos"]
+        x = x + table[torch.clamp(pos.long(), max=table.shape[0] - 1)][:, None].to(cfg.dtype)
+        for i in range(cfg.n_dec_layers):
+            lp = _layer(params["dec_blocks"], i)
+            kv = _layer(cache, i)
+            self_kv = {n: t for n, t in kv.items() if not n.startswith("x")}
+            a, _ = L.attention_decode(lp["self_attn"], L.layer_norm(lp["ln1"], x), self_kv,
+                                      pos=pos, use_rope=False, tp=tp)
+            x = x + a
+            x = x + L.cross_attention_decode(lp["cross_attn"], L.layer_norm(lp["ln_x"], x),
+                                             kv, tp)
+            x = x + L.gelu_mlp(lp["mlp"], L.layer_norm(lp["ln2"], x), tp)
+        x = L.layer_norm(params["ln_dec"], x)
+        return tensor.whole_logits(L.logits(params["embedding"], x, tp), tp), cache
 
 
 def decode_writes(cfg: ModelConfig, cache: Dict[str, torch.Tensor], pos: Sequence[int],

@@ -10,12 +10,16 @@ Plain functions on tensors over the nested-dict parameter tree of
 through :mod:`repro_torch.kernels.ops`, so it runs the CUDA kernels on the
 card and their plain versions on the CPU.
 
-Training's attention, MLPs, embedding and logits take a
-:class:`~repro_torch.distributed.tensor.TensorPlan` (``tp``; None on one
-device): under it a rank holds its ``model`` pieces of the weights and
-computes its query heads (reading the KV heads of those heads), FFN
-columns or vocabulary rows, with the collectives of
-:mod:`repro_torch.distributed.tensor` around them.  The reference's
+The attention of training, prefill and decode, the MLPs, embedding and
+logits take a :class:`~repro_torch.distributed.tensor.TensorPlan` (``tp``;
+None on one device): under it a rank holds its ``model`` pieces of the
+weights and computes its query heads (reading the KV heads of those heads),
+FFN columns or vocabulary rows, with the collectives of
+:mod:`repro_torch.distributed.tensor` around them.  Query heads the axis
+does not divide are whole weights, of which a rank computes its block
+(:func:`_rank_heads`).  A serving cache holds the rank's KV heads where the
+axis divides them, else every KV head, each rank writing the whole new row
+(the reference's replicated cache).  The reference's
 ``with_logical_constraint`` points are kept (``repro/models/layers.py``):
 on a mesh they hold each activation's piece to its layout.
 """
@@ -161,15 +165,56 @@ def out_project(p: Dict, o: torch.Tensor, tp=None) -> torch.Tensor:
     return wlc(y, "batch", "seq", "act_embed")
 
 
-def _tp_qkv(p: Dict, x: torch.Tensor, tp) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, k, v of a tensor-parallel rank: its query heads; its KV heads
-    where the axis divides them, else every KV head computed whole (its
-    gradient summed over the group, as the rank's heads read only theirs)
-    and the ones its query heads read picked out."""
+def _rank_heads(p: Dict, tp) -> Dict:
+    """The attention's weights of the rank's query heads: ``p`` itself where
+    the plan shards the heads (or runs on one device), else, under a padded
+    split of whole weights, the rank's block of ``wq`` / ``bq`` / ``wo``,
+    each copied in (its gradient holds the rank's heads' part, summed over
+    the group)."""
+    if tp is None or not tp.pad_heads:
+        return p
+    a, b = tp.head_block
+    out = dict(p)
+    for name, dim in (("wq", 1), ("bq", 0), ("wo", 0)):
+        if name in p:
+            out[name] = tensor.copy_in(p[name], tp.axis).narrow(dim, a, b - a)
+    return out
+
+
+def _tp_qkv(p: Dict, x: torch.Tensor, tp
+            ) -> Tuple[Dict, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (the weights of a tensor-parallel rank's query heads,
+    :func:`_rank_heads`; their q; its KV heads where the axis divides them,
+    else every KV head computed whole).  Those K/V are what a serving cache
+    holds; training then picks the ones its query heads read
+    (:func:`_tp_kv`).  ``x`` is copied in for the rank's projections; whole
+    K/V read ``x`` itself, their gradient summed by :func:`_tp_kv`'s
+    copy-in."""
+    ph = _rank_heads(p, tp)
     xq = tensor.copy_in(x, tp.axis)
-    q = wlc(q_project(p, xq), "batch", "seq", "act_heads", None)
+    q = wlc(q_project(ph, xq), "batch", "seq", "act_heads", None)
     k, v = cross_kv(p, xq if tp.kv_heads else x)
-    return (q,) + _tp_kv(k, v, q.shape[2], tp)
+    return (ph, q, wlc(k, "batch", "seq", "act_kv_heads", None),
+            wlc(v, "batch", "seq", "act_kv_heads", None))
+
+
+def _kv_of_heads(h_loc: int, tp):
+    """The KV heads the rank's ``h_loc`` query heads (``tp.head_block``)
+    read, of every KV head: a slice where they are whole groups or part of
+    one, else a list of indices."""
+    group = tp.n_heads // tp.n_kv_heads
+    first = tp.head_block[0]
+    lo = first // group
+    hi = (first + h_loc - 1) // group + 1 if h_loc else lo
+    if hi - lo <= 1 or (first % group == 0 and h_loc % group == 0):
+        return slice(lo, hi)
+    return [(first + i) // group for i in range(h_loc)]
+
+
+def _pick_heads(t: torch.Tensor, sel) -> torch.Tensor:
+    if isinstance(sel, slice):
+        return t[:, :, sel]
+    return t.index_select(2, torch.tensor(sel, device=t.device))
 
 
 def _tp_kv(k: torch.Tensor, v: torch.Tensor, h_loc: int, tp
@@ -181,18 +226,20 @@ def _tp_kv(k: torch.Tensor, v: torch.Tensor, h_loc: int, tp
     v = wlc(v, "batch", "seq", "act_kv_heads", None)
     if tp.kv_heads:
         return k, v
-    k, v = tensor.copy_in(k, tp.axis), tensor.copy_in(v, tp.axis)
-    group = tp.n_heads // tp.n_kv_heads
-    first = tp.axis.index * h_loc
-    if h_loc % group == 0:             # whole groups: their KV heads, in order
-        sel = slice(first // group, first // group + h_loc // group)
-        return k[:, :, sel], v[:, :, sel]
-    if group % h_loc == 0:             # part of one group: its one KV head
-        sel = slice(first // group, first // group + 1)
-        return k[:, :, sel], v[:, :, sel]
-    idx = torch.div(torch.arange(first, first + h_loc, device=k.device), group,
-                    rounding_mode="floor")
-    return k.index_select(2, idx), v.index_select(2, idx)
+    sel = _kv_of_heads(h_loc, tp)
+    return (_pick_heads(tensor.copy_in(k, tp.axis), sel),
+            _pick_heads(tensor.copy_in(v, tp.axis), sel))
+
+
+def _read_cache(leaves: Tuple[torch.Tensor, ...], h_loc: int, tp) -> Tuple[torch.Tensor, ...]:
+    """A serving cache's leaves (B, T, Hkv, ·) as the rank's ``h_loc``
+    query heads read them, contiguous for the kernels: as they are on one
+    device or where they hold the rank's KV heads, else the KV heads of the
+    rank's query heads picked out of every KV head."""
+    if tp is None or tp.kv_heads:
+        return leaves
+    sel = _kv_of_heads(h_loc, tp)
+    return tuple(_pick_heads(t, sel).contiguous() for t in leaves)
 
 
 def attention_train(
@@ -218,7 +265,11 @@ def attention_train(
     ``use_rope`` is False (whisper's learned and sinusoidal positions).
     Under ``tp`` the kernel runs at the rank's heads (any group size).
     """
-    q, k, v = qkv_project(p, x) if tp is None else _tp_qkv(p, x, tp)
+    if tp is None:
+        q, k, v = qkv_project(p, x)
+    else:
+        p, q, k, v = _tp_qkv(p, x, tp)
+        k, v = _tp_kv(k, v, q.shape[2], tp)
     q, k = _rotate(q, k, positions, rope_theta, use_rope, mrope_sections, mrope_positions)
     if precision == "bf16":
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
@@ -241,6 +292,7 @@ def attention_prefill(
     mrope_sections: Optional[Tuple[int, ...]] = None,
     mrope_positions: Optional[torch.Tensor] = None,
     kv_cache_dtype: str = "native",
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: full attention over the prompt AND its KV cache padded to
     ``cache_len``.  With ``kv_cache_dtype="int8"`` the cache holds per-row
@@ -250,10 +302,13 @@ def attention_prefill(
     ``rotating=True`` (the local-attention archs): the cache holds only the
     last ``min(S, cache_len)`` positions, aligned to slot 0, the layout the
     rotating-window decode expects; keys keep their absolute RoPE phases.
-    Positions as in :func:`attention_train`."""
-    q, k, v = qkv_project(p, x)
+    Positions as in :func:`attention_train`.  Under ``tp`` the flash kernel
+    runs at the rank's query heads and the cache holds the K/V that
+    :func:`_tp_qkv` names."""
+    p, q, k, v = (p, *qkv_project(p, x)) if tp is None else _tp_qkv(p, x, tp)
     q, k = _rotate(q, k, positions, rope_theta, use_rope, mrope_sections, mrope_positions)
-    o = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+    ka, va = _read_cache((k, v), q.shape[2], tp)
+    o = kops.flash_attention(q.contiguous(), ka.contiguous(), va.contiguous(),
                              causal=causal, window=window)
     S = k.shape[1]
     if rotating and S > cache_len:
@@ -270,7 +325,7 @@ def attention_prefill(
         cache = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
     else:
         cache = {"k": kc, "v": vc}
-    return out_project(p, o), cache
+    return out_project(p, o, tp), cache
 
 
 def attention_decode(
@@ -284,6 +339,7 @@ def attention_decode(
     use_rope: bool = True,
     slot: Optional[torch.Tensor] = None,     # (B,) cache row to write (default pos)
     valid_len: Optional[torch.Tensor] = None,  # (B,) live cache rows (default slot+1)
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode against a KV cache. x: (B, 1, d).
 
@@ -294,9 +350,11 @@ def attention_decode(
     (``"k_scale"`` leaf) quantizes the new row before the write and attends
     through the int8 decode op.  RoPE rotates at ``pos`` (which a VLM
     shifts by its M-RoPE offset; the write stays at ``slot``), unless
-    ``use_rope`` is False.
+    ``use_rope`` is False.  Under ``tp`` the rank's query heads attend
+    over the cache's KV heads of theirs (:func:`_read_cache`).
     """
-    q, k, v = qkv_project(p, x)                       # (B,1,H,D) / (B,1,Hkv,D)
+    # (B,1,H,D) / (B,1,Hkv,D)
+    p, q, k, v = (p, *qkv_project(p, x)) if tp is None else _tp_qkv(p, x, tp)
     if use_rope:
         q = apply_rope(q, pos[:, None], rope_theta)
         k = apply_rope(k, pos[:, None], rope_theta)
@@ -313,14 +371,15 @@ def attention_decode(
         cache["v"][rows, idx] = vq[:, 0]
         cache["v_scale"][rows, idx] = vs_new[:, 0]
         o = kops.decode_attention_int8(
-            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], valid,
-            window=window)
-        return out_project(p, o), cache
+            q, *_read_cache((cache["k"], cache["k_scale"], cache["v"], cache["v_scale"]),
+                            q.shape[2], tp), valid, window=window)
+        return out_project(p, o, tp), cache
 
     cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
-    o = kops.decode_attention(q, cache["k"], cache["v"], valid, window=window)
-    return out_project(p, o), cache
+    o = kops.decode_attention(q, *_read_cache((cache["k"], cache["v"]), q.shape[2], tp),
+                              valid, window=window)
+    return out_project(p, o, tp), cache
 
 
 def cross_kv(p: Dict, ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -343,6 +402,7 @@ def cross_attention(p: Dict, x: torch.Tensor, ctx_k: torch.Tensor,
     ``ctx_k`` / ``ctx_v`` are those where the axis divides the KV heads
     (:func:`cross_kv` of the rank's ``wk`` / ``wv`` over the copied-in
     encoder output), else every KV head, of which the rank's are picked."""
+    p = _rank_heads(p, tp)
     xq = x if tp is None else tensor.copy_in(x, tp.axis)
     q = wlc(q_project(p, xq), "batch", "seq", "act_heads", None)
     if tp is not None:
@@ -352,23 +412,26 @@ def cross_attention(p: Dict, x: torch.Tensor, ctx_k: torch.Tensor,
     return out_project(p, o, tp)
 
 
-def cross_attention_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor]
-                           ) -> torch.Tensor:
+def cross_attention_decode(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                           tp=None) -> torch.Tensor:
     """One decoder row (B, 1, d) against the cached cross K/V (``"xk"``,
     ``"xv"``, and with an int8 cache ``"xk_scale"``, ``"xv_scale"``) through
     the decode op, every frame valid: the same unmasked attention as
     :func:`cross_attention` (reference ``encdec.py:250-262``).  The int8
     cache is attended in place, dequantized inside the kernel (the
-    reference dequantizes first, then attends)."""
-    q = q_project(p, x).contiguous()
+    reference dequantizes first, then attends).  Under ``tp`` the rank's
+    query heads over the cache's KV heads of theirs."""
+    p = _rank_heads(p, tp)
+    q = wlc(q_project(p, x), "batch", "seq", "act_heads", None).contiguous()
     xk = cache["xk"]
     valid = torch.full((x.shape[0],), xk.shape[1], dtype=torch.int32, device=x.device)
     if "xk_scale" in cache:
-        o = kops.decode_attention_int8(q, xk, cache["xk_scale"], cache["xv"],
-                                       cache["xv_scale"], valid)
+        o = kops.decode_attention_int8(
+            q, *_read_cache((xk, cache["xk_scale"], cache["xv"], cache["xv_scale"]),
+                            q.shape[2], tp), valid)
     else:
-        o = kops.decode_attention(q, xk, cache["xv"], valid)
-    return out_project(p, o)
+        o = kops.decode_attention(q, *_read_cache((xk, cache["xv"]), q.shape[2], tp), valid)
+    return out_project(p, o, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ CPU tensors).  On a mesh whose ``model`` axis divides the experts the layer
 takes the reference's group-local expert-parallel path
 (``_moe_mlp_local``): each rank runs the kernels on its own experts' slots
 and the partial outputs are summed over ``model``.  The reference's
-unfused ``dense`` dispatch, its A/B baseline, is not ported.
+unfused ``dense`` dispatch, its A/B baseline, is not ported.  Prefill and
+decode take the same path on a mesh, inside the dense skeleton's
+tensor-parallel serving.
 
 Entry points: ``init_params``, ``forward`` (training: logits and the
 router's load-balance loss summed over the layers, which ``train.steps``
@@ -55,18 +57,21 @@ def expert_capacity(n_tokens: int, n_experts: int, k: int, capacity_factor: floa
 
 
 def moe_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-            tp: Optional[tensor.TensorPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            tp: Optional[tensor.TensorPlan] = None,
+            aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss), as the reference's ``auto`` picks:
     the group-local expert-parallel path where ``tp`` shards the experts
     over ``model`` (:func:`_moe_mlp_local`), else routing, then the expert
     GEMM and combine kernels over all experts; the (T·k, d) token copies
-    and the g/u intermediates never exist as tensors."""
+    and the g/u intermediates never exist as tensors.  Serving passes
+    ``aux=False``: the expert-parallel path then skips the router loss and
+    its ``data`` statistics (a zero stands in)."""
     if not cfg.fused_moe:
         raise NotImplementedError(
             "fused_moe=False selects the reference's unfused dispatch, its A/B "
             "baseline; the port runs the MoE layer through the fused kernels only")
     if tp is not None and tp.experts:
-        return _moe_mlp_local(p, x, cfg, tp.axis)
+        return _moe_mlp_local(p, x, cfg, tp.axis, aux)
     B, S, d = x.shape
     T = B * S
     C = expert_capacity(T, cfg.n_experts, cfg.experts_per_token, cfg.capacity_factor)
@@ -91,7 +96,8 @@ def _router_aux(x: torch.Tensor, router: torch.Tensor, k: int,
 
 
 def _moe_mlp_local(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                   axis: tensor.ModelAxis) -> Tuple[torch.Tensor, torch.Tensor]:
+                   axis: tensor.ModelAxis, aux: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The group-local EP dispatch (``repro/models/moe.py:98-233``).
 
     Token groups are the ``data`` shards; the rank holds experts
@@ -117,13 +123,16 @@ def _moe_mlp_local(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     xf = xg.reshape(T, d)
     out = kops.fused_moe_local(xf, router, p["wi_gate"], p["wi_up"], p["wo"], k=k, capacity=C,
                                first_expert=axis.index * (E // axis.size))
-    aux = _router_aux(xf, router, k, axis)
-    if axis.index != 0:
-        aux = aux.detach()
+    if aux:
+        loss = _router_aux(xf, router, k, axis)
+        if axis.index != 0:
+            loss = loss.detach()
+    else:
+        loss = torch.zeros((), dtype=torch.float32, device=x.device)
     out = out.reshape(xg.shape[0], S, d)
     out = tensor.scatter_batch(out, axis) if axis.batch_over_model else \
         tensor.reduce_out(out, axis)
-    return wlc(out, "batch", "seq", "act_embed"), aux
+    return wlc(out, "batch", "seq", "act_embed"), loss
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +201,11 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor
 
 
 init_cache = dense.init_cache
+cache_logical_axes = dense.cache_logical_axes
 
 
-def _moe_ffn(lp: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return moe_mlp(lp["moe"], x, cfg)[0]          # serving drops the aux loss
+def _moe_ffn(lp: Dict, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    return moe_mlp(lp["moe"], x, cfg, tp, aux=False)[0]     # serving drops the aux loss
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,

@@ -28,6 +28,12 @@ and the GeGLU split heads and FFN columns as the dense layers do, and the
 tied embedding and head split the vocabulary.  Under ``int8-fused`` the
 gated input is quantized with the whole row's scale (the max over the
 group of the ranks' row absmax), as the reference quantizes the whole row.
+
+Prefill and decode run the same pieces on the mesh: the RG-LRU's ``conv``
+and ``lru`` state hold the rank's channels (``cache_logical_axes``, the
+reference's table); the A layers' rotating window holds the rank's KV
+heads, or every one where the axis does not divide them (the MQA head of
+the published config), each rank writing the whole new row.
 """
 from __future__ import annotations
 
@@ -166,13 +172,19 @@ def recurrent_block(lp: Dict, x: torch.Tensor, cfg: ModelConfig, tp=None
     return out, {"conv": win, "lru": rec[:, -1].float()}
 
 
-def recurrent_block_step(lp: Dict, x: torch.Tensor, state: Dict
+def recurrent_block_step(lp: Dict, x: torch.Tensor, state: Dict, tp=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token through the block against ``state``; under ``tp`` the
+    rank's channels (``state`` holds them), the row piece's partial sums
+    summed."""
     rec = L.linear(lp["in_rec"], x)
     gate = F.gelu(L.linear(lp["in_gate"], x), approximate="tanh")
     rec, conv_win = conv1d_step(lp["conv"], rec, state["conv"])
     rec, h = rglru_step(lp["lru"], rec, state["lru"])
-    return L.linear(lp["out"], rec * gate), {"conv": conv_win, "lru": h}
+    out = L.linear(lp["out"], wlc(rec * gate, "batch", "seq", "lru"))
+    if tp is not None and tp.lru:
+        out = tensor.reduce_out(out, tp.axis)
+    return out, {"conv": conv_win, "lru": h}
 
 
 def _init_layer(s, cfg: ModelConfig, kind: str):
@@ -261,35 +273,38 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
 
     A-layer caches are rotating windows of ``min(window, cache_len)`` rows
     holding the last in-window K/V (absolute RoPE phases); R-layer states are
-    (conv window, final lru h)."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    a_kv, r_conv, r_lru = [], [], []
-    idx = {"R": 0, "A": 0}
-    for kind in layer_kinds(cfg):
-        lp = _layer(params["groups"][kind], idx[kind])
-        h = L.rms_norm(lp["ln1"], x)
-        if kind == "A":
-            h, kv = L.attention_prefill(
-                lp["attn"], h, positions=positions, cache_len=_attn_len(cfg, cache_len),
-                causal=True, window=cfg.window, rope_theta=cfg.rope_theta,
-                rotating=True, kv_cache_dtype=cfg.kv_cache_dtype)
-            a_kv.append(kv)
-        else:
-            h, st = recurrent_block(lp, h, cfg)
-            r_conv.append(st["conv"])
-            r_lru.append(st["lru"])
-        x = x + h
-        x = x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x))
-        idx[kind] += 1
-    empty = torch.zeros((0,), device=x.device)
-    cache = {
-        "A": ({n: torch.stack([kv[n] for kv in a_kv]) for n in a_kv[0]} if a_kv else
-              {n: empty for n in _kv_leaves(cfg)}),
-        "R": ({"conv": torch.stack(r_conv), "lru": torch.stack(r_lru)} if r_conv else
-              {"conv": empty, "lru": empty}),
-    }
-    return _final(params, x[:, -1:], cfg), cache
+    (conv window, final lru h).  Tensor-parallel on a mesh with a ``model``
+    axis (the module doc)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = L.embed(params["embedding"], tokens, cfg.dtype, tp)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        a_kv, r_conv, r_lru = [], [], []
+        idx = {"R": 0, "A": 0}
+        for kind in layer_kinds(cfg):
+            lp = _layer(params["groups"][kind], idx[kind])
+            h = L.rms_norm(lp["ln1"], x)
+            if kind == "A":
+                h, kv = L.attention_prefill(
+                    lp["attn"], h, positions=positions, cache_len=_attn_len(cfg, cache_len),
+                    causal=True, window=cfg.window, rope_theta=cfg.rope_theta,
+                    rotating=True, kv_cache_dtype=cfg.kv_cache_dtype, tp=tp)
+                a_kv.append(kv)
+            else:
+                h, st = recurrent_block(lp, h, cfg, tp)
+                r_conv.append(st["conv"])
+                r_lru.append(st["lru"])
+            x = x + h
+            x = x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x), tp)
+            idx[kind] += 1
+        empty = torch.zeros((0,), device=x.device)
+        cache = {
+            "A": ({n: torch.stack([kv[n] for kv in a_kv]) for n in a_kv[0]} if a_kv else
+                  {n: empty for n in _kv_leaves(cfg)}),
+            "R": ({"conv": torch.stack(r_conv), "lru": torch.stack(r_lru)} if r_conv else
+                  {"conv": empty, "lru": empty}),
+        }
+        return tensor.whole_logits(_final(params, x[:, -1:], cfg, tp), tp), cache
 
 
 def _kv_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -325,6 +340,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     }
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Dict[str, Dict[str, Tuple[Optional[str], ...]]]:
+    """The cache's logical axes (``repro/models/rglru.py:368``)."""
+    kv = ("layers", "batch", "kv_seq", "act_kv_heads", None)
+    return {"A": {n: kv for n in _kv_leaves(cfg)},
+            "R": {"conv": ("layers", "batch", None, "lru"), "lru": ("layers", "batch", "lru")}}
+
+
 @torch.no_grad()
 def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict[str, Dict[str, torch.Tensor]], pos: torch.Tensor
@@ -335,30 +357,34 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
     Each A layer's cache is a rotating window: once ``pos >= win`` every KV
     leaf (scales included) rolls one row left and the new row lands in the
     last one.  Keys keep their absolute RoPE phase, so every cached key is in
-    the window by construction and no window mask is needed."""
-    x = L.embed(params["embedding"], token, cfg.dtype)
-    idx = {"R": 0, "A": 0}
-    for kind in layer_kinds(cfg):
-        lp = _layer(params["groups"][kind], idx[kind])
-        h = L.rms_norm(lp["ln1"], x)
-        if kind == "A":
-            kv = {n: c[idx["A"]] for n, c in cache["A"].items()}
-            win = _window(cfg, kv["k"].shape[1])
-            full = (pos >= win)[:, None, None, None]
-            for c in kv.values():
-                c.copy_(torch.where(full, torch.roll(c, -1, dims=1), c))
-            h, _ = L.attention_decode(
-                lp["attn"], h, kv, pos=pos, rope_theta=cfg.rope_theta,
-                slot=torch.clamp(pos, max=win - 1), valid_len=torch.clamp(pos + 1, max=win))
-        else:
-            st = {"conv": cache["R"]["conv"][idx["R"]], "lru": cache["R"]["lru"][idx["R"]]}
-            h, st = recurrent_block_step(lp, h, st)
-            cache["R"]["conv"][idx["R"]] = st["conv"]
-            cache["R"]["lru"][idx["R"]] = st["lru"]
-        x = x + h
-        x = x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x))
-        idx[kind] += 1
-    return _final(params, x, cfg), cache
+    the window by construction and no window mask is needed.
+    Tensor-parallel on a mesh with a ``model`` axis (the module doc)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = L.embed(params["embedding"], token, cfg.dtype, tp)
+        idx = {"R": 0, "A": 0}
+        for kind in layer_kinds(cfg):
+            lp = _layer(params["groups"][kind], idx[kind])
+            h = L.rms_norm(lp["ln1"], x)
+            if kind == "A":
+                kv = {n: c[idx["A"]] for n, c in cache["A"].items()}
+                win = _window(cfg, kv["k"].shape[1])
+                full = (pos >= win)[:, None, None, None]
+                for c in kv.values():
+                    c.copy_(torch.where(full, torch.roll(c, -1, dims=1), c))
+                h, _ = L.attention_decode(
+                    lp["attn"], h, kv, pos=pos, rope_theta=cfg.rope_theta,
+                    slot=torch.clamp(pos, max=win - 1), valid_len=torch.clamp(pos + 1, max=win),
+                    tp=tp)
+            else:
+                st = {"conv": cache["R"]["conv"][idx["R"]], "lru": cache["R"]["lru"][idx["R"]]}
+                h, st = recurrent_block_step(lp, h, st, tp)
+                cache["R"]["conv"][idx["R"]] = st["conv"]
+                cache["R"]["lru"][idx["R"]] = st["lru"]
+            x = x + h
+            x = x + L.geglu(lp["mlp"], L.rms_norm(lp["ln2"], x), tp)
+            idx[kind] += 1
+        return tensor.whole_logits(_final(params, x, cfg, tp), tp), cache
 
 
 def _window(cfg: ModelConfig, rows: int) -> int:

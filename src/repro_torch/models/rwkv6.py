@@ -34,6 +34,13 @@ before it gates the reduced output.  The ``mu_*`` vectors are ``lru``
 pieces that mix the whole ``x``, so they are gathered whole; the decay
 LoRA's ``wa`` is replicated, so ``tanh(x_w wa)`` is computed whole on
 every rank and copied in after it.
+
+Serving on the same mesh runs those pieces too: ``prefill`` the WKV scan at
+the rank's heads, ``decode_step`` the one-token step at them.  The cache
+holds the rank's ``lru`` pieces (``cache_logical_axes``, the reference's
+table): its heads of ``wkv``, its channels of ``tshift`` and ``cshift``.
+The mixes read the previous x whole, so each step first gathers a layer's
+two shifts whole, with its mix vectors, in one all-gather.
 """
 from __future__ import annotations
 
@@ -111,13 +118,16 @@ def _mixer(x: torch.Tensor, xp: torch.Tensor):
     return mix
 
 
-def _whole_mus(p: Dict, partial: Dict[str, bool], tp) -> Dict[str, torch.Tensor]:
-    """The mix vectors named in ``partial``, whole.  Under an ``lru`` split
-    each is the rank's piece, gathered in one all-gather a kind: where the
-    rank's gradient of the whole vector is a partial sum (``partial[name]``:
-    it mixes the input of the rank's columns) the backward reduce-scatters
-    it, else (whole on every rank) it keeps the rank's slice."""
-    if tp is None or not tp.lru:
+def _whole_mus(p: Dict, partial: Dict[str, bool], tp, width: int
+               ) -> Dict[str, torch.Tensor]:
+    """The mix vectors named in ``partial``, whole (``width`` channels).
+    Under an ``lru`` split each is the rank's piece, gathered in one
+    all-gather a kind: where the rank's gradient of the whole vector is a
+    partial sum (``partial[name]``: it mixes the input of the rank's
+    columns) the backward reduce-scatters it, else (whole on every rank) it
+    keeps the rank's slice.  Vectors already whole (a decode step's,
+    :func:`_gather_step`) pass as they are."""
+    if tp is None or not tp.lru or all(p[name].shape[-1] == width for name in partial):
         return {name: p[name] for name in partial}
     out = {}
     for summed in (True, False):
@@ -145,7 +155,8 @@ def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, d).  ``state`` None: the whole prompt through the scan op;
     otherwise one decode token against ``{"shift": (B, d), "wkv": (B, H, D, D)}``.
     Returns (out, {"shift": x[:, -1], "wkv": state after the last position}).
-    Under ``tp`` (training) the rank's heads, as the module doc says."""
+    Under ``tp`` the rank's heads, as the module doc says (``state`` then
+    holds the whole shift and the rank's heads' ``wkv``)."""
     hd = cfg.rwkv_head_dim
     B, S, d = x.shape
     mix = _mixer(x, _token_shift(x, state["shift"] if state else None))
@@ -154,9 +165,9 @@ def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         # columns' parts, summed once); the decay's whole LoRA input reads
         # x itself, its gradient whole on every rank
         xc = tensor.copy_in(x, tp.axis)
-        mix_c = _mixer(xc, _token_shift(xc))
+        mix_c = _mixer(xc, _token_shift(xc, state["shift"] if state else None))
         mu = _whole_mus(p, {"mu_r": True, "mu_k": True, "mu_v": True, "mu_g": True,
-                            "mu_w": False}, tp)
+                            "mu_w": False}, tp, d)
         lora = tensor.copy_in(torch.tanh(mix(mu["mu_w"]) @ p["wa"].to(x.dtype)), tp.axis)
     else:
         mix_c, mu = mix, p
@@ -218,7 +229,7 @@ def channel_mix(p: Dict, x: torch.Tensor, shift: Optional[torch.Tensor] = None,
         # copied-in x where the rank's columns read it
         xc = tensor.copy_in(x, tp.axis)
         mix_c = _mixer(xc, _token_shift(xc, shift))
-        mu = _whole_mus(p, {"mu_r": True, "mu_k": split_k}, tp)
+        mu = _whole_mus(p, {"mu_r": True, "mu_k": split_k}, tp, x.shape[-1])
         x_r, x_k = mix_c(mu["mu_r"]), (mix_c if split_k else mix)(mu["mu_k"])
     else:
         # whole mix vectors: their gradients stay whole, the copy-in after them
@@ -306,25 +317,66 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int = 0, dtype=None,
     }
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The state's logical axes (``repro/models/rwkv6.py:319``): ``wkv``'s
+    heads and the shifts' channels over ``lru``."""
+    return {"tshift": ("layers", "batch", "lru"), "cshift": ("layers", "batch", "lru"),
+            "wkv": ("layers", "batch", "lru", None, None)}
+
+
+_STEP_MUS = (("tmix", ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")), ("cmix", ("mu_r", "mu_k")))
+
+
+def _gather_step(lp: Dict, tshift: torch.Tensor, cshift: torch.Tensor, dtype: torch.dtype,
+                 tp) -> Tuple[torch.Tensor, torch.Tensor, Dict, Dict]:
+    """A decode step's shifts and mix vectors of one layer whole: the
+    rank's pieces (B, d/m) and (d/m,) in one all-gather, in the
+    activations' ``dtype`` (where the mixes cast the vectors anyway) ->
+    (tshift, cshift, the time mix's and the channel mix's params with their
+    mix vectors whole)."""
+    B = tshift.shape[0]
+    pieces = [tshift, cshift] + [lp[kind][n][None] for kind, names in _STEP_MUS
+                                 for n in names]
+    whole = tensor.gather_features(torch.cat([t.to(dtype) for t in pieces]), tp.axis)
+    out, i = {}, 2 * B
+    for kind, names in _STEP_MUS:
+        out[kind] = dict(lp[kind], **dict(zip(names, whole[i:i + len(names)].unbind(0))))
+        i += len(names)
+    return whole[:B], whole[B:2 * B], out["tmix"], out["cmix"]
+
+
+def _lru_piece(x: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's ``lru`` channels of a whole (B, d) shift (itself where
+    the plan does not split them)."""
+    if tp is None or not tp.lru:
+        return x
+    n = x.shape[-1] // tp.axis.size
+    return x[..., tp.axis.index * n:(tp.axis.index + 1) * n]
+
+
 @torch.no_grad()
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Run the prompt; return (last-position logits (B, 1, V), decode-ready state)."""
-    x = L.embed(params["embedding"], tokens, cfg.dtype)
-    x = L.layer_norm(params["ln0"], x)
-    tshift, cshift, wkv = [], [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        t_out, st = time_mix(lp["tmix"], L.layer_norm(lp["ln1"], x), cfg)
-        tshift.append(st["shift"])
-        wkv.append(st["wkv"])
-        x = x + t_out
-        xn = L.layer_norm(lp["ln2"], x)
-        cshift.append(xn[:, -1])
-        x = x + channel_mix(lp["cmix"], xn)
-    cache = {"tshift": torch.stack(tshift), "cshift": torch.stack(cshift),
-             "wkv": torch.stack(wkv)}
-    return _logits(params, cfg, x[:, -1:]), cache
+    """Run the prompt; return (last-position logits (B, 1, V), decode-ready
+    state).  Tensor-parallel on a mesh with a ``model`` axis (the module
+    doc)."""
+    tp, sizes = tensor_plan(cfg)
+    with sizes:
+        x = L.embed(params["embedding"], tokens, cfg.dtype, tp)
+        x = L.layer_norm(params["ln0"], x)
+        tshift, cshift, wkv = [], [], []
+        for i in range(cfg.n_layers):
+            lp = _layer(params["blocks"], i)
+            t_out, st = time_mix(lp["tmix"], L.layer_norm(lp["ln1"], x), cfg, tp=tp)
+            tshift.append(_lru_piece(st["shift"], tp))
+            wkv.append(st["wkv"])
+            x = x + t_out
+            xn = L.layer_norm(lp["ln2"], x)
+            cshift.append(_lru_piece(xn[:, -1], tp))
+            x = x + channel_mix(lp["cmix"], xn, tp=tp)
+        cache = {"tshift": torch.stack(tshift), "cshift": torch.stack(cshift),
+                 "wkv": torch.stack(wkv)}
+        return tensor.whole_logits(_logits(params, cfg, x[:, -1:], tp), tp), cache
 
 
 @torch.no_grad()
@@ -332,22 +384,30 @@ def decode_step(params: PyTree, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict[str, torch.Tensor], pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """token (B, 1) -> logits (B, 1, V).  ``cache`` is updated in place (the
-    JAX package donates it) and returned; ``pos`` is unused (O(1) state)."""
-    x = L.embed(params["embedding"], token, cfg.dtype)
-    x = L.layer_norm(params["ln0"], x)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        xn = L.layer_norm(lp["ln1"], x)
-        t_out, st = time_mix(lp["tmix"], xn, cfg,
-                             state={"shift": cache["tshift"][i], "wkv": cache["wkv"][i]})
-        x = x + t_out
-        xn = L.layer_norm(lp["ln2"], x)
-        c_out = channel_mix(lp["cmix"], xn, cache["cshift"][i])
-        x = x + c_out
-        cache["tshift"][i] = st["shift"]
-        cache["wkv"][i] = st["wkv"]
-        cache["cshift"][i] = xn[:, -1]
-    return _logits(params, cfg, x), cache
+    JAX package donates it) and returned; ``pos`` is unused (O(1) state).
+    Tensor-parallel on a mesh with a ``model`` axis (the module doc)."""
+    tp, sizes = tensor_plan(cfg)
+    split = tp is not None and tp.lru
+    with sizes:
+        x = L.embed(params["embedding"], token, cfg.dtype, tp)
+        x = L.layer_norm(params["ln0"], x)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["blocks"], i)
+            tshift, cshift, tmix, cmix = cache["tshift"][i], cache["cshift"][i], \
+                lp["tmix"], lp["cmix"]
+            if split:
+                tshift, cshift, tmix, cmix = _gather_step(lp, tshift, cshift, cfg.dtype, tp)
+            xn = L.layer_norm(lp["ln1"], x)
+            t_out, st = time_mix(tmix, xn, cfg, state={"shift": tshift, "wkv": cache["wkv"][i]},
+                                 tp=tp)
+            x = x + t_out
+            xn = L.layer_norm(lp["ln2"], x)
+            c_out = channel_mix(cmix, xn, cshift, tp=tp)
+            x = x + c_out
+            cache["tshift"][i] = _lru_piece(st["shift"], tp)
+            cache["wkv"][i] = st["wkv"]
+            cache["cshift"][i] = _lru_piece(xn[:, -1], tp)
+        return tensor.whole_logits(_logits(params, cfg, x, tp), tp), cache
 
 
 def decode_writes(cfg: ModelConfig, cache: Dict[str, torch.Tensor], pos: Sequence[int],

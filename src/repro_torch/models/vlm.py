@@ -17,7 +17,9 @@ writes that offset into the cache (``mrope_offset``, (B,) int32) and
 On a mesh with a ``model`` axis the training forward is the dense
 decoder's tensor-parallel one; the text tokens go through the
 vocabulary-parallel embedding before the patch embeddings (replicated over
-``model``) are placed in front of them.
+``model``) are placed in front of them.  Prefill and decode are the dense
+decoder's tensor-parallel serving, the text rows embedded the same way;
+``mrope_offset`` is whole on every rank of a ``model`` group.
 """
 from __future__ import annotations
 
@@ -85,6 +87,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     return cache
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The dense cache's axes and ``mrope_offset`` over ``batch``
+    (``repro/models/vlm.py:74``)."""
+    axes = dense.cache_logical_axes(cfg)
+    axes["mrope_offset"] = ("batch",)
+    return axes
+
+
 def _kv(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The KV leaves (2 native or 4 int8), without ``mrope_offset``."""
     return {k: v for k, v in cache.items() if k != "mrope_offset"}
@@ -105,8 +115,11 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, cache_len: i
     """Multimodal prefill over [patches | text], the M-RoPE phases in the
     cache.  Without ``patch_embeds`` (``ServeSession.generate``'s text-only
     route, as the reference's) the first ``min(n_vision_patches, S)`` token
-    positions take the vision position ids."""
-    x, n_vis = _sequence(params, cfg, tokens, patch_embeds)
+    positions take the vision position ids.  On a mesh with a ``model``
+    axis, tensor-parallel (the module doc)."""
+    tp, sizes = dense.tensor_plan(cfg)
+    with sizes:
+        x, n_vis = _sequence(params, cfg, tokens, patch_embeds, tp)
     B, S = x.shape[0], x.shape[1]
     if n_vis is None:
         n_vis = min(cfg.n_vision_patches, S)

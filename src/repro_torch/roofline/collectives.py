@@ -93,7 +93,9 @@ def tp_step_ops(cfg, rows: int, seq: int, model: int, *, data: int = 1, model_in
         self- and cross-attention): ``A`` forward (the heads' partial sums),
         ``A`` backward (the copy-in of its input), and where the axis does
         not divide the KV heads, K and V backward (their gradients summed,
-        rows x KV rows x KV heads x head dim);
+        rows x KV rows x KV heads x head dim); where it does not divide the
+        query heads (a padded split of whole weights), the gradients of
+        ``wq`` and ``wo`` (and ``bq``) backward, whole, float32;
       * a split MLP (dense, VLM, recurrentgemma's GeGLU, whisper's GELU
         MLP): ``A`` forward, ``A`` backward;
       * an MoE layer whose experts the axis divides: the router all-gathered
@@ -140,6 +142,8 @@ def tp_step_ops(cfg, rows: int, seq: int, model: int, *, data: int = 1, model_in
     param = cfg.dtype.itemsize
     hd = cfg.resolved_head_dim()
     kv_split = cfg.n_kv_heads % model == 0
+    pad = cfg.n_heads % model != 0
+    q_bias = cfg.qkv_bias or cfg.family == "encdec"
     mlp = cfg.family != "moe" and cfg.d_ff % model == 0
     ops: List[Op] = []
 
@@ -153,6 +157,10 @@ def tp_step_ops(cfg, rows: int, seq: int, model: int, *, data: int = 1, model_in
         ar(a, times=reps + 1)
         if not kv_split:
             ar(kv_rows * cfg.n_kv_heads * hd * 4, times=2)
+        if pad:
+            ar(d * cfg.n_heads * hd * 4, times=2)
+            if q_bias:
+                ar(cfg.n_heads * hd * 4)
 
     def split_mlp(a):
         if mlp:
@@ -220,4 +228,118 @@ def tp_step_ops(cfg, rows: int, seq: int, model: int, *, data: int = 1, model_in
             ar(nbytes, data)
         ar(12, data)
     ar(4)
+    return ops
+
+
+def tp_serve_ops(cfg, plan, batch: int, prompt: int, steps: int, *,
+                 patches: int = 0) -> List[Op]:
+    """The collectives one rank issues serving ``cfg`` under ``plan`` (a
+    :class:`~repro_torch.distributed.sharding.ShardingPlan` on a (data,
+    model) mesh, its rules the defaults but for ``lru``): one prefill of
+    ``prompt`` tokens (none at 0; a VLM's ``patches`` rows before them,
+    whisper's encoder over ``cfg.n_frames``), then ``steps`` decode steps,
+    over the ``batch`` rows of the rank's data group.  The closed form a
+    serving run's :func:`recording` log is held to, as :func:`tp_step_ops`
+    is a training step's.  Serving runs forward only, so every copy-in is
+    free; ``A`` is an activation all-reduce, batch x tokens x d_model
+    float32:
+
+      * an attention: ``A`` (the heads' partial sums; a padded split of
+        query heads the axis does not divide joins it whole, a rank with
+        no heads adding zeros);
+      * a split MLP: ``A``;
+      * an MoE layer whose experts the axis divides: the router's
+        all-gather (d_model x E, the weights' dtype), then ``A`` (serving
+        computes no router loss, so no ``data`` statistics);
+      * an RWKV-6 layer over split ``lru`` channels: time mixing's mu
+        gathers (4 x d_model and d_model), its ``wo`` ``A``, channel
+        mixing's mu gathers (2 x d_model over split FFN columns, else two
+        of d_model) and its gate r's gather (batch x tokens x d_model); a
+        decode step gathers the layer's two shifts and its seven mu
+        vectors in one all-gather instead ((2 x batch + 7) x d_model);
+        over split FFN columns, ``wv``'s ``A``;
+      * a recurrentgemma R layer over split ``lru`` channels: ``out``'s
+        ``A``, and under ``int8-fused`` the prefill scan's row absmax
+        (batch x tokens float32);
+      * whisper's prefill: per encoder layer its attention and MLP at batch
+        x n_frames x d_model, then the decoder's self-attention,
+        cross-attention and MLP a layer;
+      * a split vocabulary: the embedding's ``A`` (at the text's tokens)
+        and the last position's logits gathered whole (batch x vocab, the
+        activations' dtype).
+    """
+    from repro_torch.distributed.sharding import mesh_axis_sizes
+
+    model = mesh_axis_sizes(plan.mesh).get("model", 1)
+    if model == 1:
+        return []
+    d, item = cfg.d_model, cfg.dtype.itemsize
+    mlp = cfg.family != "moe" and cfg.d_ff % model == 0
+    lru_rule = plan.rules.get("lru")
+    lru = "model" in ((lru_rule,) if isinstance(lru_rule, str) else tuple(lru_rule or ())) \
+        and cfg.family in ("rwkv6", "rglru") and (cfg.lru_width or d) % model == 0
+    ops: List[Op] = []
+
+    def ar(nbytes, times=1):
+        ops.extend([("all-reduce", nbytes, model)] * times)
+
+    def gather(nbytes):
+        ops.append(("all-gather", nbytes, model))
+
+    def split_mlp(a):
+        if mlp:
+            ar(a)
+
+    def forward(seq: int, extra: int, decode: bool):
+        act = batch * (seq + extra) * d * 4
+        if cfg.family == "rwkv6":
+            for _ in range(cfg.n_layers):
+                if lru:
+                    if decode:
+                        gather((2 * batch + 7) * d * item)
+                    else:
+                        gather(4 * d * item)
+                        gather(d * item)
+                        gather((2 if mlp else 1) * d * item)
+                        if not mlp:
+                            gather(d * item)
+                    ar(act)
+                    gather(batch * seq * d * item)
+                split_mlp(act)
+        elif cfg.family == "rglru":
+            from repro_torch.models.rglru import layer_kinds
+
+            for kind in layer_kinds(cfg):
+                if kind == "A":
+                    ar(act)
+                elif lru:
+                    ar(act)
+                    if not decode and cfg.train_precision == "int8-fused":
+                        ar(batch * seq * 4)
+                split_mlp(act)
+        elif cfg.family == "encdec":
+            if not decode:
+                enc = batch * cfg.n_frames * d * 4
+                for _ in range(cfg.n_enc_layers):
+                    ar(enc)
+                    split_mlp(enc)
+            for _ in range(cfg.n_dec_layers):
+                ar(act, times=2)
+                split_mlp(act)
+        else:
+            for _ in range(cfg.n_layers):
+                ar(act)
+                if cfg.family == "moe" and cfg.n_experts % model == 0:
+                    gather(d * cfg.n_experts * item)
+                    ar(act)
+                else:
+                    split_mlp(act)
+        if cfg.vocab % model == 0:
+            ar(batch * seq * d * 4)
+            gather(batch * cfg.vocab * item)
+
+    if prompt:
+        forward(prompt, patches, decode=False)
+    for _ in range(steps):
+        forward(1, 0, decode=True)
     return ops

@@ -678,7 +678,11 @@ def make_eval_step(model: Model, *, aux_weight: float = 0.01) -> Callable:
 def make_serve_step(model: Model) -> Callable:
     """One-token decode: (params, token, cache, pos) -> (next_token, logits, cache).
 
-    The cache is updated in place and returned."""
+    The cache is updated in place and returned.  Under the mesh in scope
+    (:func:`~repro_torch.distributed.sharding.use_mesh`, the reference's
+    ``set_mesh`` + ``jit(make_serve_step)`` with the cache sharded by
+    ``cache_logical_axes``) the step is tensor-parallel: ``params`` and
+    ``cache`` are the rank's pieces, the logits whole."""
 
     def serve_step(params, token, cache, pos):
         logits, cache = model.decode_step(params, token, cache, pos)
@@ -689,6 +693,8 @@ def make_serve_step(model: Model) -> Callable:
 
 
 def make_prefill_step(model: Model, cache_len: int) -> Callable:
+    """(params, tokens) -> (last logits, cache) of ``Model.prefill``,
+    tensor-parallel under the mesh in scope as :func:`make_serve_step`."""
     def prefill_step(params, tokens):
         return model.prefill(params, tokens, cache_len)
 

@@ -739,8 +739,8 @@ PLAN_VERDICTS = [
     ("recurrentgemma-2b", False, (1, 2), None),
     ("whisper-medium", False, (1, 2), None),
     ("qwen2-vl-7b", False, (1, 2), None),
-    ("deepseek-7b", False, (1, 8), "query heads"),
-    ("recurrentgemma-2b", False, (1, 4), "query heads"),
+    ("deepseek-7b", False, (1, 8), None),
+    ("recurrentgemma-2b", False, (1, 4), None),
     ("rwkv6-7b", False, (1, 8), "whole heads"),
 ]
 
@@ -748,9 +748,11 @@ PLAN_VERDICTS = [
 @pytest.mark.parametrize("case", PLAN_VERDICTS, ids=lambda c: f"{c[0]}-{c[2][0]}x{c[2][1]}")
 def test_check_plan_verdicts(case):
     """``check_plan`` passes every family's plans over ``model`` (ZeRO-3
-    over ``data`` beside them) and refuses indivisible query heads, an
+    over ``data`` beside them), query heads the axis does not divide among
+    them (the smoke deepseek-7b's 4 heads over 8 ranks, recurrentgemma-2b's
+    2 over 4: whole weights, a padded split of the heads), and refuses an
     ``lru`` split that cuts an RWKV head (the smoke rwkv6's 64 channels of
-    16 a head over 8 ranks), and several devices a process."""
+    16 a head over 8 ranks) and several devices a process."""
     arch, fsdp, (data, model_ways), refusal = case
     plan = build_sharding_plan(get_model(smoke_config(arch).with_(fsdp=fsdp)), adamw(),
                                mesh=SH.ProcessMesh(torch.device("cpu"), (data, model_ways)),
